@@ -1,0 +1,136 @@
+"""Einsum engines — the plain PyTorch contraction backends (no padding).
+
+``einsum`` is the incremental fixpoint of Prop. 2 (the default engine);
+``full`` is the paper-faithful bare recurrence of Eq. 1. The JAX package left
+this contraction to XLA, so the port keeps it as plain ``torch.einsum``.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import List
+
+import torch
+
+from repro_torch.core import rtac
+from repro_torch.core.csp import CSP
+from repro_torch.core.engine import (
+    Engine,
+    PreparedMany,
+    PreparedNetwork,
+    as_changed,
+    as_dom,
+    resolve_instance_idx,
+)
+from repro_torch.core.rtac import EnforceResult, SupportFn, einsum_support
+from . import register
+
+
+@functools.lru_cache(maxsize=None)
+def _einsum_frontier_fix(revise_fn):
+    """Frontier core: batched assign + seed + the gathered incremental
+    fixpoint."""
+
+    def fix(networks, doms, var, val, net_idx):
+        return rtac.assign_enforce_many(networks, doms, var, val, net_idx,
+                                        revise_fn=revise_fn)
+
+    return fix
+
+
+@functools.lru_cache(maxsize=None)
+def _full_frontier_fix(support_fn):
+    def fix(networks, doms, var, val, net_idx):
+        cons, mask = networks
+        return rtac.assign_enforce_full_many(cons, mask, doms, var, val, net_idx,
+                                             support_fn=support_fn)
+
+    return fix
+
+
+class _ContractionEngine(Engine):
+    """Shared plumbing: the network is the CSP's own (cons, mask) on the
+    engine's device; the stacked form is (B, n, n, d, d) / (B, n, n)."""
+
+    stacked_many = True
+    device_frontier = True
+    speculative_rows_hint = 64
+
+    def __init__(self, support_fn: SupportFn = einsum_support, device="cuda"):
+        super().__init__(device)
+        self.support_fn = support_fn
+
+    def _prepare_payload(self, csp: CSP):
+        return (csp.cons.to(self.device), csp.mask.to(self.device))
+
+    def _prepare_many_payload(self, csps: List[CSP]):
+        return (
+            torch.stack([c.cons.to(self.device) for c in csps]),
+            torch.stack([c.mask.to(self.device) for c in csps]),
+        )
+
+    def _rows(self, prepared: PreparedMany, doms, changed0, instance_idx):
+        doms = as_dom(doms, self.device)
+        idx = resolve_instance_idx(instance_idx, prepared.n_instances, doms.shape[0])
+        return doms, as_changed(changed0, self.device), torch.as_tensor(idx, device=self.device)
+
+    def frontier_networks(self, prepared: PreparedMany):
+        return prepared.payload
+
+
+@register
+class EinsumEngine(_ContractionEngine):
+    """Incremental RTAC (Prop. 2) with the einsum support contraction."""
+
+    name = "einsum"
+
+    def __init__(self, support_fn: SupportFn = einsum_support, device="cuda"):
+        super().__init__(support_fn, device)
+        self._revise_fn = rtac._revise_for(support_fn)
+
+    def enforce(self, prepared: PreparedNetwork, dom, changed0=None) -> EnforceResult:
+        return rtac.enforce_generic(
+            prepared.payload, as_dom(dom, self.device), as_changed(changed0, self.device),
+            revise_fn=self._revise_fn,
+        )
+
+    def enforce_batch(self, prepared: PreparedNetwork, doms, changed0=None) -> EnforceResult:
+        return rtac.enforce_batch_generic(
+            prepared.payload, as_dom(doms, self.device), as_changed(changed0, self.device),
+            revise_fn=self._revise_fn,
+        )
+
+    def enforce_many(self, prepared: PreparedMany, doms, changed0=None,
+                     instance_idx=None) -> EnforceResult:
+        doms, ch, idx = self._rows(prepared, doms, changed0, instance_idx)
+        return rtac.enforce_many_generic(prepared.payload, doms, ch, idx,
+                                         revise_fn=self._revise_fn)
+
+    def frontier_fix(self):
+        return _einsum_frontier_fix(self._revise_fn)
+
+
+@register
+class FullEngine(_ContractionEngine):
+    """Paper-faithful dense recurrence (Eq. 1). Ignores ``changed0`` — every
+    step re-tests all (x, a) pairs, exactly as published."""
+
+    name = "full"
+
+    def enforce(self, prepared: PreparedNetwork, dom, changed0=None) -> EnforceResult:
+        cons, mask = prepared.payload
+        return rtac.enforce_full(cons, mask, as_dom(dom, self.device), support_fn=self.support_fn)
+
+    def enforce_batch(self, prepared: PreparedNetwork, doms, changed0=None) -> EnforceResult:
+        cons, mask = prepared.payload
+        return rtac.enforce_full_batch(cons, mask, as_dom(doms, self.device),
+                                       support_fn=self.support_fn)
+
+    def enforce_many(self, prepared: PreparedMany, doms, changed0=None,
+                     instance_idx=None) -> EnforceResult:
+        doms, _, idx = self._rows(prepared, doms, None, instance_idx)
+        cons, mask = prepared.payload
+        return rtac.enforce_full_many(cons, mask, doms, idx, support_fn=self.support_fn)
+
+    def frontier_fix(self):
+        return _full_frontier_fix(self.support_fn)

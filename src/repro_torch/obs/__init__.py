@@ -1,0 +1,52 @@
+"""`repro_torch.obs` — spans and the always-on metric registry.
+
+The PyTorch counterpart of `repro.obs` (tracer + registry; the Perfetto
+export and the CLI come with the service slice):
+
+- **tracer** (`obs.span` / `obs.fence`, `obs.tracing`): nested wall-clock
+  spans in a bounded ring. OFF by default — zero overhead — enabled by
+  `enable()` or ``REPRO_TORCH_TRACE=1``; ``timing="fenced"`` makes `fence`
+  call ``torch.cuda.synchronize()`` so spans measure device completion
+  instead of the asynchronous launch.
+- **registry** (`obs.REGISTRY`, `obs.counter_add` / `gauge_set` /
+  `observe`): named counters/gauges/histograms every subsystem publishes
+  into; `snapshot()` is one ``repro-obs/v1`` dict.
+"""
+
+from . import registry, tracing  # noqa: F401  (submodule access)
+from .registry import (
+    REGISTRY,
+    SCHEMA,
+    Registry,
+    RegistryScope,
+    counter_add,
+    gauge_set,
+    mean,
+    observe,
+    percentile,
+    snapshot,
+    summarize,
+)
+from .tracing import (
+    Span,
+    Tracer,
+    disable,
+    enable,
+    enable_from_env,
+    enabled,
+    fence,
+    get_tracer,
+    now,
+    record_complete,
+    span,
+)
+
+__all__ = [
+    "REGISTRY", "SCHEMA", "Registry", "RegistryScope", "Span", "Tracer",
+    "counter_add", "disable", "enable", "enable_from_env", "enabled", "fence",
+    "gauge_set", "get_tracer", "mean", "now", "observe", "percentile",
+    "record_complete", "snapshot", "span", "summarize",
+]
+
+# honour REPRO_TORCH_TRACE=1 at first import, wherever that import happens
+enable_from_env()

@@ -1,0 +1,272 @@
+"""Span tracer — nested wall-clock spans in a bounded in-memory ring.
+
+The tracing contract (DESIGN.md §10):
+
+- **Zero overhead when off.** The module-level tracer is ``None`` until
+  `enable()` (or ``REPRO_TORCH_TRACE=1`` at import); `span()` then returns one
+  shared null context manager — the off-path cost of an instrumentation
+  point is a global read plus a no-op ``with``. No span objects, no clock
+  reads, no ring writes.
+- **Bounded memory.** Spans land in a ``deque(maxlen=capacity)`` ring; a
+  long-lived service overwrites its oldest spans instead of growing, and
+  the ``dropped`` counter says how many rolled off.
+- **No semantic footprint.** Spans never touch device buffers. The one
+  exception is opt-in: ``timing="fenced"`` makes `fence()` call
+  ``torch.cuda.synchronize()`` so a span brackets real device time instead
+  of an asynchronous launch — a synchronize moves no data and never changes
+  values, so verdicts are bit-identical in every mode. The default
+  ``timing="async"`` leaves CUDA's asynchronous launches untouched.
+
+Span hierarchy is positional: a span opened while another is open is its
+child (one implicit stack per tracer — the whole repo is single-threaded
+by design, see `service.SolverService`). Request-lifetime spans that
+bracket other work (``service.request``) are filed as pre-timed *complete*
+events via `record_complete` instead of nesting.
+"""
+
+from __future__ import annotations
+
+import itertools
+import os
+import time
+from collections import deque
+from typing import Any, Dict, List, Optional
+
+import torch
+
+#: ``REPRO_TORCH_TRACE=1`` enables tracing at import of `repro_torch.obs`
+TRACE_ENV = "REPRO_TORCH_TRACE"
+#: ``REPRO_TORCH_TRACE_TIMING=fenced`` selects fenced timing when env-enabled
+TIMING_ENV = "REPRO_TORCH_TRACE_TIMING"
+#: ``REPRO_TORCH_TRACE_RING=<n>`` overrides the ring capacity when env-enabled
+RING_ENV = "REPRO_TORCH_TRACE_RING"
+DEFAULT_RING = 65_536
+TIMING_MODES = ("async", "fenced")
+
+
+class Span:
+    """One recorded interval. ``t0`` is tracer-clock seconds; ``dur`` is
+    seconds (set at close; -1 while open). ``parent`` is the enclosing
+    span's ``sid`` (0 = top-level). ``track`` groups spans into Perfetto
+    rows (threads)."""
+
+    __slots__ = ("sid", "parent", "name", "cat", "track", "t0", "dur", "args")
+
+    def __init__(self, sid: int, parent: int, name: str, cat: str, track: str,
+                 t0: float, dur: float, args: Dict[str, Any]):
+        self.sid = sid
+        self.parent = parent
+        self.name = name
+        self.cat = cat
+        self.track = track
+        self.t0 = t0
+        self.dur = dur
+        self.args = args
+
+    def to_dict(self) -> Dict[str, Any]:
+        return {
+            "sid": self.sid, "parent": self.parent, "name": self.name,
+            "cat": self.cat, "track": self.track, "t0": self.t0,
+            "dur": self.dur, "args": self.args,
+        }
+
+    def __repr__(self) -> str:  # pragma: no cover - cosmetic
+        return f"<Span {self.name} {self.dur * 1e3:.3f}ms args={self.args}>"
+
+
+class Tracer:
+    """The recording core: a span stack (nesting) + a bounded ring (storage).
+
+    ``timing`` is "async" (default — record launch-side wall-clock, never
+    synchronize) or "fenced" (`fence()` blocks on traced values so spans
+    measure completed device work)."""
+
+    def __init__(self, capacity: int = DEFAULT_RING, timing: str = "async",
+                 clock=time.perf_counter):
+        if timing not in TIMING_MODES:
+            raise ValueError(f"timing must be one of {TIMING_MODES}, got {timing!r}")
+        if capacity < 1:
+            raise ValueError("tracer ring capacity must be >= 1")
+        self.capacity = int(capacity)
+        self.timing = timing
+        self._clock = clock
+        self.origin = clock()  # export rebases timestamps onto this
+        self.spans: deque = deque(maxlen=self.capacity)
+        self.dropped = 0  # spans that rolled off the ring
+        self.force_closed = 0  # mismatched exits repaired by `end`
+        self._stack: List[Span] = []
+        self._ids = itertools.count(1)
+
+    def now(self) -> float:
+        return self._clock()
+
+    # --- recording ----------------------------------------------------------
+
+    def begin(self, name: str, cat: str = "repro", track: str = "main",
+              args: Optional[Dict[str, Any]] = None) -> Span:
+        parent = self._stack[-1].sid if self._stack else 0
+        s = Span(next(self._ids), parent, name, cat, track,
+                 self.now(), -1.0, args if args is not None else {})
+        self._stack.append(s)
+        return s
+
+    def end(self, span: Span) -> None:
+        """Close ``span``. Tolerates mismatched nesting (an exception that
+        skipped an inner exit): any span still open above ``span`` is
+        force-closed at the same instant rather than left to corrupt the
+        stack — integrity over precision."""
+        t1 = self.now()
+        while self._stack:
+            top = self._stack.pop()
+            if top is span:
+                break
+            top.dur = t1 - top.t0
+            self._record(top)
+            self.force_closed += 1
+        span.dur = t1 - span.t0
+        self._record(span)
+
+    def record_complete(self, name: str, t0: float, t1: float,
+                        cat: str = "repro", track: str = "main",
+                        args: Optional[Dict[str, Any]] = None) -> Span:
+        """File a pre-timed span (e.g. a request's submit → retire lifetime,
+        measured around other spans rather than nested inside them)."""
+        s = Span(next(self._ids), 0, name, cat, track, t0,
+                 max(t1 - t0, 0.0), args if args is not None else {})
+        self._record(s)
+        return s
+
+    def _record(self, span: Span) -> None:
+        if len(self.spans) == self.capacity:
+            self.dropped += 1
+        self.spans.append(span)
+
+    # --- introspection ------------------------------------------------------
+
+    @property
+    def open_spans(self) -> int:
+        return len(self._stack)
+
+    def snapshot_spans(self) -> List[Dict[str, Any]]:
+        """The ring as plain dicts (JSON-ready), oldest first."""
+        return [s.to_dict() for s in self.spans]
+
+
+class _NullSpan:
+    """The disabled-path context manager: one shared instance, no state."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return None
+
+    def __exit__(self, *exc):
+        return False
+
+
+_NULL_SPAN = _NullSpan()
+
+
+class _SpanCtx:
+    """Context manager binding one `span()` call to the live tracer. Enter
+    returns the `Span` so call sites can attach result args
+    (``s.args["hit"] = True``) before exit."""
+
+    __slots__ = ("_tracer", "_name", "_cat", "_track", "_args", "_span")
+
+    def __init__(self, tracer: Tracer, name: str, cat: str, track: str,
+                 args: Dict[str, Any]):
+        self._tracer = tracer
+        self._name = name
+        self._cat = cat
+        self._track = track
+        self._args = args
+        self._span: Optional[Span] = None
+
+    def __enter__(self) -> Span:
+        self._span = self._tracer.begin(self._name, self._cat, self._track, self._args)
+        return self._span
+
+    def __exit__(self, *exc):
+        # close against the tracer live at enter — a disable() mid-span
+        # must not strand the stack
+        if self._span is not None:
+            self._tracer.end(self._span)
+        return False
+
+
+# --- the module-level tracer (what the instrumentation points talk to) ------
+
+_TRACER: Optional[Tracer] = None
+
+
+def enabled() -> bool:
+    return _TRACER is not None
+
+
+def get_tracer() -> Optional[Tracer]:
+    return _TRACER
+
+
+def enable(capacity: int = DEFAULT_RING, timing: str = "async") -> Tracer:
+    """Install a fresh tracer (replacing any prior one) and return it."""
+    global _TRACER
+    _TRACER = Tracer(capacity=capacity, timing=timing)
+    return _TRACER
+
+
+def disable() -> Optional[Tracer]:
+    """Remove the tracer; returns it (spans intact) for late export."""
+    global _TRACER
+    t, _TRACER = _TRACER, None
+    return t
+
+
+def enable_from_env(environ=os.environ) -> bool:
+    """``REPRO_TORCH_TRACE=1`` (anything but ""/"0"/"false"/"off") enables
+    tracing with ``REPRO_TORCH_TRACE_TIMING`` / ``REPRO_TORCH_TRACE_RING``
+    knobs. Called once at `repro_torch.obs` import; safe to re-call."""
+    flag = environ.get(TRACE_ENV, "").strip().lower()
+    if not flag or flag in ("0", "false", "off"):
+        return False
+    timing = environ.get(TIMING_ENV, "async").strip().lower() or "async"
+    capacity = int(environ.get(RING_ENV, DEFAULT_RING))
+    enable(capacity=capacity, timing=timing)
+    return True
+
+
+def span(name: str, cat: str = "repro", track: str = "main", **args):
+    """The one instrumentation macro: ``with obs.span("driver.round"): ...``.
+    Returns the shared null context manager when tracing is off."""
+    t = _TRACER
+    if t is None:
+        return _NULL_SPAN
+    return _SpanCtx(t, name, cat, track, args)
+
+
+def record_complete(name: str, t0: float, t1: float, cat: str = "repro",
+                    track: str = "main", **args) -> None:
+    t = _TRACER
+    if t is not None:
+        t.record_complete(name, t0, t1, cat, track, args)
+
+
+def now() -> float:
+    """Tracer-clock timestamp for `record_complete` pairs; 0.0 when off (the
+    pair is never filed then, so the value is inert)."""
+    t = _TRACER
+    return t.now() if t is not None else 0.0
+
+
+def fence(value):
+    """Block until the device has finished the work queued so far — ONLY under
+    ``timing="fenced"`` with tracing on, and only for a CUDA ``value`` (a
+    tensor or a tuple of tensors); a no-op (one global read) otherwise. A
+    synchronize moves no data and never changes values, so verdicts are
+    bit-identical in every mode."""
+    t = _TRACER
+    if t is not None and t.timing == "fenced":
+        first = value[0] if isinstance(value, (tuple, list)) and value else value
+        if isinstance(first, torch.Tensor) and first.is_cuda:
+            torch.cuda.synchronize(first.device)
+    return value
