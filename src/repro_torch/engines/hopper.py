@@ -13,8 +13,8 @@ which read every row's network in place from those tables:
 
 The env default reads ``REPRO_TORCH_FIXPOINT``. ``enforce``/``enforce_batch``
 need the single-network kernel (`repro.kernels.bitpack_support.packed_revise`),
-which a later slice ports (ROADMAP.md, Queue 2); until then they raise, and so
-does ``mac_solve`` on this engine.
+which a later slice ports (ROADMAP.md, Queue 1 item 2); until then they
+raise, and so does ``mac_solve`` on this engine.
 """
 
 from __future__ import annotations
@@ -52,13 +52,8 @@ class HopperPackedEngine(Engine):
     device_frontier = True
     speculative_rows_hint = 64
 
-    def __init__(self, block_rx: int = 8, block_ry: int = 8, fixpoint: str | None = None,
-                 device="cuda"):
+    def __init__(self, fixpoint: str | None = None, device="cuda"):
         super().__init__(device)
-        # block_rx/block_ry fix the padding of n (the reference's tile), so
-        # tables, padded shapes and byte meters agree with `pallas_packed`
-        self.block_rx = block_rx
-        self.block_ry = block_ry
         if fixpoint is None:
             fixpoint = os.environ.get(FIXPOINT_ENV, "fused")
         if fixpoint not in ("fused", "stepped"):
@@ -67,7 +62,7 @@ class HopperPackedEngine(Engine):
         self.fused_fixpoint = fixpoint == "fused"
 
     def _dims(self, n: int, d: int):
-        n_p, d_p = padded_shape(n, d, max(self.block_rx, self.block_ry), ops.D_MULT)
+        n_p, d_p = padded_shape(n, d, ops.N_MULT, ops.D_MULT)
         return n_p, d_p, -(-d_p // 32)
 
     def network_nbytes(self, n_vars: int, dom_size: int) -> int:
@@ -77,13 +72,13 @@ class HopperPackedEngine(Engine):
     # --- single-network path: waits for the packed_revise kernel -------------
 
     def _prepare_payload(self, csp: CSP):
-        network, _, dims = ops.prepare_packed(csp, self.block_rx, self.block_ry, self.device)
+        network, _, dims = ops.prepare_packed(csp, device=self.device)
         return network, dims
 
     def enforce(self, prepared: PreparedNetwork, dom, changed0=None) -> EnforceResult:
         raise NotImplementedError(
             "hopper_packed.enforce needs the single-network packed_revise kernel, "
-            "which is not ported yet (ROADMAP.md, Queue 2); use enforce_many or "
+            "which is not ported yet (ROADMAP.md, Queue 1 item 2); use enforce_many or "
             "the einsum engine"
         )
 
@@ -109,10 +104,9 @@ class HopperPackedEngine(Engine):
         ch_p = pad_changed(as_changed(changed0, self.device), n, n_p,
                            batch=doms.shape[:-2], device=self.device)
         if self.fused_fixpoint:
-            rows_fn = ops._packed_fixpoint_rows_fn(n_p, d_p, w, self.block_rx, self.block_ry)
-            res = ops.enforce_rows_fused(tables, dom_p, ch_p, idx, rows_fn)
+            res = ops._packed_fixpoint_rows_fn(n_p, d_p, w)(tables, dom_p, ch_p, idx)
         else:
-            rows_fn = ops._packed_rows_fn(n_p, d_p, w, self.block_rx, self.block_ry)
+            rows_fn = ops._packed_rows_fn(n_p, d_p, w)
             res = rtac.enforce_rows_generic(tables, dom_p, ch_p, idx, revise_rows_fn=rows_fn)
         return EnforceResult(res.dom[:, :n, :d], res.consistent, res.n_recurrences)
 
@@ -120,7 +114,7 @@ class HopperPackedEngine(Engine):
 
     def frontier_fix(self):
         fn = ops._packed_frontier_fused_fn if self.fused_fixpoint else ops._packed_frontier_fn
-        return fn(self.block_rx, self.block_ry)
+        return fn()
 
     def frontier_networks(self, prepared: PreparedMany):
         return prepared.payload[0]

@@ -35,15 +35,17 @@ def _count_build(name: str) -> None:
     obs.counter_add(f"kernels.fn_builds.{name}")
 
 
+#: variable-axis multiple n is padded to (the reference's default tile)
+N_MULT = 8
 #: value-axis multiple d is padded to (the one place it is set)
 D_MULT = 8
 
-# (kind, blocks, device, id(cons), id(mask)) -> (wref(cons), wref(mask), value)
+# (kind, n_mult, device, id(cons), id(mask)) -> (wref(cons), wref(mask), value)
 _NETWORK_CACHE: dict = {}
 
 
-def _cached(kind: str, csp: CSP, block_rx: int, block_ry: int, device, build):
-    key = (kind, block_rx, block_ry, str(device), id(csp.cons), id(csp.mask))
+def _cached(kind: str, csp: CSP, n_mult: int, device, build):
+    key = (kind, n_mult, str(device), id(csp.cons), id(csp.mask))
     hit = _NETWORK_CACHE.get(key)
     if hit is not None and hit[0]() is csp.cons and hit[1]() is csp.mask:
         return hit[2]
@@ -60,18 +62,21 @@ def pack_network(cons: Tensor, n_p: int, d_p: int) -> Tuple[Tensor, int]:
     return packed.permute(0, 2, 1, 3).reshape(n_p * d_p, n_p * w).contiguous(), w
 
 
-def prepare_packed(csp: CSP, block_rx: int = 8, block_ry: int = 8, device=None):
+def prepare_packed(csp: CSP, block_rx: int = N_MULT, block_ry: int = N_MULT, device=None):
     """-> (network, dom_padded, (n_p, d_p, w)); network = (cons int32, mask u8)
-    on ``device`` (default: the CSP's), memoized per CSP."""
+    on ``device`` (default: the CSP's), memoized per CSP. n pads to a multiple
+    of ``max(block_rx, block_ry)``, as the reference's ``prepare_packed`` does
+    for its tiles; the engine always uses `N_MULT`."""
     faults.inject("kernel.launch", kernel="packed")
     device = csp.cons.device if device is None else torch.device(device)
+    n_mult = max(block_rx, block_ry)
 
     def build():
-        cons, mask, n_p, d_p = pad_network(csp, max(block_rx, block_ry), D_MULT)
+        cons, mask, n_p, d_p = pad_network(csp, n_mult, D_MULT)
         cons_p2, w = pack_network(cons.to(device), n_p, d_p)
         return (cons_p2, mask.to(device=device, dtype=torch.uint8)), (n_p, d_p, w)
 
-    network, (n_p, d_p, w) = _cached("packed", csp, block_rx, block_ry, device, build)
+    network, (n_p, d_p, w) = _cached("packed", csp, n_mult, device, build)
     return network, pad_dom(csp.dom.to(device), n_p, d_p), (n_p, d_p, w)
 
 
@@ -114,7 +119,7 @@ def _kernel_args(doms: Tensor, changed: Tensor, idx: Tensor, n_p: int, w: int):
 
 
 @functools.lru_cache(maxsize=None)
-def _packed_rows_fn(n_p: int, d_p: int, w: int, block_rx: int, block_ry: int):
+def _packed_rows_fn(n_p: int, d_p: int, w: int):
     """Stacked revise-rows closure (rtac.ReviseRowsFn): row domains are packed
     fresh each recurrence; one `packed_revise_stacked` launch per call."""
     _count_build("packed_rows")
@@ -130,13 +135,15 @@ def _packed_rows_fn(n_p: int, d_p: int, w: int, block_rx: int, block_ry: int):
 
 
 @functools.lru_cache(maxsize=None)
-def _packed_fixpoint_rows_fn(n_p: int, d_p: int, w: int, block_rx: int, block_ry: int):
+def _packed_fixpoint_rows_fn(n_p: int, d_p: int, w: int):
     """Stacked one-launch fixpoint: row domains are packed ONCE on entry; the
-    whole recurrence runs inside one `packed_fixpoint_stacked` launch. Same
-    signature as `rtac.enforce_rows_generic` minus the revise closure."""
+    whole recurrence runs inside one `packed_fixpoint_stacked` launch, reading
+    each row's network in place. The closure takes the arguments of
+    `rtac.enforce_rows_generic` minus the revise closure, so callers route
+    between the two with a flag."""
     _count_build("packed_fixpoint_rows")
 
-    def fixpoint_rows(tables, idx, doms, changed):
+    def fixpoint_rows(tables, doms, changed, idx):
         cons_t, mask_t = tables
         idx32, words, ch = _kernel_args(doms, changed, idx, n_p, w)
         dom, consistent, k = bitpack_support.packed_fixpoint_stacked(
@@ -147,29 +154,22 @@ def _packed_fixpoint_rows_fn(n_p: int, d_p: int, w: int, block_rx: int, block_ry
     return fixpoint_rows
 
 
-def enforce_rows_fused(networks, dom, changed0, instance_idx, fixpoint_rows_fn):
-    """Fused-kernel counterpart of `rtac.enforce_rows_generic`: ONE kernel
-    launch runs the whole recurrence, reading each row's network in place."""
-    return fixpoint_rows_fn(networks, instance_idx, dom, changed0)
-
-
 # ---------------------------------------------------------------------------
 # Frontier entries (one round of the device frontier)
 # ---------------------------------------------------------------------------
 
 
-def _frontier_entry(block_rx: int, block_ry: int, fused: bool):
+def _frontier_entry(fused: bool):
     def assign_enforce_rows(tables, doms, var, val, idx):
         r, n, d = doms.shape
-        n_p, d_p = padded_shape(n, d, max(block_rx, block_ry), D_MULT)
+        n_p, d_p = padded_shape(n, d, N_MULT, D_MULT)
         w = -(-d_p // 32)
         dom_p = assign_padded_rows(pad_dom(doms, n_p, d_p), var, val)
         ch_p = _padded_seed(var, n, n_p)
         if fused:
-            rows_fn = _packed_fixpoint_rows_fn(n_p, d_p, w, block_rx, block_ry)
-            res = enforce_rows_fused(tables, dom_p, ch_p, idx, rows_fn)
+            res = _packed_fixpoint_rows_fn(n_p, d_p, w)(tables, dom_p, ch_p, idx)
         else:
-            rows_fn = _packed_rows_fn(n_p, d_p, w, block_rx, block_ry)
+            rows_fn = _packed_rows_fn(n_p, d_p, w)
             res = rtac.enforce_rows_generic(tables, dom_p, ch_p, idx, revise_rows_fn=rows_fn)
         return rtac.EnforceResult(res.dom[:, :n, :d], res.consistent, res.n_recurrences)
 
@@ -177,16 +177,16 @@ def _frontier_entry(block_rx: int, block_ry: int, fused: bool):
 
 
 @functools.lru_cache(maxsize=None)
-def _packed_frontier_fn(block_rx: int, block_ry: int):
+def _packed_frontier_fn():
     """Stepped frontier round: pad, batched Alg. 2 assignment, seed, then the
     host-loop fixpoint with one revise launch per recurrence."""
     _count_build("packed_frontier")
-    return _frontier_entry(block_rx, block_ry, fused=False)
+    return _frontier_entry(fused=False)
 
 
 @functools.lru_cache(maxsize=None)
-def _packed_frontier_fused_fn(block_rx: int, block_ry: int):
+def _packed_frontier_fused_fn():
     """One-launch-per-round frontier entry: pad, assign, seed, then a single
     fused fixpoint launch."""
     _count_build("packed_frontier_fused")
-    return _frontier_entry(block_rx, block_ry, fused=True)
+    return _frontier_entry(fused=True)

@@ -157,7 +157,7 @@ def test_plain_fixpoint_matches_reference_stepped_chain(n, d, brx, bry):
     from repro_torch.core import rtac
 
     stepped = rtac.enforce_rows_generic(tables, dom, ch, torch.as_tensor(idx),
-                                        revise_rows_fn=ops._packed_rows_fn(n_p, d_p, w, brx, bry))
+                                        revise_rows_fn=ops._packed_rows_fn(n_p, d_p, w))
     np.testing.assert_array_equal(stepped.n_recurrences.numpy(), got_k.numpy())
     np.testing.assert_array_equal(stepped.dom.numpy(), np.asarray(want.dom))
 

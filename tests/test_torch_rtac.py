@@ -159,7 +159,7 @@ def test_einsum_engine_single_network_matches_reference():
 def test_hopper_single_network_waits_for_its_kernel():
     _, csp = _pair(*CASES[0])
     prep = get_engine("hopper_packed", device=CPU).prepare(csp)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md, Queue 1 item 2"):
         prep.enforce()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md, Queue 1 item 2"):
         prep.enforce_batch(csp.dom[None])
