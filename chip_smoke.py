@@ -9,19 +9,29 @@ Phases (any failure exits non-zero):
               all nvcc processes at once; print the seconds, ptxas' register
               and spill report, and the card's name and power limit.
 (b) kernels — hold each kernel against its plain PyTorch version, bit for bit,
-              on the card: at the main path's shape (n_p=104, d_p=40, W=2;
-              1,024 rows over 32 packed tables of model_rb n=100 networks) and
-              at one W=1 dense-mask shape (random_binary n=160, d=10,
-              density 1.0). Time kernel and plain version with CUDA events
-              and compute the least time the card could take (bound).
+              on the card. The stacked kernels (packed and dense fixpoint and
+              revise) run at the main path's shape (n_p=104, d_p=40, W=2;
+              1,024 rows over 32 tables of model_rb n=100 networks) and at
+              one W=1 dense-mask shape (random_binary n=160, d=10, density
+              1.0); the single-network revise kernels (packed and dense) at
+              the main shape on one network with 64 child domains, as
+              `mac_solve` gives them. Time kernel and plain version with CUDA
+              events and compute the least time the card could take (bound).
 (c) main path — `solve_many` on 32 model_rb instances (seeds 0-31, n=100,
               alpha=0.8, r=0.7, hardness=0.9, so d=40) with ``max_assignments``
               per instance, on `hopper_packed` fused, then stepped: identical
               solutions and search statistics, every solution checked, the
               fused kernel launched once per round.
+(c2) dense  — the same workload on `hopper_dense` fused, then stepped:
+              identical to each other and to (c), the dense fused kernel
+              launched once per round, the stepped path only the dense revise.
 (d) parity  — the same workload at n=30 on `einsum` and on `hopper_packed`.
-(p) profile — one fused `solve_many` under `torch.profiler`: device busy
-              share and the kernels that take the device's time.
+(e) mac_solve — a few instances of the (c) shape solved one at a time on
+              `hopper_packed`, `hopper_dense` and `einsum` (the single-network
+              kernels): identical solutions and statistics, ms per round.
+(p) profile — one fused `solve_many` on each Hopper engine under
+              `torch.profiler`: device busy share and the kernels that take
+              the device's time.
 
 Prints a ``{"kernels": [...]}`` JSON line, then the card's name and power
 limit, then ``{"ok": true, "device": {...}}`` as the last line. Exits 2
@@ -49,6 +59,18 @@ N_INSTANCES = 32
 N_ROWS = 1024
 MAX_ASSIGNMENTS = 2000
 PARITY_N = 30
+MAC_INSTANCES = 3
+CHILD_ROWS = 64
+
+#: every kernel: (wrapper, kind, TPU kernel it replaces, the run whose launches count)
+KERNELS = [
+    ("packed_fixpoint_stacked", "packed", "bitpack_support.py:295", "packed fused"),
+    ("packed_revise_stacked", "packed", "bitpack_support.py:129", "packed stepped"),
+    ("packed_revise", "packed", "bitpack_support.py:64", "mac_solve hopper_packed"),
+    ("dense_fixpoint_stacked", "dense", "rtac_support.py:310", "dense fused"),
+    ("dense_revise_stacked", "dense", "rtac_support.py:150", "dense stepped"),
+    ("dense_revise", "dense", "rtac_support.py:71", "mac_solve hopper_dense"),
+]
 
 
 class SmokeFailure(Exception):
@@ -89,7 +111,35 @@ def timed_ms(fn, reps: int, device) -> float:
 # ---------------------------------------------------------------------------
 
 
-def kernel_inputs(csps, n_rows: int, seed: int, device):
+def kernel_module(kind: str):
+    from repro_torch.kernels import bitpack_support, rtac_support
+
+    return bitpack_support if kind == "packed" else rtac_support
+
+
+def kernel_kw(kind: str, d_p: int) -> dict:
+    return dict(d=d_p, w=-(-d_p // 32)) if kind == "packed" else dict(d=d_p)
+
+
+def entry_bytes(kind: str, d_p: int) -> int:
+    """Bytes of one (x, a, y) entry of a network: W packed words, or d_p
+    bytes dense."""
+    return 4 * -(-d_p // 32) if kind == "packed" else d_p
+
+
+def dom_rows(dom_p, kind: str):
+    """Padded bool domains (R, n_p, d_p) in a kernel's row layout."""
+    import torch
+
+    from repro_torch.kernels import ref
+
+    r = dom_p.shape[0]
+    if kind == "packed":
+        return ref.pack_bits_ref(dom_p).reshape(r, -1).contiguous()
+    return dom_p.to(torch.uint8).reshape(r, -1).contiguous()
+
+
+def kernel_inputs(csps, n_rows: int, seed: int, device, kind: str):
     """Rows as the main path gives them: a root domain with one assignment
     applied (one-hot seed) for 7 rows in 8, an all-changed root row for the
     rest, each routed to a random table slot."""
@@ -98,10 +148,11 @@ def kernel_inputs(csps, n_rows: int, seed: int, device):
 
     from repro_torch.core.engine import pad_dom
     from repro_torch.engines import get_engine
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import ops
 
-    eng = get_engine("hopper_packed", device=device)
-    tables, (n_p, d_p, w) = eng.prepare_many(csps).payload
+    eng = get_engine(f"hopper_{kind}", device=device)
+    tables, dims = eng.prepare_many(csps).payload
+    n_p, d_p = dims[:2]
     n, d = csps[0].dom.shape
     rng = np.random.default_rng(seed)
     idx = torch.as_tensor(rng.integers(0, len(csps), n_rows), dtype=torch.int32, device=device)
@@ -111,17 +162,17 @@ def kernel_inputs(csps, n_rows: int, seed: int, device):
     val = torch.as_tensor(rng.integers(0, d, n_rows), device=device)
     doms = torch.stack([c.dom for c in csps])[idx.long()]
     dom_p = ops.assign_padded_rows(pad_dom(doms, n_p, d_p), var, val)
-    words = ref.pack_bits_ref(dom_p).reshape(n_rows, n_p * w).contiguous()
     seed_u8 = ops._padded_seed(var, n, n_p).to(torch.uint8).contiguous()
-    return tables, idx, words, seed_u8, (n_p, d_p, w)
+    return tables, idx, dom_rows(dom_p, kind), seed_u8, (n_p, d_p)
 
 
-def work_bound(mask, idx, seeds, d: int, w: int, out_bytes: int):
-    """(bound_ms, bound_by, bytes, word_ands) of revise sweeps with these
-    ``seeds``: each needed input byte read once — the constrained (n·d, W)
-    column slice of every distinct (network, seeded y), those columns' mask
-    entries, the row domains, seeds and slots — each output byte written
-    once; one word AND per constrained (x, a, seeded y, word)."""
+def work_bound(mask, idx, seeds, d: int, entry: int, out_bytes: int, idx_bytes: int = 4):
+    """(bound_ms, bound_by, bytes, and32) of revise sweeps with these
+    ``seeds`` over networks of ``entry`` bytes per (x, a, y): each needed
+    input byte read once — the constrained (n·d) × entry column slice of
+    every distinct (network, seeded y), those columns' mask entries, the row
+    domains, seeds and slots — each output byte written once; one 32-bit AND
+    per 4 bytes of every constrained (x, a, seeded y) entry."""
     import torch
 
     r, n = seeds[0].shape
@@ -132,61 +183,108 @@ def work_bound(mask, idx, seeds, d: int, w: int, out_bytes: int):
     for seed in seeds:
         for s in slots.unique():
             touched[s] |= seed[slots == s].any(dim=0)
-        ands += int((mask_g & seed[:, None, :]).sum()) * d * w
+        ands += int((mask_g & seed[:, None, :]).sum()) * d * entry // 4
     col_x = int((mask.bool().sum(dim=1) * touched).sum())
-    nbytes = col_x * d * w * 4 + int(touched.sum()) * n + r * (n * w * 4 + n + 4) + out_bytes
+    nbytes = (col_x * d * entry + int(touched.sum()) * n + r * (n * entry + n + idx_bytes)
+              + out_bytes)
     t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
     t_ops = 1e3 * ands / ALU_OPS_PER_S
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), nbytes, ands
 
 
-def check_kernels(csps, label: str, device, reps: int = 5):
-    """Both kernels vs their plain versions on one shape; returns per-kernel
-    measurements."""
+def report(label, name, m):
+    print(f"[b] {label} {name}: bit-identical to plain; kernel_ms={m['ms']:.4f} "
+          f"plain_ms={m['plain_ms']:.4f} bound_ms={m['bound'][0]:.4f} "
+          f"(by {m['bound'][1]}: {m['bound'][2]} B, {m['bound'][3]} 32-bit ANDs)"
+          + (f" sweeps={m['sweeps']} k_max={m['k_max']}" if "sweeps" in m else ""),
+          flush=True)
+
+
+def max_err(got, want) -> int:
     import torch
 
-    from repro_torch.kernels import bitpack_support as bs
+    pairs = list(zip(got, want)) if isinstance(got, tuple) else [(got, want)]
+    if pairs[0][0].is_cuda:
+        torch.cuda.synchronize(pairs[0][0].device)
+    return max(int((g.long() - e.long()).abs().max()) for g, e in pairs)
 
-    tables, idx, words, seed, (n_p, d_p, w) = kernel_inputs(csps, N_ROWS, 7, device)
+
+def check_kernels(csps, label: str, device, kind: str, reps: int = 5):
+    """The stacked fixpoint and revise of ``kind`` vs their plain versions on
+    one shape; returns per-kernel measurements."""
+    mod = kernel_module(kind)
+    tables, idx, rows, seed, (n_p, d_p) = kernel_inputs(csps, N_ROWS, 7, device, kind)
     cons_t, mask_t = tables
-    args = (cons_t, mask_t, idx, words, seed)
+    args = (cons_t, mask_t, idx, rows, seed)
+    kw = kernel_kw(kind, d_p)
+    entry = entry_bytes(kind, d_p)
+    r = N_ROWS
     out = {}
 
-    got = bs.packed_fixpoint_stacked(*args, d=d_p, w=w)
+    fix, fix_plain = (getattr(mod, f"{kind}_fixpoint_stacked{s}") for s in ("", "_plain"))
+    got = fix(*args, **kw)
     seeds = []
-    want = bs.packed_fixpoint_stacked_plain(*args, d=d_p, w=w, seeds_out=seeds)
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-    err = max(int((g.long() - e.long()).abs().max()) for g, e in zip(got, want))
-    check(err == 0, f"{label}: packed_fixpoint_stacked differs from its plain version "
-                    f"(max abs err {err})")
-    r = N_ROWS
-    bound = work_bound(mask_t, idx, seeds, d_p, w, out_bytes=r * (n_p * d_p + 1 + 4))
-    out["packed_fixpoint_stacked"] = dict(
+    want = fix_plain(*args, **kw, seeds_out=seeds)
+    err = max_err(got, want)
+    check(err == 0, f"{label}: {fix.__name__} differs from its plain version (max abs err {err})")
+    out[fix.__name__] = dict(
         max_abs_err=err,
-        ms=timed_ms(lambda: bs.packed_fixpoint_stacked(*args, d=d_p, w=w), reps, device),
-        plain_ms=timed_ms(lambda: bs.packed_fixpoint_stacked_plain(*args, d=d_p, w=w), 2, device),
-        bound=bound, sweeps=len(seeds), k_max=int(want[2].max()),
+        ms=timed_ms(lambda: fix(*args, **kw), reps, device),
+        plain_ms=timed_ms(lambda: fix_plain(*args, **kw), 2, device),
+        bound=work_bound(mask_t, idx, seeds, d_p, entry, out_bytes=r * (n_p * d_p + 1 + 4)),
+        sweeps=len(seeds), k_max=int(want[2].max()),
     )
 
-    got = bs.packed_revise_stacked(*args, d=d_p, w=w)
-    want = bs.packed_revise_stacked_plain(*args, d=d_p, w=w)
-    err = int((got.long() - want.long()).abs().max())
-    check(err == 0, f"{label}: packed_revise_stacked differs from its plain version "
-                    f"(max abs err {err})")
-    bound = work_bound(mask_t, idx, [seed.bool()], d_p, w, out_bytes=r * n_p * d_p)
-    out["packed_revise_stacked"] = dict(
+    rev, rev_plain = (getattr(mod, f"{kind}_revise_stacked{s}") for s in ("", "_plain"))
+    err = max_err(rev(*args, **kw), rev_plain(*args, **kw))
+    check(err == 0, f"{label}: {rev.__name__} differs from its plain version (max abs err {err})")
+    out[rev.__name__] = dict(
         max_abs_err=err,
-        ms=timed_ms(lambda: bs.packed_revise_stacked(*args, d=d_p, w=w), 4 * reps, device),
-        plain_ms=timed_ms(lambda: bs.packed_revise_stacked_plain(*args, d=d_p, w=w), 2, device),
-        bound=bound,
+        ms=timed_ms(lambda: rev(*args, **kw), 4 * reps, device),
+        plain_ms=timed_ms(lambda: rev_plain(*args, **kw), 2, device),
+        bound=work_bound(mask_t, idx, [seed.bool()], d_p, entry, out_bytes=r * n_p * d_p),
     )
     for name, m in out.items():
-        print(f"[b] {label} {name}: bit-identical to plain; kernel_ms={m['ms']:.4f} "
-              f"plain_ms={m['plain_ms']:.4f} bound_ms={m['bound'][0]:.4f} "
-              f"(by {m['bound'][1]}: {m['bound'][2]} B, {m['bound'][3]} word ANDs)"
-              + (f" sweeps={m['sweeps']} k_max={m['k_max']}" if "sweeps" in m else ""),
-              flush=True)
+        report(label, name, m)
+    return out
+
+
+def check_single_kernels(csp, label: str, device, reps: int = 20):
+    """`packed_revise` and `dense_revise` vs their plain versions: one
+    network, CHILD_ROWS children of its root (variable 0 assigned each value
+    in turn, one-hot seeds), as `mac_solve` enforces a node's children."""
+    import torch
+
+    from repro_torch.core.engine import pad_dom
+    from repro_torch.engines import get_engine
+    from repro_torch.kernels import ops
+
+    b = CHILD_ROWS
+    n, d = csp.dom.shape
+    out = {}
+    for kind in ("packed", "dense"):
+        mod = kernel_module(kind)
+        (cons, mask), dims, _ = get_engine(f"hopper_{kind}", device=device).prepare(csp).payload
+        n_p, d_p = dims[:2]
+        var = torch.zeros(b, dtype=torch.long, device=device)
+        val = torch.arange(b, device=device) % d
+        dom_p = ops.assign_padded_rows(pad_dom(csp.dom.expand(b, n, d), n_p, d_p), var, val)
+        seed = ops._padded_seed(var, n, n_p).to(torch.uint8).contiguous()
+        args = (cons, mask, dom_rows(dom_p, kind), seed)
+        kw = kernel_kw(kind, d_p)
+        fn, plain = getattr(mod, f"{kind}_revise"), getattr(mod, f"{kind}_revise_plain")
+        err = max_err(fn(*args, **kw), plain(*args, **kw))
+        check(err == 0, f"{label}: {fn.__name__} differs from its plain version "
+                        f"(max abs err {err})")
+        out[fn.__name__] = dict(
+            max_abs_err=err,
+            ms=timed_ms(lambda: fn(*args, **kw), reps, device),
+            plain_ms=timed_ms(lambda: plain(*args, **kw), 2, device),
+            bound=work_bound(mask[None], torch.zeros(b, dtype=torch.int32, device=device),
+                             [seed.bool()], d_p, entry_bytes(kind, d_p),
+                             out_bytes=b * n_p * d_p, idx_bytes=0),
+        )
+        report(label, fn.__name__, out[fn.__name__])
     return out
 
 
@@ -202,13 +300,23 @@ def stats_key(st):
             st.quarantined)
 
 
+def reset_launches() -> None:
+    for kind in ("packed", "dense"):
+        kernel_module(kind).reset_launches()
+
+
+def launch_counts() -> dict:
+    return {name: getattr(kernel_module(kind), name).launches for name, kind, _, _ in KERNELS}
+
+
 def run_solve(csps, engine, max_assignments: int, device):
+    """`solve_many` with every launch count set to 0 just before and read
+    just after."""
     import torch
 
     from repro_torch.core import solve_many
-    from repro_torch.kernels import bitpack_support as bs
 
-    bs.reset_launches()
+    reset_launches()
     tel = {}
     t0 = time.perf_counter()
     sols, stats = solve_many(csps, engine=engine, max_assignments=max_assignments,
@@ -216,9 +324,11 @@ def run_solve(csps, engine, max_assignments: int, device):
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     seconds = time.perf_counter() - t0
-    launches = {"packed_fixpoint_stacked": bs.packed_fixpoint_stacked.launches,
-                "packed_revise_stacked": bs.packed_revise_stacked.launches}
-    return sols, stats, tel, seconds, launches
+    return sols, stats, tel, seconds, launch_counts()
+
+
+def launched(launches: dict) -> dict:
+    return {k: v for k, v in launches.items() if v}
 
 
 def compare_runs(label, csps, a, b):
@@ -240,7 +350,7 @@ def describe(name, run):
     exhausted = sum(s.exhausted for s in stats)
     print(f"    {name}: {seconds:.3f} s, rounds={tel['rounds']} rows={tel['rows_dispatched']} "
           f"rows_padded={tel['rows_padded']} ms/round={1e3 * seconds / max(tel['rounds'], 1):.3f} "
-          f"launches={tel['launches']} kernel counts={launches} solved={solved} "
+          f"launches={tel['launches']} kernel counts={launched(launches)} solved={solved} "
           f"exhausted={exhausted} assignments={sum(s.n_assignments for s in stats)} "
           f"host_bytes_per_round={tel['host_bytes_per_round']:.1f}", flush=True)
 
@@ -265,24 +375,102 @@ def main_path(device, max_assignments: int = MAX_ASSIGNMENTS, n_instances: int =
                       max_assignments, device)
     describe("hopper_packed stepped", run_s)
     compare_runs("fused vs stepped", csps, run_f, run_s)
-    tel_f, launches_f = run_f[2], run_f[4]
-    check(launches_f["packed_fixpoint_stacked"] == tel_f["rounds"],
-          f"fused kernel launched {launches_f['packed_fixpoint_stacked']} times in "
-          f"{tel_f['rounds']} rounds")
-    check(launches_f["packed_revise_stacked"] == 0, "the fused path launched the revise kernel")
-    check(run_s[4]["packed_revise_stacked"] > 0, "the stepped path never launched its kernel")
-    check(run_s[4]["packed_fixpoint_stacked"] == 0, "the stepped path launched the fused kernel")
+    check_launches("packed", run_f, run_s)
     print("[c] fused == stepped: solutions and search statistics identical; every "
           "solution checks; fused launches == rounds", flush=True)
     return run_f, run_s
 
 
-def profile_main_path(device, max_assignments: int = 500, n_instances: int = N_INSTANCES,
-                      spec=MAIN):
+def check_launches(kind: str, run_f, run_s):
+    """The fused run launched only the fused kernel of ``kind``, once per
+    round; the stepped run only the stacked revise of ``kind``."""
+    fused, stepped = f"{kind}_fixpoint_stacked", f"{kind}_revise_stacked"
+    rounds = run_f[2]["rounds"]
+    check(launched(run_f[4]) == {fused: rounds},
+          f"{kind} fused run launched {launched(run_f[4])} in {rounds} rounds")
+    check(set(launched(run_s[4])) == {stepped},
+          f"{kind} stepped run launched {launched(run_s[4])}")
+
+
+def dense_path(device, run_packed, max_assignments: int = MAX_ASSIGNMENTS,
+               n_instances: int = N_INSTANCES, spec=MAIN):
+    """(c2): the main path's workload on `hopper_dense`, fused then stepped,
+    held against each other and against the `hopper_packed` fused run."""
+    from repro_torch.engines import get_engine
+    from repro_torch.problems import generate
+
+    csps = [generate("model_rb", seed=i, device=device, **spec) for i in range(n_instances)]
+    n, d = csps[0].dom.shape
+    fused = get_engine("hopper_dense", fixpoint="fused", device=device)
+    print(f"[c2] solve_many on hopper_dense, the same {n_instances} instances; dense tables "
+          f"{n_instances * fused.network_nbytes(n, d)} B", flush=True)
+    run_f = run_solve(csps, fused, max_assignments, device)
+    describe("hopper_dense fused", run_f)
+    run_s = run_solve(csps, get_engine("hopper_dense", fixpoint="stepped", device=device),
+                      max_assignments, device)
+    describe("hopper_dense stepped", run_s)
+    compare_runs("dense fused vs dense stepped", csps, run_f, run_s)
+    compare_runs("dense fused vs packed fused", csps, run_f, run_packed)
+    check_launches("dense", run_f, run_s)
+    print("[c2] hopper_dense fused == stepped == hopper_packed: solutions and search "
+          "statistics identical; fused launches == rounds", flush=True)
+    return run_f, run_s
+
+
+def mac_path(device, max_assignments: int = MAX_ASSIGNMENTS, n_instances: int = MAC_INSTANCES,
+             spec=MAIN):
+    """(e): `mac_solve` on a few instances of the main shape, one at a time,
+    on the two Hopper engines (single-network kernels) and on `einsum`."""
+    import torch
+
+    from repro_torch.core import check_solution, mac_solve
+    from repro_torch.problems import generate
+
+    csps = [generate("model_rb", seed=i, device=device, **spec) for i in range(n_instances)]
+    n, d = csps[0].dom.shape
+    print(f"[e] mac_solve on {n_instances} model_rb instances n={n} d={d} "
+          f"max_assignments={max_assignments}", flush=True)
+    runs = {}
+    for name in ("hopper_packed", "hopper_dense", "einsum"):
+        reset_launches()
+        t0 = time.perf_counter()
+        out = [mac_solve(csp, engine=name, device=device, max_assignments=max_assignments)
+               for csp in csps]
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        seconds = time.perf_counter() - t0
+        rounds = sum(st.rounds for _, st in out)
+        runs[name] = (out, launch_counts())
+        print(f"    {name}: {seconds:.3f} s, rounds={rounds} "
+              f"ms/round={1e3 * seconds / max(rounds, 1):.3f} "
+              f"rows={sum(st.rows for _, st in out)} "
+              f"assignments={sum(st.n_assignments for _, st in out)} "
+              f"solved={sum(sol is not None for sol, _ in out)} "
+              f"exhausted={sum(st.exhausted for _, st in out)} "
+              f"kernel counts={launched(runs[name][1])}", flush=True)
+    want = [(sol, stats_key(st)) for sol, st in runs["einsum"][0]]
+    for name in ("hopper_packed", "hopper_dense"):
+        check([(sol, stats_key(st)) for sol, st in runs[name][0]] == want,
+              f"mac_solve on {name} differs from einsum")
+    for csp, (sol, _) in zip(csps, runs["einsum"][0]):
+        if sol is not None:
+            check(check_solution(csp, sol), "a mac_solve solution is wrong")
+    check(set(launched(runs["hopper_packed"][1])) == {"packed_revise"},
+          f"hopper_packed mac_solve launched {launched(runs['hopper_packed'][1])}")
+    check(set(launched(runs["hopper_dense"][1])) == {"dense_revise"},
+          f"hopper_dense mac_solve launched {launched(runs['hopper_dense'][1])}")
+    check(not launched(runs["einsum"][1]), "einsum launched a kernel")
+    print("[e] mac_solve hopper_packed == hopper_dense == einsum: solutions and search "
+          "statistics identical; every solution checks", flush=True)
+    return runs
+
+
+def profile_main_path(device, engine: str, max_assignments: int = 500,
+                      n_instances: int = N_INSTANCES, spec=MAIN):
     """Where a fused round's time goes: `torch.profiler` over one fused
-    `solve_many` (a smaller budget keeps the trace short). Prints the wall
-    time, the summed device time of every kernel and copy, the device busy
-    share, and the kernels that take the most device time."""
+    `solve_many` on ``engine`` (a smaller budget keeps the trace short).
+    Prints the wall time, the summed device time of every kernel and copy,
+    the device busy share, and the kernels that take the most device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -290,7 +478,7 @@ def profile_main_path(device, max_assignments: int = 500, n_instances: int = N_I
     from repro_torch.problems import generate
 
     csps = [generate("model_rb", seed=i, device=device, **spec) for i in range(n_instances)]
-    eng = get_engine("hopper_packed", fixpoint="fused", device=device)
+    eng = get_engine(engine, fixpoint="fused", device=device)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         run = run_solve(csps, eng, max_assignments, device)
     wall_ms = 1e3 * run[3]
@@ -305,7 +493,7 @@ def profile_main_path(device, max_assignments: int = 500, n_instances: int = N_I
     if not on_device:
         print("[p] profiler recorded no device time: device busy share not measured")
         return
-    print(f"[p] profiled fused solve_many (max_assignments={max_assignments}): wall "
+    print(f"[p] profiled {engine} fused solve_many (max_assignments={max_assignments}): wall "
           f"{wall_ms:.1f} ms over {rounds} rounds ({wall_ms / rounds:.3f} ms/round, profiler "
           f"on); device busy {busy_ms:.1f} ms = {100 * busy_ms / wall_ms:.1f}% of wall")
     for e in on_device[:8]:
@@ -362,30 +550,39 @@ def main() -> int:
 
         main_csps = [generate("model_rb", seed=i, device=device, **MAIN)
                      for i in range(N_INSTANCES)]
-        dense_csps = [generate("random_binary", seed=i, device=device, n=160, d=10,
-                               density=1.0) for i in range(N_INSTANCES)]
-        measured = check_kernels(main_csps, "main n_p=104 d_p=40 W=2", device)
-        check_kernels(dense_csps, "dense n_p=160 d_p=16 W=1", device)
-        del main_csps, dense_csps
+        wide_csps = [generate("random_binary", seed=i, device=device, n=160, d=10,
+                              density=1.0) for i in range(N_INSTANCES)]
+        measured = {}
+        for kind in ("packed", "dense"):
+            measured.update(check_kernels(main_csps, "main n_p=104 d_p=40 W=2", device, kind))
+            check_kernels(wide_csps, "density-1 n_p=160 d_p=16 W=1", device, kind)
+        measured.update(check_single_kernels(main_csps[0], f"main n_p=104 d_p=40 "
+                                             f"B={CHILD_ROWS} one network", device))
+        del main_csps, wide_csps
 
         run_f, run_s = main_path(device)
+        run_df, run_ds = dense_path(device, run_f)
         parity_einsum(device)
-        profile_main_path(device)
+        macs = mac_path(device)
+        for name in ("hopper_packed", "hopper_dense"):
+            profile_main_path(device, name)
 
-        sources = {"packed_fixpoint_stacked": ("packed_fixpoint", "295", run_f),
-                   "packed_revise_stacked": ("packed_revise", "129", run_s)}
+        counts = {"packed fused": run_f[4], "packed stepped": run_s[4],
+                  "dense fused": run_df[4], "dense stepped": run_ds[4],
+                  "mac_solve hopper_packed": macs["hopper_packed"][1],
+                  "mac_solve hopper_dense": macs["hopper_dense"][1]}
         kernels = []
-        for name, (src_name, line, run) in sources.items():
+        for name, kind, line, run in KERNELS:
             m = measured[name]
             kernels.append(dict(
                 name=name, route="cuda",
-                source=f"src/repro_torch/kernels/csrc/{src_name}.cu",
-                replaces=f"src/repro/kernels/bitpack_support.py:{line}",
-                launches=run[4][name], max_abs_err=m["max_abs_err"], ms=m["ms"],
+                source=f"src/repro_torch/kernels/csrc/{name.replace('_stacked', '')}.cu",
+                replaces=f"src/repro/kernels/{line}",
+                launches=counts[run][name], max_abs_err=m["max_abs_err"], ms=m["ms"],
                 plain_ms=m["plain_ms"], bound_ms=m["bound"][0], bound_by=m["bound"][1],
                 library_ms=None,
             ))
-            check(kernels[-1]["launches"] > 0, f"{name} was not launched on the main path")
+            check(kernels[-1]["launches"] > 0, f"{name} was not launched on its path ({run})")
         print(f"[done] {time.perf_counter() - t_start:.1f} s in all", flush=True)
         print(json.dumps({"kernels": kernels}))
         print(card)

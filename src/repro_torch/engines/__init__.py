@@ -4,13 +4,16 @@
     eng = get_engine("hopper_packed", device="cuda")
     many = eng.prepare_many(csps)          # pad + bitpack + place, ONCE
     res = many.enforce_many(doms, ch, idx) # one stacked fixpoint
+    res = eng.prepare(csp).enforce_batch(doms)  # B domains, one network
 
 Registered backends:
 
     einsum         incremental RTAC (Prop. 2), torch.einsum contraction
     full           paper-faithful dense recurrence (Eq. 1, no incrementality)
-    hopper_packed  incremental RTAC on bitpacked networks, hand-written CUDA
-                   kernels (fused fixpoint / stepped revise)
+    hopper_dense   incremental RTAC on dense u8 networks, hand-written CUDA
+                   kernels (fused fixpoint / stepped revise; single-network
+                   revise for enforce, enforce_batch and mac_solve)
+    hopper_packed  the same on bitpacked networks
 
 ``device`` defaults to ``"cuda"``; without a card, ``get_engine`` raises
 unless ``device="cpu"`` is passed.
@@ -49,6 +52,7 @@ from . import hopper as _hopper  # noqa: E402
 
 EinsumEngine = _einsum.EinsumEngine
 FullEngine = _einsum.FullEngine
+HopperDenseEngine = _hopper.HopperDenseEngine
 HopperPackedEngine = _hopper.HopperPackedEngine
 
 __all__ = [
@@ -59,5 +63,6 @@ __all__ = [
     "available_engines",
     "EinsumEngine",
     "FullEngine",
+    "HopperDenseEngine",
     "HopperPackedEngine",
 ]

@@ -1,20 +1,24 @@
-"""Hopper kernel engine — incremental RTAC on bitpacked networks.
+"""Hopper kernel engines — incremental RTAC on dense u8 and bitpacked networks.
 
-The counterpart of `repro.engines.pallas.PallasPackedEngine`. ``prepare_many``
-stacks the per-instance packed networks into ``(B, n_p·d_p, n_p·W)`` int32
-slot tables; each frontier round or ``enforce_many`` call runs the fixpoint
-with the hand-written CUDA kernels of `repro_torch.kernels.bitpack_support`,
-which read every row's network in place from those tables:
+The counterparts of `repro.engines.pallas.PallasDenseEngine` and
+`PallasPackedEngine`. ``prepare`` pays the O(n²d²) padding / transpose
+[/ bitpack] of the constraint tensor once per CSP; the hot path pads only
+the O(n·d) domains into kernel coordinates and un-pads the result.
 
-- ``fixpoint="fused"`` (default): one `packed_fixpoint_stacked` launch per
-  round runs the whole recurrence;
-- ``fixpoint="stepped"``: a host loop with one `packed_revise_stacked`
-  launch per recurrence — the fallback rung and the parity oracle.
+- ``enforce``/``enforce_batch`` (and so ``mac_solve``) run the host-loop
+  fixpoint of `rtac.enforce_generic` / `enforce_batch_generic` with one
+  single-network revise launch per recurrence (`dense_revise` /
+  `packed_revise`).
+- ``prepare_many`` stacks the per-instance networks into slot tables —
+  ``(B, n_p·d_p, n_p·d_p)`` u8 dense, ``(B, n_p·d_p, n_p·W)`` int32 packed —
+  and each frontier round or ``enforce_many`` call runs the stacked kernels,
+  which read every row's network in place from those tables:
+  ``fixpoint="fused"`` (default) one `*_fixpoint_stacked` launch per round
+  runs the whole recurrence; ``fixpoint="stepped"`` is a host loop with one
+  `*_revise_stacked` launch per recurrence — the fallback rung and the
+  parity oracle.
 
-The env default reads ``REPRO_TORCH_FIXPOINT``. ``enforce``/``enforce_batch``
-need the single-network kernel (`repro.kernels.bitpack_support.packed_revise`),
-which a later slice ports (ROADMAP.md, Queue 1 item 2); until then they
-raise, and so does ``mac_solve`` on this engine.
+The env default of ``fixpoint`` reads ``REPRO_TORCH_FIXPOINT``.
 """
 
 from __future__ import annotations
@@ -43,11 +47,15 @@ from . import register
 FIXPOINT_ENV = "REPRO_TORCH_FIXPOINT"
 
 
-@register
-class HopperPackedEngine(Engine):
-    """Incremental RTAC with the bitpacked CUDA kernels (fused or stepped)."""
+class _HopperEngine(Engine):
+    """Shared prepare/enforce plumbing; subclasses pick the kernel family.
 
-    name = "hopper_packed"
+    Subclass hooks: ``kind`` (``"dense"`` | ``"packed"``, the key of the
+    `kernels.ops` closures), ``_prepare_net(csp)`` (the memoized padded
+    network on the engine's device), ``_revise_fn(*dims)`` (the
+    single-network revise closure) and the two frontier entries."""
+
+    kind: str
     stacked_many = True
     device_frontier = True
     speculative_rows_hint = 64
@@ -61,41 +69,45 @@ class HopperPackedEngine(Engine):
         self.fixpoint = fixpoint
         self.fused_fixpoint = fixpoint == "fused"
 
-    def _dims(self, n: int, d: int):
-        n_p, d_p = padded_shape(n, d, ops.N_MULT, ops.D_MULT)
-        return n_p, d_p, -(-d_p // 32)
+    def _dims(self, n: int, d: int) -> tuple:
+        return ops.dims(self.kind, *padded_shape(n, d, ops.N_MULT, ops.D_MULT))
 
-    def network_nbytes(self, n_vars: int, dom_size: int) -> int:
-        n_p, d_p, w = self._dims(n_vars, dom_size)
-        return n_p * d_p * n_p * w * 4 + n_p * n_p  # packed words + u8 mask
-
-    # --- single-network path: waits for the packed_revise kernel -------------
+    # --- single-network path (one search, many domains) ---------------------
 
     def _prepare_payload(self, csp: CSP):
-        network, _, dims = ops.prepare_packed(csp, device=self.device)
-        return network, dims
+        dims = self._dims(*csp.dom.shape)
+        return self._prepare_net(csp), dims, self._revise_fn(*dims)
 
     def enforce(self, prepared: PreparedNetwork, dom, changed0=None) -> EnforceResult:
-        raise NotImplementedError(
-            "hopper_packed.enforce needs the single-network packed_revise kernel, "
-            "which is not ported yet (ROADMAP.md, Queue 1 item 2); use enforce_many or "
-            "the einsum engine"
-        )
+        network, dims, revise_fn = prepared.payload
+        n_p, d_p = dims[0], dims[1]
+        n, d = prepared.n_vars, prepared.dom_size
+        dom_p = pad_dom(as_dom(dom, self.device), n_p, d_p)
+        ch_p = pad_changed(changed0, n, n_p, device=self.device)
+        res = rtac.enforce_generic(network, dom_p, ch_p, revise_fn=revise_fn)
+        return EnforceResult(res.dom[:n, :d], res.consistent, res.n_recurrences)
 
     def enforce_batch(self, prepared: PreparedNetwork, doms, changed0=None) -> EnforceResult:
-        return self.enforce(prepared, doms, changed0)
+        network, dims, revise_fn = prepared.payload
+        n_p, d_p = dims[0], dims[1]
+        n, d = prepared.n_vars, prepared.dom_size
+        doms = as_dom(doms, self.device)
+        dom_p = pad_dom(doms, n_p, d_p)
+        ch_p = pad_changed(changed0, n, n_p, batch=doms.shape[:-2], device=self.device)
+        res = rtac.enforce_batch_generic(network, dom_p, ch_p, revise_fn=revise_fn)
+        return EnforceResult(res.dom[:, :n, :d], res.consistent, res.n_recurrences)
 
-    # --- stacked workload path ----------------------------------------------
+    # --- stacked workload path (R rows, each against its OWN network) -------
 
     def _prepare_many_payload(self, csps):
-        nets = [self._prepare_payload(c)[0] for c in csps]
+        nets = [self._prepare_net(c) for c in csps]
         tables = (torch.stack([t[0] for t in nets]), torch.stack([t[1] for t in nets]))
-        n, d = csps[0].dom.shape
-        return tables, self._dims(n, d)
+        return tables, self._dims(*csps[0].dom.shape)
 
     def enforce_many(self, prepared: PreparedMany, doms, changed0=None,
                      instance_idx=None) -> EnforceResult:
-        tables, (n_p, d_p, w) = prepared.payload
+        tables, dims = prepared.payload
+        n_p, d_p = dims[0], dims[1]
         n, d = prepared.n_vars, prepared.dom_size
         doms = as_dom(doms, self.device)
         idx = resolve_instance_idx(instance_idx, prepared.n_instances, doms.shape[0])
@@ -103,18 +115,50 @@ class HopperPackedEngine(Engine):
         dom_p = pad_dom(doms, n_p, d_p)
         ch_p = pad_changed(as_changed(changed0, self.device), n, n_p,
                            batch=doms.shape[:-2], device=self.device)
-        if self.fused_fixpoint:
-            res = ops._packed_fixpoint_rows_fn(n_p, d_p, w)(tables, dom_p, ch_p, idx)
-        else:
-            rows_fn = ops._packed_rows_fn(n_p, d_p, w)
-            res = rtac.enforce_rows_generic(tables, dom_p, ch_p, idx, revise_rows_fn=rows_fn)
+        res = ops.enforce_rows(self.kind, self.fused_fixpoint, tables, dom_p, ch_p, idx, dims)
         return EnforceResult(res.dom[:, :n, :d], res.consistent, res.n_recurrences)
 
     # --- device-resident frontiers ------------------------------------------
 
     def frontier_fix(self):
-        fn = ops._packed_frontier_fused_fn if self.fused_fixpoint else ops._packed_frontier_fn
+        fn = self._frontier_fused_fn if self.fused_fixpoint else self._frontier_fn
         return fn()
 
     def frontier_networks(self, prepared: PreparedMany):
         return prepared.payload[0]
+
+
+@register
+class HopperDenseEngine(_HopperEngine):
+    """Incremental RTAC with the dense u8 CUDA kernels (fused or stepped)."""
+
+    name = "hopper_dense"
+    kind = "dense"
+    _revise_fn = staticmethod(ops._dense_revise_fn)
+    _frontier_fn = staticmethod(ops._dense_frontier_fn)
+    _frontier_fused_fn = staticmethod(ops._dense_frontier_fused_fn)
+
+    def _prepare_net(self, csp: CSP):
+        return ops.prepare_dense(csp, device=self.device)[0]
+
+    def network_nbytes(self, n_vars: int, dom_size: int) -> int:
+        n_p, d_p = self._dims(n_vars, dom_size)
+        return n_p * d_p * n_p * d_p + n_p * n_p  # u8 cons2 + u8 mask
+
+
+@register
+class HopperPackedEngine(_HopperEngine):
+    """Incremental RTAC with the bitpacked CUDA kernels (fused or stepped)."""
+
+    name = "hopper_packed"
+    kind = "packed"
+    _revise_fn = staticmethod(ops._packed_revise_fn)
+    _frontier_fn = staticmethod(ops._packed_frontier_fn)
+    _frontier_fused_fn = staticmethod(ops._packed_frontier_fused_fn)
+
+    def _prepare_net(self, csp: CSP):
+        return ops.prepare_packed(csp, device=self.device)[0]
+
+    def network_nbytes(self, n_vars: int, dom_size: int) -> int:
+        n_p, d_p, w = self._dims(n_vars, dom_size)
+        return n_p * d_p * n_p * w * 4 + n_p * n_p  # packed words + u8 mask

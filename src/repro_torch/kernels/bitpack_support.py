@@ -8,13 +8,16 @@ uint32 bit patterns):
     has[x,a,y] = any_w(cons_word & dom_word) != 0  ∨  ¬mask[x,y]
     violated[x,a] = ∃y: seed[y] ∧ ¬has[x,a,y]
 
-Both kernels take the slot TABLES and a row→slot map ``idx`` and read each
-row's network in place — no per-round gathered copy of the networks:
+The stacked kernels take the slot TABLES and a row→slot map ``idx`` and read
+each row's network in place — no per-round gathered copy of the networks:
 
 - :func:`packed_revise_stacked` — one revise step for R rows
   (``csrc/packed_revise.cu``; the stepped fixpoint's revise);
 - :func:`packed_fixpoint_stacked` — the whole incremental fixpoint of R rows
-  in one launch (``csrc/packed_fixpoint.cu``; the fused default).
+  in one launch (``csrc/packed_fixpoint.cu``; the fused default);
+- :func:`packed_revise` — one revise step of B domains against ONE network
+  (``csrc/packed_revise.cu``, same body; the single-network path of
+  ``enforce``/``enforce_batch`` and so of ``mac_solve``).
 
 Device rule: a wrapper given CPU tensors computes the plain version; given
 CUDA tensors it launches its kernel or raises — it never falls back. Each
@@ -23,73 +26,23 @@ wrapper counts its launches in ``<wrapper>.launches``.
 
 from __future__ import annotations
 
-import ctypes
-from typing import List, Optional, Tuple
+from typing import Optional
 
 import torch
 
-from . import build
+from .launch import check_operands, check_smem, launch
 from .ref import pack_bits_ref, unpack_bits_ref
 
 Tensor = torch.Tensor
 
-#: dynamic shared memory a block may use without an opt-in attribute
-_SMEM_LIMIT = 48 * 1024
 
-
-def _check(cons: Tensor, mask: Tensor, idx: Tensor, dom_words: Tensor, changed: Tensor,
-           d: int, w: int) -> Tuple[int, int]:
-    """Validate the operands both kernels take; returns (R, n)."""
-    c, nd, nw = cons.shape
-    n = nd // d
-    r = idx.shape[0]
-    expect = {
-        "cons": (cons, torch.int32, (c, n * d, n * w)),
-        "mask": (mask, torch.uint8, (c, n, n)),
-        "idx": (idx, torch.int32, (r,)),
-        "dom_words": (dom_words, torch.int32, (r, n * w)),
-        "changed": (changed, torch.uint8, (r, n)),
-    }
-    for name, (t, dtype, shape) in expect.items():
-        if t.dtype != dtype or tuple(t.shape) != shape:
-            raise ValueError(f"{name}: want {dtype} {shape}, got {t.dtype} {tuple(t.shape)}")
-        if t.device != cons.device:
-            raise ValueError(f"{name} is on {t.device}, cons on {cons.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    if nw != n * w or w != -(-d // 32):
-        raise ValueError(f"cons columns {nw} != n*W with W=ceil({d}/32)")
-    if cons.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device {cons.device}")
-    return r, n
-
-
-_SIGNATURES = {
-    "packed_fixpoint": ("packed_fixpoint_stacked_launch", 8),
-    "packed_revise": ("packed_revise_stacked_launch", 6),
-}
-
-
-def _lib(name: str) -> ctypes.CDLL:
-    """The kernel library with its C signatures bound (pointers as c_void_p,
-    so ctypes never truncates them to 32 bits)."""
-    lib = build.load(name)
-    fn_name, n_ptrs = _SIGNATURES[name]
-    fn = getattr(lib, fn_name)
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    return lib
-
-
-def _launch(name: str, tensors: List[Tensor], r: int, n: int, d: int, w: int) -> None:
-    fn = getattr(_lib(name), _SIGNATURES[name][0])
-    device = tensors[0].device
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = fn(*[t.data_ptr() for t in tensors], r, n, d, w, stream)
-    if rc != 0:
-        raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")
+def _check(cons: Tensor, mask: Tensor, idx: Optional[Tensor], dom_words: Tensor,
+           changed: Tensor, d: int, w: int):
+    """Validate the packed kernels' operands (``idx`` None: one network);
+    returns (rows, n)."""
+    if w != -(-d // 32):
+        raise ValueError(f"W={w} != ceil({d}/32)")
+    return check_operands(cons, mask, idx, dom_words, changed, d=d, cols=w, word=torch.int32)
 
 
 def _revise_chunk_rows(n: int, d: int, w: int) -> int:
@@ -97,9 +50,26 @@ def _revise_chunk_rows(n: int, d: int, w: int) -> int:
     return max(1, (1 << 28) // (n * d * n * w * 4))
 
 
+def _revise_rows_plain(net: Tensor, mask: Tensor, dom_words: Tensor, changed: Tensor,
+                       n: int, d: int, w: int) -> Tensor:
+    """violated (rows, n·d) u8 of ``rows`` domains against ``net`` (rows or 1,
+    n·d, n·W) with ``mask`` (rows or 1, n, n)."""
+    rows = dom_words.shape[0]
+    net = net.view(-1, n, d, n, w)  # (rows, x, a, y, w)
+    has = ((net & dom_words.view(rows, 1, 1, n, w)) != 0).any(dim=-1)  # (rows, x, a, y)
+    has |= mask.bool()[:, :, None, :].logical_not()
+    seed = changed.bool()[:, None, None, :]
+    return (seed & ~has).any(dim=-1).view(rows, n * d).to(torch.uint8)
+
+
 # ---------------------------------------------------------------------------
 # One revise step (stepped fixpoint)
 # ---------------------------------------------------------------------------
+
+
+def _revise_smem(n: int, d: int, w: int) -> int:
+    """Shared memory of one revise block: domain words, seed list, 8·d flags."""
+    return (n * w + n) * 4 + 8 * d
 
 
 def packed_revise_stacked_plain(cons: Tensor, mask: Tensor, idx: Tensor, dom_words: Tensor,
@@ -111,13 +81,8 @@ def packed_revise_stacked_plain(cons: Tensor, mask: Tensor, idx: Tensor, dom_wor
     step = _revise_chunk_rows(n, d, w)
     for s in range(0, r, step):
         ii = idx[s:s + step].long()
-        rows = ii.shape[0]
-        net = cons[ii].view(rows, n, d, n, w)  # (rows, x, a, y, w)
-        dw = dom_words[s:s + step].view(rows, 1, 1, n, w)
-        has = ((net & dw) != 0).any(dim=-1)  # (rows, x, a, y)
-        has |= mask[ii].bool()[:, :, None, :].logical_not()
-        seed = changed[s:s + step].bool()[:, None, None, :]
-        out[s:s + step] = (seed & ~has).any(dim=-1).view(rows, n * d).to(torch.uint8)
+        out[s:s + step] = _revise_rows_plain(cons[ii], mask[ii], dom_words[s:s + step],
+                                             changed[s:s + step], n, d, w)
     return out
 
 
@@ -130,13 +95,11 @@ def packed_revise_stacked(cons: Tensor, mask: Tensor, idx: Tensor, dom_words: Te
     r, n = _check(cons, mask, idx, dom_words, changed, d, w)
     if cons.device.type == "cpu":
         return packed_revise_stacked_plain(cons, mask, idx, dom_words, changed, d=d, w=w)
-    smem = (n * w + n) * 4 + 8 * d
-    if smem > _SMEM_LIMIT:
-        raise ValueError(f"packed_revise_stacked: n·W={n * w} needs {smem} B of shared "
-                         f"memory, more than its layout's {_SMEM_LIMIT} B")
+    check_smem("packed_revise_stacked", _revise_smem(n, d, w), f"n·W={n * w}")
     out = torch.empty((r, n * d), dtype=torch.uint8, device=cons.device)
     if r:
-        _launch("packed_revise", [cons, mask, idx, dom_words, changed, out], r, n, d, w)
+        launch("packed_revise", "packed_revise_stacked_launch",
+               [cons, mask, idx, dom_words, changed, out], r, n, d, w)
         packed_revise_stacked.launches += 1
     return out
 
@@ -192,16 +155,13 @@ def packed_fixpoint_stacked(cons: Tensor, mask: Tensor, idx: Tensor, dom_words: 
     r, n = _check(cons, mask, idx, dom_words, changed, d, w)
     if cons.device.type == "cpu":
         return packed_fixpoint_stacked_plain(cons, mask, idx, dom_words, changed, d=d, w=w)
-    smem = (2 * n * w + n) * 4 + n
-    if smem > _SMEM_LIMIT:
-        raise ValueError(f"packed_fixpoint_stacked: n·W={n * w} needs {smem} B of shared "
-                         f"memory, more than its layout's {_SMEM_LIMIT} B")
+    check_smem("packed_fixpoint_stacked", (2 * n * w + n) * 4 + n, f"n·W={n * w}")
     dom = torch.empty((r, n * d), dtype=torch.uint8, device=cons.device)
     consistent = torch.empty((r,), dtype=torch.uint8, device=cons.device)
     k = torch.empty((r,), dtype=torch.int32, device=cons.device)
     if r:
-        _launch("packed_fixpoint", [cons, mask, idx, dom_words, changed, dom, consistent, k],
-                r, n, d, w)
+        launch("packed_fixpoint", "packed_fixpoint_stacked_launch",
+               [cons, mask, idx, dom_words, changed, dom, consistent, k], r, n, d, w)
         packed_fixpoint_stacked.launches += 1
     return dom, consistent, k
 
@@ -209,8 +169,48 @@ def packed_fixpoint_stacked(cons: Tensor, mask: Tensor, idx: Tensor, dom_words: 
 packed_fixpoint_stacked.launches = 0
 
 
+# ---------------------------------------------------------------------------
+# One revise step against one network (the single-network path)
+# ---------------------------------------------------------------------------
+
+
+def packed_revise_plain(cons: Tensor, mask: Tensor, dom_words: Tensor, changed: Tensor, *,
+                        d: int, w: int) -> Tensor:
+    """Plain PyTorch version of `packed_revise`, in chunks of rows."""
+    b, n = _check(cons, mask, None, dom_words, changed, d, w)
+    out = torch.empty((b, n * d), dtype=torch.uint8, device=cons.device)
+    step = _revise_chunk_rows(n, d, w)
+    for s in range(0, b, step):
+        out[s:s + step] = _revise_rows_plain(cons[None], mask[None], dom_words[s:s + step],
+                                             changed[s:s + step], n, d, w)
+    return out
+
+
+def packed_revise(cons: Tensor, mask: Tensor, dom_words: Tensor, changed: Tensor, *,
+                  d: int, w: int) -> Tensor:
+    """B packed revisions against ONE network (the reference vmaps its
+    single-network kernel over B).
+
+    cons (n·d, n·W) int32, mask (n, n) u8, dom_words (B, n·W) int32,
+    changed (B, n) u8 -> violated (B, n·d) u8."""
+    b, n = _check(cons, mask, None, dom_words, changed, d, w)
+    if cons.device.type == "cpu":
+        return packed_revise_plain(cons, mask, dom_words, changed, d=d, w=w)
+    check_smem("packed_revise", _revise_smem(n, d, w), f"n·W={n * w}")
+    out = torch.empty((b, n * d), dtype=torch.uint8, device=cons.device)
+    if b:
+        launch("packed_revise", "packed_revise_launch", [cons, mask, dom_words, changed, out],
+               b, n, d, w)
+        packed_revise.launches += 1
+    return out
+
+
+packed_revise.launches = 0
+
+
 def reset_launches() -> None:
     """Zero every wrapper's launch count."""
     packed_revise_stacked.launches = 0
     packed_fixpoint_stacked.launches = 0
+    packed_revise.launches = 0
 

@@ -1,11 +1,15 @@
 // One incremental RTAC revise step over bitpacked networks, R rows per launch.
 //
-// Replaces the TPU kernel src/repro/kernels/bitpack_support.py::
-// packed_revise_stacked (body _revise_packed_stacked_kernel):
-// violated[r, x·d+a] = ∃y: seed[r,y] ∧ mask[x,y] ∧ (cons[x·d+a, y·W..] & dom[r, y·W..]) == 0,
-// each row against its own network. It is the stepped fixpoint's revise
-// (one launch per recurrence) — the fallback rung and the parity oracle of
-// the fused kernel.
+// Replaces two TPU kernels of src/repro/kernels/bitpack_support.py, which
+// share one body:
+// - packed_revise_stacked (body _revise_packed_stacked_kernel): each row
+//   against its own network, read through instance_idx. It is the stepped
+//   fixpoint's revise (one launch per recurrence) — the fallback rung and the
+//   parity oracle of the fused kernel.
+// - packed_revise (body _revise_packed_kernel): B domains against ONE
+//   network (instance_idx null, network stride 0) — the single-network path
+//   of enforce/enforce_batch and so of mac_solve; the reference vmaps it.
+// violated[r, x·d+a] = ∃y: seed[r,y] ∧ mask[x,y] ∧ (cons[x·d+a, y·W..] & dom[r, y·W..]) == 0.
 //
 // What bounds it on an H100: bytes — the (n*d, W) column slice of each seeded
 // y is read once and ANDed once.
@@ -15,8 +19,8 @@
 // one block owns one (row r, block of kVars variables) output tile and loops
 // over the row's seeded y columns itself: no cross-block reduction, no
 // atomics in global memory. The network is read in place from the slot table
-// through instance_idx; the row's domain words and its compacted seed list
-// sit in shared memory.
+// through instance_idx (or is the one network); the row's domain words and
+// its compacted seed list sit in shared memory.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -28,7 +32,7 @@ constexpr int kVars = 8;  // variables (x) per block
 __global__ void __launch_bounds__(kThreads) packed_revise_kernel(
     const uint32_t* __restrict__ cons,    // (C, n*d, n*w) slot table
     const uint8_t* __restrict__ mask,     // (C, n, n)
-    const int32_t* __restrict__ idx,      // (R,)
+    const int32_t* __restrict__ idx,      // (R,), or null: one network
     const uint32_t* __restrict__ dom_in,  // (R, n*w)
     const uint8_t* __restrict__ seed_in,  // (R, n)
     uint8_t* __restrict__ viol_out,       // (R, n*d)
@@ -45,7 +49,7 @@ __global__ void __launch_bounds__(kThreads) packed_revise_kernel(
   const int x0 = blockIdx.y * kVars;
   const int rows = min(kVars, n - x0) * d;
   const int tid = threadIdx.x;
-  const size_t slot = static_cast<size_t>(idx[r]);
+  const size_t slot = idx ? static_cast<size_t>(idx[r]) : 0;
   const uint32_t* c = cons + slot * static_cast<size_t>(nd) * nw;
   const uint8_t* m = mask + slot * static_cast<size_t>(n) * n;
 
@@ -84,9 +88,9 @@ static size_t packed_revise_smem_bytes(int n, int d, int w) {
   return static_cast<size_t>(n * w + n) * sizeof(uint32_t) + static_cast<size_t>(kVars * d);
 }
 
-extern "C" int packed_revise_stacked_launch(
-    const void* cons, const void* mask, const void* idx, const void* dom_in,
-    const void* seed_in, void* viol_out, int rows, int n, int d, int w, void* stream) {
+static int launch(const void* cons, const void* mask, const void* idx, const void* dom_in,
+                  const void* seed_in, void* viol_out, int rows, int n, int d, int w,
+                  void* stream) {
   if (rows <= 0) return 0;
   const dim3 grid(rows, (n + kVars - 1) / kVars);
   packed_revise_kernel<<<grid, kThreads, packed_revise_smem_bytes(n, d, w),
@@ -95,4 +99,18 @@ extern "C" int packed_revise_stacked_launch(
       static_cast<const int32_t*>(idx), static_cast<const uint32_t*>(dom_in),
       static_cast<const uint8_t*>(seed_in), static_cast<uint8_t*>(viol_out), n, d, w);
   return static_cast<int>(cudaGetLastError());
+}
+
+// R rows, row r against the slot table's network idx[r].
+extern "C" int packed_revise_stacked_launch(
+    const void* cons, const void* mask, const void* idx, const void* dom_in,
+    const void* seed_in, void* viol_out, int rows, int n, int d, int w, void* stream) {
+  return launch(cons, mask, idx, dom_in, seed_in, viol_out, rows, n, d, w, stream);
+}
+
+// B rows against one network.
+extern "C" int packed_revise_launch(
+    const void* cons, const void* mask, const void* dom_in, const void* seed_in,
+    void* viol_out, int rows, int n, int d, int w, void* stream) {
+  return launch(cons, mask, nullptr, dom_in, seed_in, viol_out, rows, n, d, w, stream);
 }

@@ -1,0 +1,97 @@
+"""Operand checks and ctypes launches shared by the port's kernel modules.
+
+Every kernel library (``csrc/<library>.cu``, built by `build`) exports plain
+C launchers ``int <launcher>(void* tensors..., int sizes..., void* stream)``
+that return the ``cudaError`` of the launch. `SIGNATURES` lists, per
+library, each launcher's count of pointer and int arguments, so ctypes
+passes pointers as 64-bit values and never cuts them to 32 bits.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Sequence, Tuple
+
+import torch
+
+from . import build
+
+Tensor = torch.Tensor
+
+#: dynamic shared memory a block may use without an opt-in attribute
+SMEM_LIMIT = 48 * 1024
+
+#: library -> {C launcher: (pointer arguments, int arguments)}; the stream
+#: follows. Stacked launchers take (rows, n, d[, w]) after their tensors,
+#: single-network launchers the same without the row→slot map.
+SIGNATURES = {
+    "packed_fixpoint": {"packed_fixpoint_stacked_launch": (8, 4)},
+    "packed_revise": {"packed_revise_stacked_launch": (6, 4), "packed_revise_launch": (5, 4)},
+    "dense_fixpoint": {"dense_fixpoint_stacked_launch": (8, 3)},
+    "dense_revise": {"dense_revise_stacked_launch": (6, 3), "dense_revise_launch": (5, 3)},
+}
+
+
+def check_operands(cons: Tensor, mask: Tensor, idx: Optional[Tensor], dom: Tensor,
+                   changed: Tensor, *, d: int, cols: int, word: torch.dtype) -> Tuple[int, int]:
+    """Validate a kernel's operands; returns (rows, n).
+
+    ``cons`` holds ``cols`` columns of dtype ``word`` per variable: a slot
+    table (C, n·d, n·cols) read through ``idx`` (R,) int32, or, with ``idx``
+    None, one network (n·d, n·cols). ``dom`` is (R, n·cols) ``word``,
+    ``changed`` (R, n) u8, ``mask`` (C, n, n) or (n, n) u8."""
+    lead = tuple(cons.shape[:1]) if idx is not None else ()
+    if cons.dim() != len(lead) + 2:
+        raise ValueError(f"cons: want {len(lead) + 2} dims, got shape {tuple(cons.shape)}")
+    n = cons.shape[-2] // d
+    r = (idx if idx is not None else dom).shape[0]
+    expect = {
+        "cons": (cons, word, (*lead, n * d, n * cols)),
+        "mask": (mask, torch.uint8, (*lead, n, n)),
+        "dom": (dom, word, (r, n * cols)),
+        "changed": (changed, torch.uint8, (r, n)),
+    }
+    if idx is not None:
+        expect["idx"] = (idx, torch.int32, (r,))
+    for name, (t, dtype, shape) in expect.items():
+        if t.dtype != dtype or tuple(t.shape) != shape:
+            raise ValueError(f"{name}: want {dtype} {shape}, got {t.dtype} {tuple(t.shape)}")
+        if t.device != cons.device:
+            raise ValueError(f"{name} is on {t.device}, cons on {cons.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if cons.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {cons.device}")
+    return r, n
+
+
+def check_smem(kernel: str, nbytes: int, layout: str) -> None:
+    """Raise if a block of ``kernel`` needs more shared memory than it may use."""
+    if nbytes > SMEM_LIMIT:
+        raise ValueError(f"{kernel}: {layout} needs {nbytes} B of shared memory, more than "
+                         f"its layout's {SMEM_LIMIT} B")
+
+
+def _function(library: str, launcher: str):
+    fn = getattr(build.load(library), launcher)
+    if fn.argtypes is None:
+        n_ptrs, n_ints = SIGNATURES[library][launcher]
+        fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def launch(library: str, launcher: str, tensors: Sequence[Tensor], *sizes: int) -> None:
+    """Launch ``launcher`` of ``library`` on the current stream of the
+    tensors' device; raise if the launch is refused."""
+    n_ptrs, n_ints = SIGNATURES[library][launcher]
+    if len(tensors) != n_ptrs or len(sizes) != n_ints:
+        raise ValueError(f"{launcher} takes {n_ptrs} tensors and {n_ints} sizes, "
+                         f"got {len(tensors)} and {len(sizes)}")
+    fn = _function(library, launcher)
+    device = tensors[0].device
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = fn(*[t.data_ptr() for t in tensors], *sizes, stream)
+    if rc != 0:
+        raise RuntimeError(f"{launcher} failed: cudaError {rc}")

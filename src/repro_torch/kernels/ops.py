@@ -1,12 +1,15 @@
-"""Wrappers binding the bitpacked kernels into the RTAC fixpoint.
+"""Wrappers binding the dense and bitpacked kernels into the RTAC fixpoint.
 
-The counterpart of `repro.kernels.ops` (packed half; the dense u8 kernels
-come in a later slice). It handles the shape contract between the algorithm
-(n vars × d values, any sizes) and the kernels (padded, flattened,
-bitpacked); the padding contract itself lives in `repro_torch.core.engine`.
+The counterpart of `repro.kernels.ops`. It handles the shape contract
+between the algorithm (n vars × d values, any sizes) and the kernels
+(padded, flattened, optionally bitpacked); the padding contract itself lives
+in `repro_torch.core.engine`. Kernel coordinates (``dims``) are (n_p, d_p)
+for the dense u8 kernels and (n_p, d_p, W) for the packed ones.
 
-- Network preparation (pad + transpose + bitpack of the O(n²d²) constraint
-  tensor) is memoized per CSP identity and device.
+- Network preparation (pad + transpose [+ bitpack] of the O(n²d²)
+  constraint tensor) is memoized per CSP identity and device.
+- The single-network closures (`_dense_revise_fn`, `_packed_revise_fn`)
+  follow `rtac.ReviseFn`: B domains against one network per launch.
 - The rows functions take the slot tables and the row→slot map, never
   gathered networks: the kernels read ``tables[idx[r]]`` in place.
 - Factories are ``lru_cache``-d on shapes so each closure is built once.
@@ -24,7 +27,7 @@ from repro_torch import faults, obs
 from repro_torch.core import rtac
 from repro_torch.core.csp import CSP
 from repro_torch.core.engine import pad_dom, pad_network, padded_shape
-from . import bitpack_support, ref
+from . import bitpack_support, ref, rtac_support
 
 Tensor = torch.Tensor
 
@@ -53,6 +56,25 @@ def _cached(kind: str, csp: CSP, n_mult: int, device, build):
     evict = lambda _ref: _NETWORK_CACHE.pop(key, None)
     _NETWORK_CACHE[key] = (weakref.ref(csp.cons, evict), weakref.ref(csp.mask, evict), value)
     return value
+
+
+def prepare_dense(csp: CSP, block_rx: int = N_MULT, block_ry: int = N_MULT, device=None):
+    """-> (network, dom_padded, (n_p, d_p)); network = (cons2 u8, mask u8) on
+    ``device`` (default: the CSP's), memoized per CSP. ``cons2[x·d_p + a,
+    y·d_p + b]`` is the padded (n_p, n_p, d_p, d_p) tensor transposed to
+    (x, a, y, b). n pads as in `prepare_packed`."""
+    faults.inject("kernel.launch", kernel="dense")
+    device = csp.cons.device if device is None else torch.device(device)
+    n_mult = max(block_rx, block_ry)
+
+    def build():
+        cons, mask, n_p, d_p = pad_network(csp, n_mult, D_MULT)
+        cons2 = cons.to(device).permute(0, 2, 1, 3).reshape(n_p * d_p, n_p * d_p)
+        return (cons2.to(torch.uint8).contiguous(),
+                mask.to(device=device, dtype=torch.uint8)), (n_p, d_p)
+
+    network, (n_p, d_p) = _cached("dense", csp, n_mult, device, build)
+    return network, pad_dom(csp.dom.to(device), n_p, d_p), (n_p, d_p)
 
 
 def pack_network(cons: Tensor, n_p: int, d_p: int) -> Tuple[Tensor, int]:
@@ -108,14 +130,93 @@ def assign_padded_rows(dom_p: Tensor, var: Tensor, val: Tensor) -> Tensor:
 
 
 # ---------------------------------------------------------------------------
+# Single-network revise closures (enforce / enforce_batch, so mac_solve)
+# ---------------------------------------------------------------------------
+
+
+def _u8(t: Tensor) -> Tensor:
+    return t.to(torch.uint8).contiguous()
+
+
+def _idx32(idx: Tensor) -> Tensor:
+    return idx.to(torch.int32).contiguous()
+
+
+def _words(doms: Tensor, n_p: int, w: int) -> Tensor:
+    return ref.pack_bits_ref(doms).reshape(doms.shape[0], n_p * w)
+
+
+@functools.lru_cache(maxsize=None)
+def _dense_revise_fn(n_p: int, d_p: int):
+    """Single-network revise closure (rtac.ReviseFn): B domains (B, n_p, d_p)
+    against one dense network, one `dense_revise` launch per call."""
+    _count_build("dense_revise")
+
+    def revise(network, dom, changed):
+        cons2, mask = network
+        b = dom.shape[0]
+        viol = rtac_support.dense_revise(cons2, mask, _u8(dom).view(b, n_p * d_p),
+                                         _u8(changed), d=d_p)
+        return viol.view(b, n_p, d_p).bool()
+
+    return revise
+
+
+@functools.lru_cache(maxsize=None)
+def _packed_revise_fn(n_p: int, d_p: int, w: int):
+    """Single-network revise closure (rtac.ReviseFn): B domains, packed fresh
+    each recurrence, against one packed network; one `packed_revise` launch
+    per call."""
+    _count_build("packed_revise")
+
+    def revise(network, dom, changed):
+        cons_p2, mask = network
+        viol = bitpack_support.packed_revise(cons_p2, mask, _words(dom, n_p, w), _u8(changed),
+                                             d=d_p, w=w)
+        return viol.view(-1, n_p, d_p).bool()
+
+    return revise
+
+
+# ---------------------------------------------------------------------------
 # Stacked revise (stepped) and fused fixpoint rows functions
 # ---------------------------------------------------------------------------
 
 
-def _kernel_args(doms: Tensor, changed: Tensor, idx: Tensor, n_p: int, w: int):
-    r = doms.shape[0]
-    words = ref.pack_bits_ref(doms).reshape(r, n_p * w)
-    return idx.to(torch.int32).contiguous(), words, changed.to(torch.uint8).contiguous()
+@functools.lru_cache(maxsize=None)
+def _dense_rows_fn(n_p: int, d_p: int):
+    """Stacked revise-rows closure (rtac.ReviseRowsFn) for the dense u8
+    kernel: one `dense_revise_stacked` launch per call."""
+    _count_build("dense_rows")
+
+    def revise_rows(tables, idx, doms, changed):
+        cons_t, mask_t = tables
+        r = doms.shape[0]
+        viol = rtac_support.dense_revise_stacked(cons_t, mask_t, _idx32(idx),
+                                                 _u8(doms).view(r, n_p * d_p), _u8(changed),
+                                                 d=d_p)
+        return viol.view(r, n_p, d_p).bool()
+
+    return revise_rows
+
+
+@functools.lru_cache(maxsize=None)
+def _dense_fixpoint_rows_fn(n_p: int, d_p: int):
+    """Stacked one-launch fixpoint for the dense u8 kernel: the whole
+    recurrence runs inside one `dense_fixpoint_stacked` launch, reading each
+    row's network in place. Takes the arguments of `rtac.enforce_rows_generic`
+    minus the revise closure, so callers route between the two with a flag."""
+    _count_build("dense_fixpoint_rows")
+
+    def fixpoint_rows(tables, doms, changed, idx):
+        cons_t, mask_t = tables
+        r = doms.shape[0]
+        dom, consistent, k = rtac_support.dense_fixpoint_stacked(
+            cons_t, mask_t, _idx32(idx), _u8(doms).view(r, n_p * d_p), _u8(changed), d=d_p
+        )
+        return rtac.EnforceResult(dom.view(r, n_p, d_p).bool(), consistent.bool(), k)
+
+    return fixpoint_rows
 
 
 @functools.lru_cache(maxsize=None)
@@ -126,8 +227,8 @@ def _packed_rows_fn(n_p: int, d_p: int, w: int):
 
     def revise_rows(tables, idx, doms, changed):
         cons_t, mask_t = tables
-        idx32, words, ch = _kernel_args(doms, changed, idx, n_p, w)
-        viol = bitpack_support.packed_revise_stacked(cons_t, mask_t, idx32, words, ch,
+        viol = bitpack_support.packed_revise_stacked(cons_t, mask_t, _idx32(idx),
+                                                     _words(doms, n_p, w), _u8(changed),
                                                      d=d_p, w=w)
         return viol.view(-1, n_p, d_p).bool()
 
@@ -138,20 +239,38 @@ def _packed_rows_fn(n_p: int, d_p: int, w: int):
 def _packed_fixpoint_rows_fn(n_p: int, d_p: int, w: int):
     """Stacked one-launch fixpoint: row domains are packed ONCE on entry; the
     whole recurrence runs inside one `packed_fixpoint_stacked` launch, reading
-    each row's network in place. The closure takes the arguments of
-    `rtac.enforce_rows_generic` minus the revise closure, so callers route
-    between the two with a flag."""
+    each row's network in place. Same arguments as `_dense_fixpoint_rows_fn`."""
     _count_build("packed_fixpoint_rows")
 
     def fixpoint_rows(tables, doms, changed, idx):
         cons_t, mask_t = tables
-        idx32, words, ch = _kernel_args(doms, changed, idx, n_p, w)
         dom, consistent, k = bitpack_support.packed_fixpoint_stacked(
-            cons_t, mask_t, idx32, words, ch, d=d_p, w=w
+            cons_t, mask_t, _idx32(idx), _words(doms, n_p, w), _u8(changed), d=d_p, w=w
         )
         return rtac.EnforceResult(dom.view(-1, n_p, d_p).bool(), consistent.bool(), k)
 
     return fixpoint_rows
+
+
+def dims(kind: str, n_p: int, d_p: int) -> tuple:
+    """Kernel coordinates of a padded (n_p, d_p) shape: (n_p, d_p) for
+    ``"dense"``, (n_p, d_p, W) for ``"packed"``."""
+    return (n_p, d_p) if kind == "dense" else (n_p, d_p, -(-d_p // 32))
+
+
+_ROWS_FNS = {"dense": (_dense_rows_fn, _dense_fixpoint_rows_fn),
+             "packed": (_packed_rows_fn, _packed_fixpoint_rows_fn)}
+
+
+def enforce_rows(kind: str, fused: bool, tables, dom_p: Tensor, ch_p: Tensor, idx: Tensor,
+                 kdims: tuple) -> rtac.EnforceResult:
+    """R fixpoints in kernel coordinates, row i against ``tables[idx[i]]``:
+    one fused kernel launch, or the stepped host loop with one stacked revise
+    launch per recurrence."""
+    rows_fn, fixpoint_rows_fn = _ROWS_FNS[kind]
+    if fused:
+        return fixpoint_rows_fn(*kdims)(tables, dom_p, ch_p, idx)
+    return rtac.enforce_rows_generic(tables, dom_p, ch_p, idx, revise_rows_fn=rows_fn(*kdims))
 
 
 # ---------------------------------------------------------------------------
@@ -159,34 +278,45 @@ def _packed_fixpoint_rows_fn(n_p: int, d_p: int, w: int):
 # ---------------------------------------------------------------------------
 
 
-def _frontier_entry(fused: bool):
+def _frontier_entry(kind: str, fused: bool):
     def assign_enforce_rows(tables, doms, var, val, idx):
         r, n, d = doms.shape
         n_p, d_p = padded_shape(n, d, N_MULT, D_MULT)
-        w = -(-d_p // 32)
         dom_p = assign_padded_rows(pad_dom(doms, n_p, d_p), var, val)
         ch_p = _padded_seed(var, n, n_p)
-        if fused:
-            res = _packed_fixpoint_rows_fn(n_p, d_p, w)(tables, dom_p, ch_p, idx)
-        else:
-            rows_fn = _packed_rows_fn(n_p, d_p, w)
-            res = rtac.enforce_rows_generic(tables, dom_p, ch_p, idx, revise_rows_fn=rows_fn)
+        res = enforce_rows(kind, fused, tables, dom_p, ch_p, idx, dims(kind, n_p, d_p))
         return rtac.EnforceResult(res.dom[:, :n, :d], res.consistent, res.n_recurrences)
 
     return assign_enforce_rows
 
 
 @functools.lru_cache(maxsize=None)
+def _dense_frontier_fn():
+    """Stepped dense frontier round: pad, batched Alg. 2 assignment, seed,
+    then the host-loop fixpoint with one revise launch per recurrence."""
+    _count_build("dense_frontier")
+    return _frontier_entry("dense", fused=False)
+
+
+@functools.lru_cache(maxsize=None)
+def _dense_frontier_fused_fn():
+    """One-launch-per-round dense frontier entry: pad, assign, seed, then a
+    single fused fixpoint launch."""
+    _count_build("dense_frontier_fused")
+    return _frontier_entry("dense", fused=True)
+
+
+@functools.lru_cache(maxsize=None)
 def _packed_frontier_fn():
-    """Stepped frontier round: pad, batched Alg. 2 assignment, seed, then the
-    host-loop fixpoint with one revise launch per recurrence."""
+    """Stepped packed frontier round: pad, batched Alg. 2 assignment, seed,
+    then the host-loop fixpoint with one revise launch per recurrence."""
     _count_build("packed_frontier")
-    return _frontier_entry(fused=False)
+    return _frontier_entry("packed", fused=False)
 
 
 @functools.lru_cache(maxsize=None)
 def _packed_frontier_fused_fn():
-    """One-launch-per-round frontier entry: pad, assign, seed, then a single
-    fused fixpoint launch."""
+    """One-launch-per-round packed frontier entry: pad, assign, seed, then a
+    single fused fixpoint launch."""
     _count_build("packed_frontier_fused")
-    return _frontier_entry(fused=True)
+    return _frontier_entry("packed", fused=True)

@@ -1,0 +1,221 @@
+"""Dense u8 RTAC kernels for Hopper, each beside its plain PyTorch version.
+
+The counterpart of `repro.kernels.rtac_support`. A network is the padded
+(n, n, d, d) constraint tensor viewed as one byte per constraint bit,
+
+    cons2[s, x·d + a, y·d + b]   u8 0/1, one slot s per network
+    has[x,a,y] = any_b(cons2[x·d+a, y·d+b] & dom[y·d+b]) != 0  ∨  ¬mask[x,y]
+    violated[x,a] = ∃y: seed[y] ∧ ¬has[x,a,y]
+
+(the reference sums the ANDed bytes and tests the count > 0; the test is the
+same). The stacked kernels take the slot TABLES and a row→slot map ``idx``
+and read each row's network in place — no per-round gathered copy:
+
+- :func:`dense_revise_stacked` — one revise step for R rows
+  (``csrc/dense_revise.cu``; the stepped fixpoint's revise);
+- :func:`dense_fixpoint_stacked` — the whole incremental fixpoint of R rows
+  in one launch (``csrc/dense_fixpoint.cu``; the fused default);
+- :func:`dense_revise` — one revise step of B domains against ONE network
+  (``csrc/dense_revise.cu``, same body; the single-network path of
+  ``enforce``/``enforce_batch`` and so of ``mac_solve``).
+
+The kernels read each (x·a, y) slice as d/8 eight-byte words, so d must be a
+multiple of 8 (`ops.D_MULT`) and cons/dom 8-byte aligned.
+
+Device rule: a wrapper given CPU tensors computes the plain version; given
+CUDA tensors it launches its kernel or raises — it never falls back. Each
+wrapper counts its launches in ``<wrapper>.launches``.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from .launch import check_operands, check_smem, launch
+
+Tensor = torch.Tensor
+
+#: value-axis words the kernels read: d must be a multiple of this
+_WORD_BYTES = 8
+
+
+def _check(cons: Tensor, mask: Tensor, idx: Optional[Tensor], dom: Tensor, changed: Tensor,
+           d: int):
+    """Validate the dense kernels' operands (``idx`` None: one network);
+    returns (rows, n)."""
+    if d % _WORD_BYTES:
+        raise ValueError(f"d={d} is not a multiple of {_WORD_BYTES}")
+    r, n = check_operands(cons, mask, idx, dom, changed, d=d, cols=d, word=torch.uint8)
+    for name, t in (("cons", cons), ("dom", dom)):
+        if t.data_ptr() % _WORD_BYTES:
+            raise ValueError(f"{name} must be {_WORD_BYTES}-byte aligned")
+    return r, n
+
+
+def _revise_chunk_rows(n: int, d: int) -> int:
+    """Rows per chunk of the plain revise (bounds its gathered working set:
+    one (n·d, n·d) u8 network is 17.3 MB at n=104, d=40)."""
+    return max(1, (1 << 28) // (n * d * n * d))
+
+
+def _revise_rows_plain(net: Tensor, mask: Tensor, dom: Tensor, changed: Tensor,
+                       n: int, d: int) -> Tensor:
+    """violated (rows, n·d) u8 of ``rows`` domains against ``net`` (rows or 1,
+    n·d, n·d) with ``mask`` (rows or 1, n, n)."""
+    rows = dom.shape[0]
+    net = net.view(-1, n, d, n, d)  # (rows, x, a, y, b)
+    has = ((net & dom.view(rows, 1, 1, n, d)) != 0).any(dim=-1)  # (rows, x, a, y)
+    has |= mask.bool()[:, :, None, :].logical_not()
+    seed = changed.bool()[:, None, None, :]
+    return (seed & ~has).any(dim=-1).view(rows, n * d).to(torch.uint8)
+
+
+def _revise_smem(n: int, d: int) -> int:
+    """Shared memory of one revise block: domain bytes, seed list, 8·d flags."""
+    return n * d + 4 * n + 8 * d
+
+
+# ---------------------------------------------------------------------------
+# One revise step (stepped fixpoint)
+# ---------------------------------------------------------------------------
+
+
+def dense_revise_stacked_plain(cons: Tensor, mask: Tensor, idx: Tensor, dom: Tensor,
+                               changed: Tensor, *, d: int) -> Tensor:
+    """Plain PyTorch version of `dense_revise_stacked` (same operands, same
+    result), gathering row networks in chunks."""
+    r, n = _check(cons, mask, idx, dom, changed, d)
+    out = torch.empty((r, n * d), dtype=torch.uint8, device=cons.device)
+    step = _revise_chunk_rows(n, d)
+    for s in range(0, r, step):
+        ii = idx[s:s + step].long()
+        out[s:s + step] = _revise_rows_plain(cons[ii], mask[ii], dom[s:s + step],
+                                             changed[s:s + step], n, d)
+    return out
+
+
+def dense_revise_stacked(cons: Tensor, mask: Tensor, idx: Tensor, dom: Tensor,
+                         changed: Tensor, *, d: int) -> Tensor:
+    """R dense revisions, row r against network ``cons[idx[r]]``.
+
+    cons (C, n·d, n·d) u8, mask (C, n, n) u8, idx (R,) int32,
+    dom (R, n·d) u8, changed (R, n) u8 -> violated (R, n·d) u8."""
+    r, n = _check(cons, mask, idx, dom, changed, d)
+    if cons.device.type == "cpu":
+        return dense_revise_stacked_plain(cons, mask, idx, dom, changed, d=d)
+    check_smem("dense_revise_stacked", _revise_smem(n, d), f"n·d={n * d}")
+    out = torch.empty((r, n * d), dtype=torch.uint8, device=cons.device)
+    if r:
+        launch("dense_revise", "dense_revise_stacked_launch",
+               [cons, mask, idx, dom, changed, out], r, n, d)
+        dense_revise_stacked.launches += 1
+    return out
+
+
+dense_revise_stacked.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# The fused fixpoint (one launch per round)
+# ---------------------------------------------------------------------------
+
+
+def dense_fixpoint_stacked_plain(cons: Tensor, mask: Tensor, idx: Tensor, dom: Tensor,
+                                 changed: Tensor, *, d: int,
+                                 seeds_out: Optional[list] = None):
+    """Plain PyTorch version of `dense_fixpoint_stacked`: the same per-row
+    recurrence as a host loop over `dense_revise_stacked_plain` sweeps.
+    ``seeds_out``, if a list, receives each sweep's (R, n) seed — what a
+    caller needs to count the work these inputs require."""
+    r, n = _check(cons, mask, idx, dom, changed, d)
+    cur = dom.view(r, n, d)
+    consistent = (cur != 0).any(dim=-1).all(dim=-1)
+    ch = changed.bool() & consistent[:, None]
+    k = torch.zeros(r, dtype=torch.int32, device=cons.device)
+    while True:
+        active = consistent & ch.any(dim=-1)
+        if not bool(active.any()):
+            break
+        seed = ch & active[:, None]
+        if seeds_out is not None:
+            seeds_out.append(seed)
+        viol = dense_revise_stacked_plain(cons, mask, idx, cur.reshape(r, n * d).contiguous(),
+                                          seed.to(torch.uint8), d=d)
+        new = cur & ~viol.view(r, n, d)
+        ch = (new != cur).any(dim=-1)
+        consistent = consistent & (new != 0).any(dim=-1).all(dim=-1)
+        k += active.to(torch.int32)
+        cur = new
+    return cur.reshape(r, n * d).contiguous(), consistent.to(torch.uint8), k
+
+
+def dense_fixpoint_stacked(cons: Tensor, mask: Tensor, idx: Tensor, dom: Tensor,
+                           changed: Tensor, *, d: int):
+    """R dense fixpoints in ONE launch, row r against ``cons[idx[r]]``.
+
+    Operands as `dense_revise_stacked` (``changed`` is the Prop. 2 seed,
+    assignment already applied to ``dom``). Returns (dom (R, n·d) u8,
+    consistent (R,) u8, k (R,) int32) — per row bit-identical to the stepped
+    fixpoint."""
+    r, n = _check(cons, mask, idx, dom, changed, d)
+    if cons.device.type == "cpu":
+        return dense_fixpoint_stacked_plain(cons, mask, idx, dom, changed, d=d)
+    check_smem("dense_fixpoint_stacked", 2 * n * d + 5 * n, f"n·d={n * d}")
+    out = torch.empty((r, n * d), dtype=torch.uint8, device=cons.device)
+    consistent = torch.empty((r,), dtype=torch.uint8, device=cons.device)
+    k = torch.empty((r,), dtype=torch.int32, device=cons.device)
+    if r:
+        launch("dense_fixpoint", "dense_fixpoint_stacked_launch",
+               [cons, mask, idx, dom, changed, out, consistent, k], r, n, d)
+        dense_fixpoint_stacked.launches += 1
+    return out, consistent, k
+
+
+dense_fixpoint_stacked.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# One revise step against one network (the single-network path)
+# ---------------------------------------------------------------------------
+
+
+def dense_revise_plain(cons: Tensor, mask: Tensor, dom: Tensor, changed: Tensor, *,
+                       d: int) -> Tensor:
+    """Plain PyTorch version of `dense_revise`, in chunks of rows."""
+    b, n = _check(cons, mask, None, dom, changed, d)
+    out = torch.empty((b, n * d), dtype=torch.uint8, device=cons.device)
+    step = _revise_chunk_rows(n, d)
+    for s in range(0, b, step):
+        out[s:s + step] = _revise_rows_plain(cons[None], mask[None], dom[s:s + step],
+                                             changed[s:s + step], n, d)
+    return out
+
+
+def dense_revise(cons: Tensor, mask: Tensor, dom: Tensor, changed: Tensor, *,
+                 d: int) -> Tensor:
+    """B dense revisions against ONE network (the reference vmaps its
+    single-network kernel over B).
+
+    cons (n·d, n·d) u8, mask (n, n) u8, dom (B, n·d) u8, changed (B, n) u8
+    -> violated (B, n·d) u8."""
+    b, n = _check(cons, mask, None, dom, changed, d)
+    if cons.device.type == "cpu":
+        return dense_revise_plain(cons, mask, dom, changed, d=d)
+    check_smem("dense_revise", _revise_smem(n, d), f"n·d={n * d}")
+    out = torch.empty((b, n * d), dtype=torch.uint8, device=cons.device)
+    if b:
+        launch("dense_revise", "dense_revise_launch", [cons, mask, dom, changed, out], b, n, d)
+        dense_revise.launches += 1
+    return out
+
+
+dense_revise.launches = 0
+
+
+def reset_launches() -> None:
+    """Zero every wrapper's launch count."""
+    dense_revise_stacked.launches = 0
+    dense_fixpoint_stacked.launches = 0
+    dense_revise.launches = 0

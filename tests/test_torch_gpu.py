@@ -1,5 +1,6 @@
 """Kernels on the card: each CUDA kernel against its plain version at the
-main path's full width, and the fused and stepped engines against each other.
+main path's full width, the fused and stepped engines against each other,
+and `mac_solve` on the Hopper engines against `einsum`.
 
 Marked ``gpu``; without a CUDA device every test skips. On the card:
 ``PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py``.
@@ -9,13 +10,18 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import check_solution, solve_many
+from repro_torch.core import check_solution, mac_solve, solve_many
 from repro_torch.core.engine import pad_dom
 from repro_torch.engines import get_engine
-from repro_torch.kernels import bitpack_support as bs, ops, ref
+from repro_torch.kernels import bitpack_support as bs, ops, ref, rtac_support as rs
 from repro_torch.problems import generate
 
 pytestmark = pytest.mark.gpu
+
+FULL_WIDTH = [
+    ("model_rb", dict(n=100, alpha=0.8, r=0.7, hardness=0.9)),  # n_p=104, d_p=40, W=2
+    ("random_binary", dict(n=160, d=10, density=1.0)),  # n_p=160, d_p=16, W=1
+]
 
 
 @pytest.fixture
@@ -25,10 +31,20 @@ def cuda():
     return torch.device("cuda")
 
 
-def _rows(csps, n_rows, device):
+def _dom_rows(dom_p, kind, w):
+    """Padded bool domains (R, n_p, d_p) in a kernel's row layout."""
+    r = dom_p.shape[0]
+    if kind == "packed":
+        return ref.pack_bits_ref(dom_p).reshape(r, -1).contiguous()
+    return dom_p.to(torch.uint8).reshape(r, -1).contiguous()
+
+
+def _rows(csps, n_rows, device, kind="packed"):
     """Main-path-shaped rows: one assignment applied (one-hot seed) or an
     all-changed root row, each routed to a random slot."""
-    tables, (n_p, d_p, w) = get_engine("hopper_packed", device=device).prepare_many(csps).payload
+    tables, dims = get_engine(f"hopper_{kind}", device=device).prepare_many(csps).payload
+    n_p, d_p = dims[:2]
+    w = -(-d_p // 32)
     n, d = csps[0].dom.shape
     rng = np.random.default_rng(0)
     idx = torch.as_tensor(rng.integers(0, len(csps), n_rows), dtype=torch.int32, device=device)
@@ -38,15 +54,24 @@ def _rows(csps, n_rows, device):
     val = torch.as_tensor(rng.integers(0, d, n_rows), device=device)
     doms = torch.stack([c.dom for c in csps])[idx.long()]
     dom_p = ops.assign_padded_rows(pad_dom(doms, n_p, d_p), var, val)
-    words = ref.pack_bits_ref(dom_p).reshape(n_rows, n_p * w).contiguous()
     seed = ops._padded_seed(var, n, n_p).to(torch.uint8).contiguous()
-    return (tables[0], tables[1], idx, words, seed), d_p, w
+    return (tables[0], tables[1], idx, _dom_rows(dom_p, kind, w), seed), d_p, w
 
 
-@pytest.mark.parametrize("family,knobs", [
-    ("model_rb", dict(n=100, alpha=0.8, r=0.7, hardness=0.9)),  # n_p=104, d_p=40, W=2
-    ("random_binary", dict(n=160, d=10, density=1.0)),  # n_p=160, d_p=16, W=1
-])
+def _children(csp, b, device, kind):
+    """One network and ``b`` children of its root, as `mac_solve` enforces
+    them: variable 0 assigned each value in turn, one-hot seeds."""
+    network, dims, _ = get_engine(f"hopper_{kind}", device=device).prepare(csp).payload
+    n_p, d_p = dims[:2]
+    n, d = csp.dom.shape
+    var = torch.zeros(b, dtype=torch.long, device=device)
+    val = torch.arange(b, device=device) % d
+    dom_p = ops.assign_padded_rows(pad_dom(csp.dom.expand(b, n, d), n_p, d_p), var, val)
+    seed = ops._padded_seed(var, n, n_p).to(torch.uint8).contiguous()
+    return (*network, _dom_rows(dom_p, kind, -(-d_p // 32)), seed), d_p
+
+
+@pytest.mark.parametrize("family,knobs", FULL_WIDTH)
 def test_kernels_match_plain_at_full_width(cuda, family, knobs):
     csps = [generate(family, seed=i, device=cuda, **knobs) for i in range(8)]
     args, d_p, w = _rows(csps, 256, cuda)
@@ -61,6 +86,39 @@ def test_kernels_match_plain_at_full_width(cuda, family, knobs):
     assert bs.packed_revise_stacked.launches == 1
 
 
+@pytest.mark.parametrize("family,knobs", FULL_WIDTH)
+def test_dense_kernels_match_plain_at_full_width(cuda, family, knobs):
+    csps = [generate(family, seed=i, device=cuda, **knobs) for i in range(8)]
+    args, d_p, _ = _rows(csps, 256, cuda, "dense")
+    rs.reset_launches()
+    got = rs.dense_fixpoint_stacked(*args, d=d_p)
+    want = rs.dense_fixpoint_stacked_plain(*args, d=d_p)
+    for g, e in zip(got, want):
+        torch.testing.assert_close(g, e, rtol=0, atol=0)
+    torch.testing.assert_close(rs.dense_revise_stacked(*args, d=d_p),
+                               rs.dense_revise_stacked_plain(*args, d=d_p), rtol=0, atol=0)
+    assert rs.dense_fixpoint_stacked.launches == 1
+    assert rs.dense_revise_stacked.launches == 1
+
+
+@pytest.mark.parametrize("kind", ["packed", "dense"])
+@pytest.mark.parametrize("family,knobs", FULL_WIDTH)
+def test_single_network_kernels_match_plain_at_full_width(cuda, family, knobs, kind):
+    csp = generate(family, seed=0, device=cuda, **knobs)
+    args, d_p = _children(csp, 64, cuda, kind)
+    if kind == "packed":
+        bs.reset_launches()
+        kw = dict(d=d_p, w=-(-d_p // 32))
+        got, want = bs.packed_revise(*args, **kw), bs.packed_revise_plain(*args, **kw)
+        launches = bs.packed_revise.launches
+    else:
+        rs.reset_launches()
+        got, want = rs.dense_revise(*args, d=d_p), rs.dense_revise_plain(*args, d=d_p)
+        launches = rs.dense_revise.launches
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    assert launches == 1
+
+
 def test_cuda_wrapper_raises_on_a_layout_it_cannot_hold(cuda):
     n, d, w = 4096, 8, 1  # (2·n·W + n)·4 B of shared memory > 48 KB
     cons = torch.zeros((1, n * d, n * w), dtype=torch.int32, device=cuda)
@@ -72,13 +130,30 @@ def test_cuda_wrapper_raises_on_a_layout_it_cannot_hold(cuda):
         bs.packed_fixpoint_stacked(*args, d=d, w=w)
 
 
-def test_solve_many_fused_equals_stepped_on_card(cuda):
+def test_dense_wrappers_raise_on_a_layout_they_cannot_hold(cuda):
+    n, d = 1, 24584  # 2·n·d + 5n B > 48 KB for the fixpoint, n·d + 4n + 8d for the revise
+    cons = torch.empty((1, n * d, n * d), dtype=torch.uint8, device=cuda)
+    mask = torch.ones((1, n, n), dtype=torch.uint8, device=cuda)
+    dom = torch.ones((1, n * d), dtype=torch.uint8, device=cuda)
+    seed = torch.ones((1, n), dtype=torch.uint8, device=cuda)
+    idx = torch.zeros((1,), dtype=torch.int32, device=cuda)
+    rs.reset_launches()
+    for call in (lambda: rs.dense_fixpoint_stacked(cons, mask, idx, dom, seed, d=d),
+                 lambda: rs.dense_revise_stacked(cons, mask, idx, dom, seed, d=d),
+                 lambda: rs.dense_revise(cons[0], mask[0], dom, seed, d=d)):
+        with pytest.raises(ValueError, match="shared memory"):
+            call()
+    assert (rs.dense_fixpoint_stacked.launches, rs.dense_revise_stacked.launches,
+            rs.dense_revise.launches) == (0, 0, 0)
+
+
+@pytest.mark.parametrize("name", ["hopper_packed", "hopper_dense"])
+def test_solve_many_fused_equals_stepped_on_card(cuda, name):
     csps = [generate("model_rb", seed=i, device=cuda, n=24, hardness=0.9) for i in range(8)]
     runs = []
     for fixpoint in ("fused", "stepped"):
         tel = {}
-        sols, stats = solve_many(csps, engine=get_engine("hopper_packed", fixpoint=fixpoint,
-                                                         device=cuda),
+        sols, stats = solve_many(csps, engine=get_engine(name, fixpoint=fixpoint, device=cuda),
                                  max_assignments=500, telemetry=tel)
         runs.append((sols, [(s.n_assignments, s.n_backtracks, s.recurrences, s.rounds)
                             for s in stats], tel))
@@ -87,3 +162,18 @@ def test_solve_many_fused_equals_stepped_on_card(cuda):
     for csp, sol in zip(csps, runs[0][0]):
         if sol is not None:
             assert check_solution(csp, sol)
+
+
+def test_mac_solve_on_hopper_engines_equals_einsum_on_card(cuda):
+    csps = [generate("model_rb", seed=i, device=cuda, n=30, hardness=0.9) for i in range(2)]
+    bs.reset_launches()
+    rs.reset_launches()
+    for csp in csps:
+        runs = [mac_solve(csp, engine=name, device=cuda, max_assignments=300)
+                for name in ("einsum", "hopper_packed", "hopper_dense")]
+        keys = [(sol, st.n_assignments, st.n_backtracks, st.recurrences, st.rounds, st.rows,
+                 st.exhausted) for sol, st in runs]
+        assert keys[1] == keys[0] and keys[2] == keys[0]
+        if runs[0][0] is not None:
+            assert check_solution(csp, runs[0][0])
+    assert bs.packed_revise.launches > 0 and rs.dense_revise.launches > 0

@@ -22,6 +22,7 @@ def test_port_and_chip_smoke_import_no_jax_and_no_reference():
         f"sys.path.insert(0, {os.path.join(ROOT, 'src')!r})\n"
         "import repro_torch, repro_torch.core, repro_torch.engines, repro_torch.kernels\n"
         "import repro_torch.problems, repro_torch.obs, repro_torch.faults\n"
+        "import repro_torch.kernels.rtac_support, repro_torch.engines.hopper\n"
         f"spec = importlib.util.spec_from_file_location('chip_smoke', {os.path.join(ROOT, 'chip_smoke.py')!r})\n"
         "mod = importlib.util.module_from_spec(spec); spec.loader.exec_module(mod)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "

@@ -1,13 +1,16 @@
-"""The port's packed kernels (plain versions on the CPU) against the reference.
+"""The port's kernels (plain versions on the CPU) against the reference.
 
-- `ops.prepare_packed` tables equal the reference's byte for byte (the port's
-  int32 words viewed as uint32);
-- the plain `packed_revise_stacked` equals the reference Pallas kernel in
-  interpret mode, row by row;
-- the plain `packed_fixpoint_stacked` equals the reference *stepped* chain
-  (`rtac.enforce_rows_generic` over `ops._packed_rows_fn`) on domains,
-  verdicts and per-row recurrence counts. The reference fused kernel is not
-  the oracle: DESIGN.md §4 defines it as bit-identical to stepped.
+- `ops.prepare_packed` and `ops.prepare_dense` tables equal the reference's
+  byte for byte (the port's int32 words viewed as uint32);
+- the plain `packed_revise_stacked`, `dense_revise_stacked`, `packed_revise`
+  and `dense_revise` equal the reference Pallas kernels in interpret mode,
+  row by row;
+- the plain `packed_fixpoint_stacked` and `dense_fixpoint_stacked` equal the
+  reference *stepped* chain (`rtac.enforce_rows_generic` over
+  `ops._packed_rows_fn` / `_dense_rows_fn`) on domains, verdicts and per-row
+  recurrence counts. The reference fused kernels are not the oracle: they
+  fail under jax 0.9.0, and DESIGN.md §4 defines them as bit-identical to
+  stepped.
 
 All comparisons are exact: the arithmetic is boolean and integer.
 """
@@ -21,10 +24,11 @@ import jax.numpy as jnp
 from repro.core import rtac as ref_rtac
 from repro.core.engine import pad_changed as ref_pad_changed, pad_dom as ref_pad_dom
 from repro.kernels import bitpack_support as ref_bs, ops as ref_ops, ref as ref_ref
+from repro.kernels import rtac_support as ref_rs
 from repro.problems import generate as ref_generate
 
 from repro_torch.core.engine import pad_changed, pad_dom
-from repro_torch.kernels import bitpack_support as bs, ops, ref
+from repro_torch.kernels import bitpack_support as bs, ops, ref, rtac_support as rs
 from repro_torch.problems import generate
 
 CPU = torch.device("cpu")
@@ -67,6 +71,19 @@ def test_prepare_packed_tables_match_reference(n, d, brx, bry):
     assert ops.prepare_packed(csp, brx, bry)[0][0] is cons
 
 
+@pytest.mark.parametrize("n,d,brx,bry", SHAPE_SWEEP)
+def test_prepare_dense_tables_match_reference(n, d, brx, bry):
+    ref_csp, csp = _pair(n, d, n * 100 + d)
+    (rcons, rmask), rdom, rdims = ref_ops.prepare_dense(ref_csp, brx, bry)
+    (cons, mask), dom, dims = ops.prepare_dense(csp, brx, bry)
+    assert dims == rdims
+    assert cons.dtype == torch.uint8 and mask.dtype == torch.uint8
+    assert cons.numpy().tobytes() == np.asarray(rcons).tobytes()
+    assert mask.numpy().tobytes() == np.asarray(rmask).tobytes()
+    np.testing.assert_array_equal(dom.numpy(), np.asarray(rdom))
+    assert ops.prepare_dense(csp, brx, bry)[0][0] is cons
+
+
 @pytest.mark.parametrize("shape", [(5, 70), (3, 4, 32), (2, 31), (7, 1)])
 def test_pack_bits_matches_reference(shape):
     bits = np.random.default_rng(sum(shape)).random(shape) < 0.5
@@ -95,13 +112,17 @@ STACK_SWEEP = [
 ]
 
 
-def _stacked_fixture(n, d, brx, bry):
+def _stacked_fixture(n, d, brx, bry, kind="packed"):
     """3 networks, 5 rows via idx [2,0,1,2,0], mixed seeds, one row near
-    wipeout — the same inputs in both packages' kernel coordinates."""
+    wipeout — the same inputs in both packages' kernel coordinates.
+    ``kind`` picks the packed or the dense network layout."""
     pairs = [_pair(n, d, 300 + i) for i in range(3)]
-    ref_nets = [ref_ops.prepare_packed(p[0], brx, bry)[0] for p in pairs]
-    nets = [ops.prepare_packed(p[1], brx, bry) for p in pairs]
-    n_p, d_p, w = nets[0][2]
+    ref_prepare = ref_ops.prepare_packed if kind == "packed" else ref_ops.prepare_dense
+    prepare = ops.prepare_packed if kind == "packed" else ops.prepare_dense
+    ref_nets = [ref_prepare(p[0], brx, bry)[0] for p in pairs]
+    nets = [prepare(p[1], brx, bry) for p in pairs]
+    n_p, d_p = nets[0][2][:2]
+    w = -(-d_p // 32)
     ref_tables = (jnp.stack([t[0] for t in ref_nets]), jnp.stack([t[1] for t in ref_nets]))
     tables = (torch.stack([t[0][0] for t in nets]), torch.stack([t[0][1] for t in nets]))
     idx = np.array([2, 0, 1, 2, 0], np.int32)
@@ -162,32 +183,118 @@ def test_plain_fixpoint_matches_reference_stepped_chain(n, d, brx, bry):
     np.testing.assert_array_equal(stepped.dom.numpy(), np.asarray(want.dom))
 
 
+@pytest.mark.parametrize("n,d,brx,bry", STACK_SWEEP)
+def test_plain_dense_revise_stacked_matches_reference_kernel(n, d, brx, bry):
+    ref_tables, tables, idx, (rdom, rch), (dom, ch), (n_p, d_p, _) = _stacked_fixture(
+        n, d, brx, bry, "dense")
+    r = len(idx)
+    want = ref_rs.dense_revise_stacked(
+        ref_tables[0][idx], rdom.astype(jnp.uint8).reshape(r, 1, n_p * d_p),
+        rch.astype(jnp.uint8).reshape(r, 1, n_p), ref_tables[1][idx],
+        d=d_p, block_rx=brx, block_ry=bry, interpret=True,
+    )
+    got = rs.dense_revise_stacked(tables[0], tables[1], torch.as_tensor(idx),
+                                  dom.to(torch.uint8).reshape(r, n_p * d_p), ch.to(torch.uint8),
+                                  d=d_p)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want).reshape(r, n_p * d_p))
+
+
+@pytest.mark.parametrize("n,d,brx,bry", STACK_SWEEP)
+def test_plain_dense_fixpoint_matches_reference_stepped_chain(n, d, brx, bry):
+    ref_tables, tables, idx, (rdom, rch), (dom, ch), (n_p, d_p, _) = _stacked_fixture(
+        n, d, brx, bry, "dense")
+    want = ref_rtac.enforce_rows_generic(
+        ref_tables, rdom, rch, jnp.asarray(idx),
+        revise_rows_fn=ref_ops._dense_rows_fn(n_p, d_p, brx, bry, True),
+    )
+    r = len(idx)
+    got_dom, got_ok, got_k = rs.dense_fixpoint_stacked(
+        tables[0], tables[1], torch.as_tensor(idx), dom.to(torch.uint8).reshape(r, n_p * d_p),
+        ch.to(torch.uint8), d=d_p,
+    )
+    np.testing.assert_array_equal(got_ok.numpy().astype(bool), np.asarray(want.consistent))
+    np.testing.assert_array_equal(got_k.numpy(), np.asarray(want.n_recurrences))
+    np.testing.assert_array_equal(got_dom.numpy().reshape(r, n_p, d_p).astype(bool),
+                                  np.asarray(want.dom))
+    from repro_torch.core import rtac
+
+    stepped = rtac.enforce_rows_generic(tables, dom, ch, torch.as_tensor(idx),
+                                        revise_rows_fn=ops._dense_rows_fn(n_p, d_p))
+    np.testing.assert_array_equal(stepped.n_recurrences.numpy(), got_k.numpy())
+    np.testing.assert_array_equal(stepped.dom.numpy(), np.asarray(want.dom))
+
+
+@pytest.mark.parametrize("kind", ["packed", "dense"])
+@pytest.mark.parametrize("n,d,brx,bry", STACK_SWEEP)
+def test_plain_single_network_revise_matches_reference_kernel(kind, n, d, brx, bry):
+    """`packed_revise` / `dense_revise`: 5 domains against ONE network, each
+    row equal to the reference single-network kernel on that row."""
+    ref_tables, tables, idx, (rdom, rch), (dom, ch), (n_p, d_p, w) = _stacked_fixture(
+        n, d, brx, bry, kind)
+    r = len(idx)
+    ref_net = (ref_tables[0][1], ref_tables[1][1])
+    net = (tables[0][1], tables[1][1])
+    ch_u8 = ch.to(torch.uint8)
+    if kind == "packed":
+        got = bs.packed_revise(*net, ref.pack_bits_ref(dom).reshape(r, n_p * w), ch_u8,
+                               d=d_p, w=w)
+        ref_doms = ref_ref.pack_bits_ref(rdom).reshape(r, 1, n_p * w)
+        call = lambda i: ref_bs.packed_revise(  # noqa: E731
+            ref_net[0], ref_doms[i], rch[i].astype(jnp.uint8).reshape(1, n_p), ref_net[1],
+            d=d_p, w=w, block_rx=brx, block_ry=bry, interpret=True)
+    else:
+        got = rs.dense_revise(*net, dom.to(torch.uint8).reshape(r, n_p * d_p), ch_u8, d=d_p)
+        call = lambda i: ref_rs.dense_revise(  # noqa: E731
+            ref_net[0], rdom[i].astype(jnp.uint8).reshape(1, n_p * d_p),
+            rch[i].astype(jnp.uint8).reshape(1, n_p), ref_net[1],
+            d=d_p, block_rx=brx, block_ry=bry, interpret=True)
+    want = np.concatenate([np.asarray(call(i)) for i in range(r)])
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def _wrapper_args(kind):
+    """(wrappers, args, kw) of every kernel wrapper of ``kind`` on one
+    stacked fixture: stacked operands and the single-network ones."""
+    _, tables, idx, _, (dom, ch), (n_p, d_p, w) = _stacked_fixture(8, 5, 8, 8, kind)
+    r = len(idx)
+    if kind == "packed":
+        rows = ref.pack_bits_ref(dom).reshape(r, n_p * w)
+        mod, kw = bs, dict(d=d_p, w=w)
+    else:
+        rows = dom.to(torch.uint8).reshape(r, n_p * d_p)
+        mod, kw = rs, dict(d=d_p)
+    stacked = (tables[0], tables[1], torch.as_tensor(idx), rows, ch.to(torch.uint8))
+    single = (tables[0][0], tables[1][0], rows, ch.to(torch.uint8))
+    wrappers = [(getattr(mod, f"{kind}_revise_stacked"), stacked),
+                (getattr(mod, f"{kind}_fixpoint_stacked"), stacked),
+                (getattr(mod, f"{kind}_revise"), single)]
+    return mod, wrappers, kw
+
+
 def test_cpu_wrappers_run_plain_and_count_no_launch():
-    _, tables, idx, _, (dom, ch), (n_p, d_p, w) = _stacked_fixture(8, 5, 8, 8)
-    bs.reset_launches()
-    args = (tables[0], tables[1], torch.as_tensor(idx),
-            ref.pack_bits_ref(dom).reshape(len(idx), n_p * w), ch.to(torch.uint8))
-    torch.testing.assert_close(bs.packed_revise_stacked(*args, d=d_p, w=w),
-                               bs.packed_revise_stacked_plain(*args, d=d_p, w=w), rtol=0, atol=0)
-    for got, want in zip(bs.packed_fixpoint_stacked(*args, d=d_p, w=w),
-                         bs.packed_fixpoint_stacked_plain(*args, d=d_p, w=w)):
-        torch.testing.assert_close(got, want, rtol=0, atol=0)
-    assert bs.packed_revise_stacked.launches == 0
-    assert bs.packed_fixpoint_stacked.launches == 0
+    for kind in ("packed", "dense"):
+        mod, wrappers, kw = _wrapper_args(kind)
+        mod.reset_launches()
+        for fn, args in wrappers:
+            plain = getattr(mod, f"{fn.__name__}_plain")
+            got, want = fn(*args, **kw), plain(*args, **kw)
+            for g, e in zip(*((got, want) if isinstance(got, tuple) else ((got,), (want,)))):
+                torch.testing.assert_close(g, e, rtol=0, atol=0)
+            assert fn.launches == 0
 
 
 def test_wrappers_reject_operands_the_kernels_do_not_take():
-    _, tables, idx, _, (dom, ch), (n_p, d_p, w) = _stacked_fixture(8, 5, 8, 8)
-    words = ref.pack_bits_ref(dom).reshape(len(idx), n_p * w)
-    good = (tables[0], tables[1], torch.as_tensor(idx), words, ch.to(torch.uint8))
-    bad_cases = [
-        (tables[0].to(torch.int64),) + good[1:],  # wrong word type
-        good[:2] + (torch.as_tensor(idx, dtype=torch.int64),) + good[3:],  # wrong idx type
-        good[:3] + (words[:, :-1],) + good[4:],  # wrong shape
-        good[:4] + (ch.to(torch.uint8).t().contiguous().t(),),  # not contiguous
-    ]
-    for args in bad_cases:
-        with pytest.raises(ValueError):
-            bs.packed_fixpoint_stacked(*args, d=d_p, w=w)
-        with pytest.raises(ValueError):
-            bs.packed_revise_stacked(*args, d=d_p, w=w)
+    for kind in ("packed", "dense"):
+        _, wrappers, kw = _wrapper_args(kind)
+        for fn, good in wrappers:
+            cons, rows, ch = good[0], good[-2], good[-1]
+            bad_cases = [
+                (cons.to(torch.int64),) + good[1:],  # wrong network type
+                good[:-2] + (rows[:, :-1], ch),  # wrong shape
+                good[:-1] + (ch.t().contiguous().t(),),  # not contiguous
+            ]
+            if len(good) == 5:  # stacked: wrong idx type
+                bad_cases.append(good[:2] + (good[2].to(torch.int64),) + good[3:])
+            for args in bad_cases:
+                with pytest.raises(ValueError):
+                    fn(*args, **kw)

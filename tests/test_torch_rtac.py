@@ -136,6 +136,8 @@ def test_stacked_rows_and_assign_match_reference():
     ("full", {}, "full", {}),
     ("hopper_packed", {"fixpoint": "fused"}, "pallas_packed", {"fixpoint": "stepped"}),
     ("hopper_packed", {"fixpoint": "stepped"}, "pallas_packed", {"fixpoint": "stepped"}),
+    ("hopper_dense", {"fixpoint": "fused"}, "pallas_dense", {"fixpoint": "stepped"}),
+    ("hopper_dense", {"fixpoint": "stepped"}, "pallas_dense", {"fixpoint": "stepped"}),
 ])
 def test_engine_enforce_many_matches_reference(name, opts, ref_name, ref_opts):
     pairs, _, _, idx, doms, _, _ = _stacked()
@@ -156,10 +158,35 @@ def test_einsum_engine_single_network_matches_reference():
     _assert_result(prep.enforce_batch(doms), ref_prep.enforce_batch(doms))
 
 
+HOPPER_VS_PALLAS = [("hopper_packed", "pallas_packed"), ("hopper_dense", "pallas_dense")]
+
+
 def test_hopper_single_network_waits_for_its_kernel():
-    _, csp = _pair(*CASES[0])
-    prep = get_engine("hopper_packed", device=CPU).prepare(csp)
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md, Queue 1 item 2"):
-        prep.enforce()
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md, Queue 1 item 2"):
-        prep.enforce_batch(csp.dom[None])
+    """The single-network path, which waited for kernels 3 and 6, now runs
+    them: ``enforce()`` and ``enforce_batch`` of the root domain equal the
+    reference Pallas engines' on both Hopper engines."""
+    ref_csp, csp = _pair(*CASES[0])
+    for name, ref_name in HOPPER_VS_PALLAS:
+        prep = get_engine(name, device=CPU).prepare(csp)
+        ref_prep = ref_get_engine(ref_name).prepare(ref_csp)
+        _assert_result(prep.enforce(), ref_prep.enforce())
+        _assert_result(prep.enforce_batch(csp.dom[None]),
+                       ref_prep.enforce_batch(ref_csp.dom[None]))
+
+
+@pytest.mark.parametrize("name,ref_name", HOPPER_VS_PALLAS)
+@pytest.mark.parametrize("case", CASES)
+def test_hopper_single_network_matches_reference(case, name, ref_name):
+    """`enforce` with a one-hot seed and `enforce_batch` of seeded domains
+    (the calls `mac_solve` makes) equal the reference Pallas engines."""
+    ref_csp, csp = _pair(*case)
+    n, d = case[0], case[1]
+    prep = get_engine(name, device=CPU).prepare(csp)
+    ref_prep = ref_get_engine(ref_name).prepare(ref_csp)
+    dom = _domains(n, d, 1, case[4])[0]
+    one_hot = np.arange(n) == n // 2
+    _assert_result(prep.enforce(dom, one_hot), ref_prep.enforce(dom, one_hot))
+    doms = _domains(n, d, 4, case[4] + 20)
+    seeds = np.random.default_rng(case[4]).random((4, n)) < 0.5
+    _assert_result(prep.enforce_batch(doms, seeds), ref_prep.enforce_batch(doms, seeds))
+    _assert_result(prep.enforce_batch(doms), ref_prep.enforce_batch(doms))

@@ -1,9 +1,11 @@
-"""The whole slice against the reference: `solve_many` and `mac_solve`.
+"""The port against the reference: `solve_many` and `mac_solve`.
 
-The port's `einsum` and `hopper_packed` (fused and stepped, on the CPU, where
-the kernel wrappers run their plain versions) must return the solutions,
-`SearchStats` (except timings) and frontier byte meters of the reference's
-`einsum` and `pallas_packed` *stepped* engines on the same instances.
+The port's `einsum`, `hopper_packed` and `hopper_dense` (fused and stepped,
+on the CPU, where the kernel wrappers run their plain versions) must return
+the solutions, `SearchStats` (except timings) and frontier byte meters of the
+reference's `einsum`, `pallas_packed` and `pallas_dense` *stepped* engines on
+the same instances; `mac_solve` on the Hopper engines (the single-network
+kernels) those of the reference's `mac_solve` on `pallas_*`.
 """
 
 import numpy as np
@@ -41,7 +43,8 @@ def reference():
     csps = ref_generate_batch("model_rb", 4, **WORKLOAD)
     out = {}
     for name, eng in (("einsum", "einsum"),
-                      ("packed", ref_get_engine("pallas_packed", fixpoint="stepped"))):
+                      ("packed", ref_get_engine("pallas_packed", fixpoint="stepped")),
+                      ("dense", ref_get_engine("pallas_dense", fixpoint="stepped"))):
         tel = {}
         sols, stats = ref_solve_many(csps, engine=eng, max_assignments=BUDGET, telemetry=tel)
         out[name] = (sols, stats, tel)
@@ -52,6 +55,8 @@ def reference():
     ("einsum", {}, "einsum"),
     ("hopper_packed", {"fixpoint": "fused"}, "packed"),
     ("hopper_packed", {"fixpoint": "stepped"}, "packed"),
+    ("hopper_dense", {"fixpoint": "fused"}, "dense"),
+    ("hopper_dense", {"fixpoint": "stepped"}, "dense"),
 ])
 def test_solve_many_matches_reference(reference, name, opts, ref_key):
     csps = generate_batch("model_rb", 4, device=CPU, **WORKLOAD)
@@ -97,18 +102,44 @@ def test_mac_solve_einsum_matches_reference(seed):
 
 
 def test_mac_solve_on_hopper_waits_for_the_single_network_kernel():
+    """`mac_solve` on `hopper_packed`, which waited for the single-network
+    kernel, now runs it and equals the reference on `pallas_packed`."""
+    ref_csp = ref_generate_batch("model_rb", 1, n=8)[0]
     csp = generate_batch("model_rb", 1, n=8, device=CPU)[0]
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md, Queue 1 item 2"):
-        mac_solve(csp, engine="hopper_packed", device=CPU)
+    ref_sol, ref_st = ref_mac_solve(ref_csp, engine="pallas_packed")
+    sol, st = mac_solve(csp, engine="hopper_packed", device=CPU)
+    assert sol == ref_sol
+    assert stats_key(st) == stats_key(ref_st)
+
+
+@pytest.mark.parametrize("name,ref_name", [("hopper_packed", "pallas_packed"),
+                                           ("hopper_dense", "pallas_dense")])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_mac_solve_on_hopper_matches_reference(name, ref_name, seed):
+    """Batched children, one child at a time and a budget stop, on two
+    solvable instances that backtrack (24 and 6 backtracks)."""
+    ref_csp = ref_generate_batch("model_rb", 1, n=12, hardness=0.8, seed=seed)[0]
+    csp = generate_batch("model_rb", 1, n=12, hardness=0.8, seed=seed, device=CPU)[0]
+    eng = get_engine(name, device=CPU)
+    for kw in ({"max_assignments": 60}, {"batched_children": False, "max_assignments": 60},
+               {"max_assignments": 15}):
+        ref_sol, ref_st = ref_mac_solve(ref_csp, engine=ref_name, **kw)
+        sol, st = mac_solve(csp, engine=eng, **kw)
+        assert sol == ref_sol
+        assert stats_key(st) == stats_key(ref_st)
 
 
 def test_frontier_meters_and_network_bytes():
     eng = get_engine("hopper_packed", device=CPU)
+    dense = get_engine("hopper_dense", device=CPU)
     ref_eng = ref_get_engine("pallas_packed")
+    ref_dense = ref_get_engine("pallas_dense")
     for n, d in ((100, 40), (160, 10), (12, 7)):
         assert eng.network_nbytes(n, d) == ref_eng.network_nbytes(n, d)
-    # the main path's table: 32 packed n=100, d=40 networks ≈ 111 MB
+        assert dense.network_nbytes(n, d) == ref_dense.network_nbytes(n, d)
+    # the main path's tables: 32 n=100, d=40 networks ≈ 111 MB packed, 554 MB dense
     assert 32 * eng.network_nbytes(100, 40) == 111_101_952
+    assert 32 * dense.network_nbytes(100, 40) == 554_125_312
     csps = generate_batch("model_rb", 2, n=10, seed=2, device=CPU)
     tel = {}
     solve_many(csps, engine=eng, telemetry=tel)
