@@ -17,6 +17,9 @@ Phases (any failure exits non-zero):
               the main shape on one network with 64 child domains, as
               `mac_solve` gives them. Time kernel and plain version with CUDA
               events and compute the least time the card could take (bound).
+              The two fused fixpoints run on three row mixes (all one-hot,
+              the main path's 7 one-hot : 1 root, all root) at every cluster
+              size their wrappers may pick, each checked and timed.
 (c) main path — `solve_many` on 32 model_rb instances (seeds 0-31, n=100,
               alpha=0.8, r=0.7, hardness=0.9, so d=40) with ``max_assignments``
               per instance, on `hopper_packed` fused, then stepped: identical
@@ -59,6 +62,8 @@ N_INSTANCES = 32
 N_ROWS = 1024
 MAX_ASSIGNMENTS = 2000
 PARITY_N = 30
+#: device cycles the stream sleeps per timed call (about 0.3 ms at 1.98 GHz)
+SLEEP_CYCLES_PER_CALL = 600_000
 MAC_INSTANCES = 3
 CHILD_ROWS = 64
 
@@ -92,12 +97,15 @@ def gpu_name_and_limit() -> str:
 
 def timed_ms(fn, reps: int, device) -> float:
     """Mean milliseconds of ``fn()`` over ``reps`` calls after one warm-up,
-    timed with CUDA events."""
+    timed with CUDA events. The stream first sleeps on the device for longer
+    than the host takes to queue the calls, so a kernel shorter than its
+    Python wrapper is timed back to back and not at the host's pace."""
     import torch
 
     fn()
     torch.cuda.synchronize(device)
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SLEEP_CYCLES_PER_CALL * reps)
     start.record()
     for _ in range(reps):
         fn()
@@ -139,10 +147,14 @@ def dom_rows(dom_p, kind: str):
     return dom_p.to(torch.uint8).reshape(r, -1).contiguous()
 
 
-def kernel_inputs(csps, n_rows: int, seed: int, device, kind: str):
+#: fused-fixpoint row mixes of phase b: (name, share of all-changed root rows)
+MIXES = (("one-hot", 0.0), ("7:1", 0.125), ("root", 1.0))
+
+
+def kernel_inputs(csps, n_rows: int, seed: int, device, kind: str, root_share: float = 0.125):
     """Rows as the main path gives them: a root domain with one assignment
-    applied (one-hot seed) for 7 rows in 8, an all-changed root row for the
-    rest, each routed to a random table slot."""
+    applied (one-hot seed), or for ``root_share`` of the rows (1 in 8 on the
+    main path) an all-changed root row, each routed to a random table slot."""
     import numpy as np
     import torch
 
@@ -157,7 +169,7 @@ def kernel_inputs(csps, n_rows: int, seed: int, device, kind: str):
     rng = np.random.default_rng(seed)
     idx = torch.as_tensor(rng.integers(0, len(csps), n_rows), dtype=torch.int32, device=device)
     var = rng.integers(0, n, n_rows)
-    var[rng.random(n_rows) < 0.125] = -1
+    var[rng.random(n_rows) < root_share] = -1
     var = torch.as_tensor(var, device=device)
     val = torch.as_tensor(rng.integers(0, d, n_rows), device=device)
     doms = torch.stack([c.dom for c in csps])[idx.long()]
@@ -209,31 +221,54 @@ def max_err(got, want) -> int:
     return max(int((g.long() - e.long()).abs().max()) for g, e in pairs)
 
 
+def check_fixpoint(csps, label: str, device, kind: str, reps: int = 5):
+    """The fused fixpoint of ``kind`` vs its plain version on one shape, on
+    each row mix (`MIXES`) at each cluster size (`CLUSTER_SIZES`), and at the
+    wrapper's own pick; returns the main path's mix's measurements."""
+    from repro_torch.kernels.launch import CLUSTER_SIZES, fixpoint_cluster
+
+    mod = kernel_module(kind)
+    fix, fix_plain = (getattr(mod, f"{kind}_fixpoint_stacked{s}") for s in ("", "_plain"))
+    out = None
+    for mix, root_share in MIXES:
+        tables, idx, rows, seed, (n_p, d_p) = kernel_inputs(csps, N_ROWS, 7, device, kind,
+                                                            root_share)
+        args = (*tables, idx, rows, seed)
+        kw = kernel_kw(kind, d_p)
+        seeds = []
+        want = fix_plain(*args, **kw, seeds_out=seeds)
+        bound = work_bound(tables[1], idx, seeds, d_p, entry_bytes(kind, d_p),
+                           out_bytes=N_ROWS * (n_p * d_p + 1 + 4))
+        for c in CLUSTER_SIZES:
+            err = max_err(fix(*args, **kw, cluster=c), want)
+            check(err == 0, f"{label} mix={mix} c={c}: {fix.__name__} differs from its plain "
+                            f"version (max abs err {err})")
+            ms = timed_ms(lambda: fix(*args, **kw, cluster=c), reps, device)
+            print(f"[b] {label} {fix.__name__} mix={mix} c={c}: bit-identical to plain; "
+                  f"kernel_ms={ms:.4f} bound_ms={bound[0]:.4f} sweeps={len(seeds)} "
+                  f"k_max={int(want[2].max())}", flush=True)
+        err = max_err(fix(*args, **kw), want)
+        check(err == 0, f"{label} mix={mix}: {fix.__name__} differs from its plain version")
+        if root_share == 0.125:
+            out = dict(max_abs_err=err, ms=timed_ms(lambda: fix(*args, **kw), reps, device),
+                       plain_ms=timed_ms(lambda: fix_plain(*args, **kw), 2, device),
+                       bound=bound, sweeps=len(seeds), k_max=int(want[2].max()),
+                       cluster=fixpoint_cluster(kind, n_p, d_p))
+    report(f"{label} mix=7:1 c={out['cluster']} (the wrapper's pick)", fix.__name__, out)
+    return {fix.__name__: out}
+
+
 def check_kernels(csps, label: str, device, kind: str, reps: int = 5):
     """The stacked fixpoint and revise of ``kind`` vs their plain versions on
     one shape; returns per-kernel measurements."""
     mod = kernel_module(kind)
+    out = check_fixpoint(csps, label, device, kind, reps)
     tables, idx, rows, seed, (n_p, d_p) = kernel_inputs(csps, N_ROWS, 7, device, kind)
     cons_t, mask_t = tables
     args = (cons_t, mask_t, idx, rows, seed)
     kw = kernel_kw(kind, d_p)
     entry = entry_bytes(kind, d_p)
     r = N_ROWS
-    out = {}
-
-    fix, fix_plain = (getattr(mod, f"{kind}_fixpoint_stacked{s}") for s in ("", "_plain"))
-    got = fix(*args, **kw)
-    seeds = []
-    want = fix_plain(*args, **kw, seeds_out=seeds)
-    err = max_err(got, want)
-    check(err == 0, f"{label}: {fix.__name__} differs from its plain version (max abs err {err})")
-    out[fix.__name__] = dict(
-        max_abs_err=err,
-        ms=timed_ms(lambda: fix(*args, **kw), reps, device),
-        plain_ms=timed_ms(lambda: fix_plain(*args, **kw), 2, device),
-        bound=work_bound(mask_t, idx, seeds, d_p, entry, out_bytes=r * (n_p * d_p + 1 + 4)),
-        sweeps=len(seeds), k_max=int(want[2].max()),
-    )
 
     rev, rev_plain = (getattr(mod, f"{kind}_revise_stacked{s}") for s in ("", "_plain"))
     err = max_err(rev(*args, **kw), rev_plain(*args, **kw))
@@ -244,8 +279,7 @@ def check_kernels(csps, label: str, device, kind: str, reps: int = 5):
         plain_ms=timed_ms(lambda: rev_plain(*args, **kw), 2, device),
         bound=work_bound(mask_t, idx, [seed.bool()], d_p, entry, out_bytes=r * n_p * d_p),
     )
-    for name, m in out.items():
-        report(label, name, m)
+    report(label, rev.__name__, out[rev.__name__])
     return out
 
 

@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` into its own
 shared library with a plain C interface (no PyTorch headers, so a build
 takes seconds), at first use or all together through `build`. Libraries go
-to ``kernels/_build/`` (ignored by git), named by a digest of the source and
-the flags, so an edited source rebuilds and an unchanged one is reused.
+to ``kernels/_build/`` (ignored by git), named by a digest of the source, the
+shared headers (``csrc/*.cuh``) and the flags, so an edited source or header
+rebuilds and an unchanged one is reused.
 """
 
 from __future__ import annotations
@@ -44,7 +45,7 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    src = b"".join(p.read_bytes() for p in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))])
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 

@@ -7,33 +7,39 @@
 // dom &= ~violated, k += 1 per sweep the row was active — and the launch
 // writes the domain bytes, the consistency bit and k.
 //
-// What bounds it on an H100: bytes. One sweep of a row reads, for each
-// variable y of its seed, the (n*d, d) column slice of its network (one byte
-// per constraint bit, 8x the packed kernel's traffic) and does one AND per
-// byte; there is no reuse to feed the ALUs.
+// What bounded the first design (one thread per (x·a, seeded y) pair, one
+// CTA per row): bookkeeping and the one-CTA tail, not bytes. It read five
+// times the packed kernel's bytes per test yet took only 1.13× its time
+// on an H100 (PERF.md): two integer divisions, a shared load and a global mask
+// load per pair, constrained or not (6.5 % are, at the main shape), and a
+// launch as long as the root row one CTA walked alone.
 //
-// Design (that of packed_fixpoint.cu):
-// - One CTA per row; rows are independent, so no grid-wide sync. The domain
-//   bytes, the changed flags, the compacted seed list and the violation
-//   flags of the current sweep live in shared memory (about 8.8 KB at
-//   n=104, d=40); __syncthreads() separates the sweeps.
-// - The row's network is read in place from the slot table through
-//   instance_idx (no gathered copy of the networks per round). A 17 MB dense
-//   network cannot sit in 227 KB of shared memory, so each sweep streams the
-//   bytes it needs.
-// - Only the seed's y columns are swept (Prop. 2): the result equals the
-//   masked full sweep of the reference.
-// - Threads take (row (x,a), seed y) pairs with consecutive threads on
-//   consecutive seed entries. d is a multiple of 8 (ops.D_MULT), so the
-//   support test reads the slice as d/8 aligned 8-byte words.
-#include <cuda_runtime.h>
-#include <stdint.h>
+// Design: that of packed_fixpoint.cu (fixpoint_common.cuh), with the domain
+// held as bytes:
+// - each sweep a warp tests, for each variable x it owns, exactly the pairs
+//   (value still in x's domain) × (seeded neighbour of x), lanes over pairs
+//   with neighbours fastest; an entry is the d-byte slice cons2[x·d+a,
+//   y·d ..], read as d/8 aligned 8-byte words (d is a multiple of 8,
+//   ops.D_MULT), 4 tests a lane in flight;
+// - the owner warp applies x's removals byte by byte, detects change and
+//   wipe-out, and writes x's bytes into the other domain buffer of every CTA
+//   of the row's cluster; one barrier a sweep;
+// - a row may span a cluster of c CTAs (launch.fixpoint_cluster: c = 1 for
+//   this kernel at every shape measured).
+// The row's network is read in place from the slot table through
+// instance_idx: a 17 MB dense network cannot sit in 227 KB of shared memory.
+//
+// What bounds it now (measured on an H100, PERF.md): bytes from HBM. A test
+// reads d bytes (two 32-byte sectors at d = 40), and the dense tables
+// (554 MB at the main shape, 210 MB at the dense-mask shape) are several
+// times L2.
+#include "fixpoint_common.cuh"
 
 namespace {
 
-typedef unsigned long long u64;
-constexpr int kThreads = 256;
+using namespace fixpoint;
 
+template <int KW>  // 8-byte words per entry (d/8), or 0: d/8 at run time
 __global__ void __launch_bounds__(kThreads) dense_fixpoint_kernel(
     const uint8_t* __restrict__ cons,      // (C, n*d, n*d) slot table
     const uint8_t* __restrict__ mask,      // (C, n, n)
@@ -43,106 +49,146 @@ __global__ void __launch_bounds__(kThreads) dense_fixpoint_kernel(
     uint8_t* __restrict__ dom_out,         // (R, n*d) closure
     uint8_t* __restrict__ consistent_out,  // (R,)
     int32_t* __restrict__ k_out,           // (R,)
-    int n, int d) {
-  extern __shared__ u64 smem[];
-  const int nd = n * d;
-  const int words = d / 8;  // 8-byte words of one (x·a, y) slice
-  uint8_t* dom = reinterpret_cast<uint8_t*>(smem);              // (n*d,), 8-byte aligned
-  const u64* dom64 = smem;
-  int32_t* seed = reinterpret_cast<int32_t*>(dom + nd);         // (n,)
-  uint8_t* viol = reinterpret_cast<uint8_t*>(seed + n);         // (n*d,)
-  uint8_t* changed = viol + nd;                                 // (n,)
-  __shared__ int s_count;
-  __shared__ int s_alive;
+    int n, int d, int c) {
+  const int d8 = KW > 0 ? KW : d / 8;
+  const int nd = n * d, nwn = (n + 31) / 32, w = (d + 31) / 32;
+  const Smem L(n, d, nd);
+  extern __shared__ __align__(16) uint8_t smem[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  uint8_t* const dom0 = smem;  // the two domain buffers; nd is a multiple of 8
+  uint8_t* const dom1 = smem + nd;
+  const uint32_t* mbits = reinterpret_cast<const uint32_t*>(smem + L.mbits);
+  uint32_t* seed = reinterpret_cast<uint32_t*>(smem + L.seed) + warp * nwn;
+  uint32_t* viol = reinterpret_cast<uint32_t*>(smem + L.viol) + warp * w;
+  uint32_t* dead = reinterpret_cast<uint32_t*>(smem + L.dead);  // [2], written like next
+  uint16_t* ys = reinterpret_cast<uint16_t*>(smem + L.ys) + warp * n;
+  uint16_t* values = reinterpret_cast<uint16_t*>(smem + L.values) + warp * d;
+  uint8_t* const changed0 = smem + L.changed;  // and the two buffers of changed flags
+  uint8_t* const changed1 = changed0 + n;
 
-  const int r = blockIdx.x;
-  const int tid = threadIdx.x;
+  const int rank = c == 1 ? 0 : static_cast<int>(cg::this_cluster().block_rank());
+  const int r = blockIdx.x / c;
   const size_t slot = static_cast<size_t>(idx[r]);
-  const uint8_t* c = cons + slot * static_cast<size_t>(nd) * nd;
-  const uint8_t* m = mask + slot * static_cast<size_t>(n) * n;
+  const u64* net = reinterpret_cast<const u64*>(cons + slot * static_cast<size_t>(nd) * nd);
 
-  if (tid == 0) s_alive = 1;
-  for (int i = tid; i < nd; i += blockDim.x) dom[i] = dom_in[static_cast<size_t>(r) * nd + i];
+  const u64* row_in = reinterpret_cast<const u64*>(dom_in + static_cast<size_t>(r) * nd);
+  for (int i = threadIdx.x; i < nd / 8; i += kThreads)
+    reinterpret_cast<u64*>(dom0)[i] = row_in[i];
+  for (int x = threadIdx.x; x < n; x += kThreads)
+    changed0[x] = seed_in[static_cast<size_t>(r) * n + x] != 0;
+  if (threadIdx.x < 2) dead[threadIdx.x] = 0u;
+  load_mask_bits(mask + slot * n * n, smem + L.mbits, n, rank, c);
   __syncthreads();
-  for (int x = tid; x < n; x += blockDim.x) {
-    uint8_t any = 0;
-    for (int a = 0; a < d; ++a) any |= dom[x * d + a];
-    if (any == 0) s_alive = 0;
+  bool empty = false;  // a variable with no value at entry: the row does no sweep
+  for (int x = threadIdx.x; x < n; x += kThreads) {
+    u64 any = 0;
+    for (int j = 0; j < d8; ++j) any |= reinterpret_cast<const u64*>(dom0 + x * d)[j];
+    empty |= any == 0;
   }
-  __syncthreads();
-  bool consistent = s_alive != 0;
-  for (int x = tid; x < n; x += blockDim.x)
-    changed[x] = consistent && seed_in[static_cast<size_t>(r) * n + x] != 0;
-  int k = 0;
-  __syncthreads();
+  bool consistent = !__syncthreads_or(empty);
+  if (c > 1) cg::this_cluster().sync();  // every CTA is set up before any writes into it
 
-  while (true) {
-    if (tid == 0) {  // compact the seed: the y columns this sweep must read
-      int count = 0;
-      for (int y = 0; y < n; ++y)
-        if (changed[y]) seed[count++] = y;
-      s_count = count;
-      s_alive = 1;
-    }
-    for (int i = tid; i < nd; i += blockDim.x) viol[i] = 0;
-    __syncthreads();
-    const int count = s_count;
-    if (!consistent || count == 0) break;  // uniform across the block
-
-    const int pairs = nd * count;
-    for (int p = tid; p < pairs; p += blockDim.x) {
-      const int row = p / count;
-      const int y = seed[p - row * count];
-      const int x = row / d;
-      if (!m[x * n + y]) continue;  // unconstrained pair: always supported
-      const u64* cw = reinterpret_cast<const u64*>(c + static_cast<size_t>(row) * nd + y * d);
-      const u64* dw = dom64 + y * words;
-      u64 support = 0ull;
-      for (int j = 0; j < words; ++j) support |= __ldg(cw + j) & dw[j];
-      if (support == 0ull) viol[row] = 1;  // benign race: every writer stores 1
-    }
-    __syncthreads();
-    for (int x = tid; x < n; x += blockDim.x) {
-      uint8_t diff = 0, alive = 0;
-      for (int a = 0; a < d; ++a) {
-        const uint8_t old = dom[x * d + a];
-        const uint8_t kept = old & static_cast<uint8_t>(~viol[x * d + a]);
-        dom[x * d + a] = kept;
-        diff |= old ^ kept;
-        alive |= kept;
+  const int stride = c * kWarps;  // this warp owns x = rank + c·warp + stride·i
+  int k = 0, p = 0;
+  while (consistent && seed_bits(p ? changed1 : changed0, seed, n, lane)) {
+    const uint8_t* cur = p ? dom1 : dom0;
+    uint8_t* next = p ? dom0 : dom1;
+    uint8_t* next_changed = p ? changed0 : changed1;
+    for (int x0 = rank + c * warp; x0 < n; x0 += 32 * stride) {
+      const int x = x0 + lane * stride;  // one owned variable per lane
+      const bool hit = x < n && constrained(mbits + x * nwn, seed, nwn);
+      if (x < n && !hit) {  // no seeded neighbour: x keeps its domain
+        const u64* from = reinterpret_cast<const u64*>(cur + x * d);
+        u64* to = reinterpret_cast<u64*>(next + x * d);
+        for (int j = 0; j < d8; ++j) store_all(to + j, from[j], c);
+        store_all(next_changed + x, static_cast<uint8_t>(0), c);
       }
-      changed[x] = diff != 0;
-      if (alive == 0) s_alive = 0;
+      for (uint32_t todo = __ballot_sync(kFull, hit); todo; todo &= todo - 1) {
+        const int xv = x0 + (__ffs(todo) - 1) * stride;  // the whole warp revises xv
+        const uint8_t* bytes = cur + xv * d;
+        int nv = 0;
+        for (int j = 0; j < w; ++j) {
+          const int a = 32 * j + lane;
+          nv = append_bits(values, nv, __ballot_sync(kFull, a < d && bytes[a] != 0), 32 * j, lane);
+        }
+        const int m = neighbours(mbits + xv * nwn, seed, nwn, ys, lane);
+        for (int j = lane; j < w; j += 32) viol[j] = 0u;
+        __syncwarp();
+        test_supports<u64, KW>(net, reinterpret_cast<const u64*>(cur), xv, n, d, d8, values, nv,
+                               ys, m, viol, lane);
+        __syncwarp();
+        bool diff = false, alive = false;
+        for (int a = lane; a < d; a += 32) {
+          const uint8_t old = bytes[a];
+          const bool gone = (viol[a >> 5] >> (a & 31)) & 1u;
+          const uint8_t kept = static_cast<uint8_t>(gone ? old & 0xfe : old);
+          diff |= kept != old;
+          alive |= kept != 0;
+          store_all(next + xv * d + a, kept, c);
+        }
+        diff = __any_sync(kFull, diff);
+        alive = __any_sync(kFull, alive);
+        if (lane == 0) {
+          store_all(next_changed + xv, static_cast<uint8_t>(diff), c);
+          if (!alive) store_all(dead + (p ^ 1), 1u, c);
+        }
+        __syncwarp();  // the lists and viol are reused for the next variable
+      }
     }
-    __syncthreads();
-    consistent = consistent && s_alive != 0;
-    k += 1;
-    __syncthreads();  // everyone has read s_alive before thread 0 resets it
+    sweep_sync(c);  // also orders every write into another CTA before a CTA exits
+    consistent = dead[p ^ 1] == 0u;
+    p ^= 1;
+    ++k;
   }
 
-  for (int i = tid; i < nd; i += blockDim.x) dom_out[static_cast<size_t>(r) * nd + i] = dom[i];
-  if (tid == 0) {
-    consistent_out[r] = consistent ? 1 : 0;
-    k_out[r] = k;
+  if (rank == 0) {
+    const u64* fin = reinterpret_cast<const u64*>(p ? dom1 : dom0);
+    u64* out = reinterpret_cast<u64*>(dom_out + static_cast<size_t>(r) * nd);
+    for (int i = threadIdx.x; i < nd / 8; i += kThreads) out[i] = fin[i];
+    if (threadIdx.x == 0) {
+      consistent_out[r] = consistent ? 1 : 0;
+      k_out[r] = k;
+    }
   }
+}
+
+template <int KW>
+cudaError_t launch(int rows, int c, cudaStream_t stream, const void* cons, const void* mask,
+                   const void* idx, const void* dom_in, const void* seed_in, void* dom_out,
+                   void* consistent_out, void* k_out, int n, int d) {
+  return launch_rows(dense_fixpoint_kernel<KW>, rows, c, Smem(n, d, n * d).total, stream,
+                     static_cast<const uint8_t*>(cons), static_cast<const uint8_t*>(mask),
+                     static_cast<const int32_t*>(idx), static_cast<const uint8_t*>(dom_in),
+                     static_cast<const uint8_t*>(seed_in), static_cast<uint8_t*>(dom_out),
+                     static_cast<uint8_t*>(consistent_out), static_cast<int32_t*>(k_out), n, d,
+                     c);
 }
 
 }  // namespace
 
-static size_t dense_fixpoint_smem_bytes(int n, int d) {
-  return 2 * static_cast<size_t>(n) * d + static_cast<size_t>(n) * (sizeof(int32_t) + 1);
-}
-
+// c: CTAs per row (a cluster when > 1).
 extern "C" int dense_fixpoint_stacked_launch(
     const void* cons, const void* mask, const void* idx, const void* dom_in,
     const void* seed_in, void* dom_out, void* consistent_out, void* k_out,
-    int rows, int n, int d, void* stream) {
+    int rows, int n, int d, int c, void* stream) {
   if (rows <= 0) return 0;
-  dense_fixpoint_kernel<<<rows, kThreads, dense_fixpoint_smem_bytes(n, d),
-                          static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(cons), static_cast<const uint8_t*>(mask),
-      static_cast<const int32_t*>(idx), static_cast<const uint8_t*>(dom_in),
-      static_cast<const uint8_t*>(seed_in), static_cast<uint8_t*>(dom_out),
-      static_cast<uint8_t*>(consistent_out), static_cast<int32_t*>(k_out), n, d);
-  return static_cast<int>(cudaGetLastError());
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t e;
+  switch (d / 8) {
+#define DENSE_CASE(K)                                                                   \
+  case K:                                                                               \
+    e = launch<K>(rows, c, s, cons, mask, idx, dom_in, seed_in, dom_out, consistent_out, \
+                  k_out, n, d);                                                         \
+    break;
+    DENSE_CASE(1)
+    DENSE_CASE(2)
+    DENSE_CASE(3)
+    DENSE_CASE(4)
+    DENSE_CASE(5)
+#undef DENSE_CASE
+    default:
+      e = launch<0>(rows, c, s, cons, mask, idx, dom_in, seed_in, dom_out, consistent_out,
+                    k_out, n, d);
+  }
+  return static_cast<int>(e);
 }

@@ -7,33 +7,66 @@
 // k += 1 per sweep the row was active — and the launch writes the unpacked
 // domain, the consistency bit and k.
 //
-// What bounds it on an H100: bytes. One sweep of a row reads, for each
-// variable y of its seed, the (n*d, W) column slice of its network (4 B a
-// word) and does one AND per word; there is no reuse to feed the ALUs, so the
-// constraint words streamed from L2/HBM set the time.
+// What bounded the first design (one thread per (x·a, seeded y) pair, one
+// CTA per row): bookkeeping and the one-CTA tail, not bytes. Each pair cost
+// two integer divisions, a shared load and a global mask load before the
+// mask said whether it was constrained at all; at the main shape (Model RB
+// n=100, d=40) 6.5 % of the mask is set, so a root sweep walked 432,640
+// pairs to find 25,840 constrained ones, and the launch waited for the root
+// rows that one CTA walked alone. The dense kernel, reading five times the
+// bytes, took only 1.13× as long on an H100 (PERF.md): bytes did not set
+// the time.
 //
-// Design:
-// - One CTA per row; rows are independent, so no grid-wide sync. The domain
-//   words, the changed flags, the compacted seed list and the violation bits
-//   of the current sweep live in shared memory; __syncthreads() separates
-//   the sweeps.
+// Design (fixpoint_common.cuh; dense_fixpoint.cu shares it):
+// - Walk only constrained pairs. The mask rows a CTA owns sit in shared
+//   memory as bits; each sweep a warp forms its seed bits with ballots, and
+//   for each variable x it owns builds the list of x's seeded neighbours
+//   (mask bits & seed bits) and the list of values still in x's domain, with
+//   popc prefix sums. It tests exactly (value × neighbour) pairs: no
+//   division, no mask load, no test of a value already gone. The lists are
+//   per variable and at most n and d long, so nothing overflows and no seed
+//   is cut into chunks.
+// - Lanes over the pairs, neighbours fastest: with one seeded neighbour
+//   (the common one-hot seed) the lanes run over values; with many they run
+//   over neighbours and read consecutive words of one network row. Each lane
+//   keeps 4 tests (8 for W = 1) in flight.
+// - One pass and one barrier per sweep. The owner warp applies x's removals,
+//   detects its change and wipe-out, and writes the result into the other
+//   domain buffer (Jacobi: every test of the sweep reads the buffer as it was
+//   when the sweep began).
+// - A row may span a thread-block cluster of c CTAs: variables are dealt to
+//   the c·8 warps, each writes its results into every CTA's next buffer
+//   through distributed shared memory, and cluster.sync() ends the sweep.
+//   launch.fixpoint_cluster picks c from the shape.
 // - The row's network is read in place from the slot table through
-//   instance_idx (no gathered copy of the networks per round). The Pallas
-//   kernel kept a block of networks in VMEM; 227 KB of shared memory cannot
-//   hold one 3.5 MB network, so each sweep streams the words it needs.
-// - Only the seed's y columns are swept (Prop. 2): a one-hot seed after an
-//   assignment reads n*d*W words, not n*d*n*W. The result equals the masked
-//   full sweep of the reference.
-// - Threads take (row (x,a), seed y) pairs with consecutive threads on
-//   consecutive seed entries, so a dense seed reads a network row's words in
-//   order; a violated (x,a) sets its bit with a shared-memory atomicOr.
-#include <cuda_runtime.h>
-#include <stdint.h>
+//   instance_idx; 227 KB of shared memory cannot hold one 3.5 MB network.
+//
+// What bounds it now (measured on an H100, PERF.md): memory sectors. A test
+// reads one W-word entry, 8 bytes at the main shape, of a 32-byte sector
+// whose other entries belong to neighbours that are seldom seeded, from
+// tables larger than L2; batching a warp's variables to keep more tests in
+// flight measured no faster. The table layout, the reference's, sets that
+// cost.
+#include "fixpoint_common.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
+using namespace fixpoint;
 
+// The values still in x's domain words (bits of values >= d ignored).
+__device__ __forceinline__ int packed_values(const uint32_t* words, int d, int w,
+                                             uint16_t* values, int lane) {
+  int count = 0;
+  for (int j = 0; j < w; ++j) {
+    uint32_t bits = words[j];
+    const int left = d - 32 * j;
+    if (left < 32) bits &= (1u << left) - 1u;
+    count = append_bits(values, count, bits, 32 * j, lane);
+  }
+  return count;
+}
+
+template <int KW>  // words per entry (W), or 0: read w at run time
 __global__ void __launch_bounds__(kThreads) packed_fixpoint_kernel(
     const uint32_t* __restrict__ cons,     // (C, n*d, n*w) slot table
     const uint8_t* __restrict__ mask,      // (C, n, n)
@@ -43,113 +76,138 @@ __global__ void __launch_bounds__(kThreads) packed_fixpoint_kernel(
     uint8_t* __restrict__ dom_out,         // (R, n*d) unpacked closure
     uint8_t* __restrict__ consistent_out,  // (R,)
     int32_t* __restrict__ k_out,           // (R,)
-    int n, int d, int w) {
-  extern __shared__ uint32_t smem[];
-  const int nw = n * w;
-  const int nd = n * d;
-  uint32_t* words = smem;                                       // (n, w)
-  uint32_t* viol = smem + nw;                                   // (n, w)
-  int32_t* seed = reinterpret_cast<int32_t*>(smem + 2 * nw);    // (n,)
-  uint8_t* changed = reinterpret_cast<uint8_t*>(seed + n);      // (n,)
-  __shared__ int s_count;
-  __shared__ int s_alive;
+    int n, int d, int w_arg, int c) {
+  const int w = KW > 0 ? KW : w_arg;
+  const int nw = n * w, nwn = (n + 31) / 32;
+  const Smem L(n, d, 4 * nw);
+  extern __shared__ __align__(16) uint8_t smem[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  uint32_t* const dom0 = reinterpret_cast<uint32_t*>(smem);  // the two domain buffers
+  uint32_t* const dom1 = dom0 + nw;
+  const uint32_t* mbits = reinterpret_cast<const uint32_t*>(smem + L.mbits);
+  uint32_t* seed = reinterpret_cast<uint32_t*>(smem + L.seed) + warp * nwn;
+  uint32_t* viol = reinterpret_cast<uint32_t*>(smem + L.viol) + warp * w;
+  uint32_t* dead = reinterpret_cast<uint32_t*>(smem + L.dead);  // [2], written like next
+  uint16_t* ys = reinterpret_cast<uint16_t*>(smem + L.ys) + warp * n;
+  uint16_t* values = reinterpret_cast<uint16_t*>(smem + L.values) + warp * d;
+  uint8_t* const changed0 = smem + L.changed;  // and the two buffers of changed flags
+  uint8_t* const changed1 = changed0 + n;
 
-  const int r = blockIdx.x;
-  const int tid = threadIdx.x;
+  const int rank = c == 1 ? 0 : static_cast<int>(cg::this_cluster().block_rank());
+  const int r = blockIdx.x / c;
   const size_t slot = static_cast<size_t>(idx[r]);
-  const uint32_t* c = cons + slot * static_cast<size_t>(nd) * nw;
-  const uint8_t* m = mask + slot * static_cast<size_t>(n) * n;
+  const uint32_t* net = cons + slot * static_cast<size_t>(n * d) * nw;
 
-  if (tid == 0) s_alive = 1;
-  for (int i = tid; i < nw; i += blockDim.x) words[i] = dom_in[static_cast<size_t>(r) * nw + i];
+  for (int i = threadIdx.x; i < nw; i += kThreads)
+    dom0[i] = dom_in[static_cast<size_t>(r) * nw + i];
+  for (int x = threadIdx.x; x < n; x += kThreads)
+    changed0[x] = seed_in[static_cast<size_t>(r) * n + x] != 0;
+  if (threadIdx.x < 2) dead[threadIdx.x] = 0u;
+  load_mask_bits(mask + slot * n * n, smem + L.mbits, n, rank, c);
   __syncthreads();
-  for (int x = tid; x < n; x += blockDim.x) {
+  bool empty = false;  // a variable with no value at entry: the row does no sweep
+  for (int x = threadIdx.x; x < n; x += kThreads) {
     uint32_t any = 0;
-    for (int j = 0; j < w; ++j) any |= words[x * w + j];
-    if (any == 0) s_alive = 0;
+    for (int j = 0; j < w; ++j) any |= dom0[x * w + j];
+    empty |= any == 0;
   }
-  __syncthreads();
-  bool consistent = s_alive != 0;
-  for (int x = tid; x < n; x += blockDim.x)
-    changed[x] = consistent && seed_in[static_cast<size_t>(r) * n + x] != 0;
-  int k = 0;
-  __syncthreads();
+  bool consistent = !__syncthreads_or(empty);
+  if (c > 1) cg::this_cluster().sync();  // every CTA is set up before any writes into it
 
-  while (true) {
-    if (tid == 0) {  // compact the seed: the y columns this sweep must read
-      int count = 0;
-      for (int y = 0; y < n; ++y)
-        if (changed[y]) seed[count++] = y;
-      s_count = count;
-      s_alive = 1;
-    }
-    for (int i = tid; i < nw; i += blockDim.x) viol[i] = 0u;
-    __syncthreads();
-    const int count = s_count;
-    if (!consistent || count == 0) break;  // uniform across the block
-
-    const int pairs = nd * count;
-    for (int p = tid; p < pairs; p += blockDim.x) {
-      const int row = p / count;
-      const int y = seed[p - row * count];
-      const int x = row / d;
-      if (!m[x * n + y]) continue;  // unconstrained pair: always supported
-      const uint32_t* cw = c + static_cast<size_t>(row) * nw + y * w;
-      const uint32_t* dw = words + y * w;
-      uint32_t support = 0u;
-      for (int j = 0; j < w; ++j) support |= __ldg(cw + j) & dw[j];
-      if (support == 0u) {
-        const int a = row - x * d;
-        atomicOr(&viol[x * w + (a >> 5)], 1u << (a & 31));
+  const int stride = c * kWarps;  // this warp owns x = rank + c·warp + stride·i
+  int k = 0, p = 0;
+  while (consistent && seed_bits(p ? changed1 : changed0, seed, n, lane)) {
+    const uint32_t* cur = p ? dom1 : dom0;
+    uint32_t* next = p ? dom0 : dom1;
+    uint8_t* next_changed = p ? changed0 : changed1;
+    for (int x0 = rank + c * warp; x0 < n; x0 += 32 * stride) {
+      const int x = x0 + lane * stride;  // one owned variable per lane
+      const bool hit = x < n && constrained(mbits + x * nwn, seed, nwn);
+      if (x < n && !hit) {  // no seeded neighbour: x keeps its domain
+        for (int j = 0; j < w; ++j) store_all(next + x * w + j, cur[x * w + j], c);
+        store_all(next_changed + x, static_cast<uint8_t>(0), c);
+      }
+      for (uint32_t todo = __ballot_sync(kFull, hit); todo; todo &= todo - 1) {
+        const int xv = x0 + (__ffs(todo) - 1) * stride;  // the whole warp revises xv
+        const uint32_t* words = cur + xv * w;
+        const int nv = packed_values(words, d, w, values, lane);
+        const int m = neighbours(mbits + xv * nwn, seed, nwn, ys, lane);
+        for (int j = lane; j < w; j += 32) viol[j] = 0u;
+        __syncwarp();
+        test_supports<uint32_t, KW>(net, cur, xv, n, d, w, values, nv, ys, m, viol, lane);
+        __syncwarp();
+        bool diff = false, alive = false;
+        for (int j = lane; j < w; j += 32) {
+          const uint32_t kept = words[j] & ~viol[j];
+          diff |= kept != words[j];
+          alive |= kept != 0u;
+          store_all(next + xv * w + j, kept, c);
+        }
+        diff = __any_sync(kFull, diff);
+        alive = __any_sync(kFull, alive);
+        if (lane == 0) {
+          store_all(next_changed + xv, static_cast<uint8_t>(diff), c);
+          if (!alive) store_all(dead + (p ^ 1), 1u, c);
+        }
+        __syncwarp();  // the lists and viol are reused for the next variable
       }
     }
-    __syncthreads();
-    for (int x = tid; x < n; x += blockDim.x) {
-      uint32_t diff = 0u, alive = 0u;
-      for (int j = 0; j < w; ++j) {
-        const uint32_t old = words[x * w + j];
-        const uint32_t kept = old & ~viol[x * w + j];
-        words[x * w + j] = kept;
-        diff |= old ^ kept;
-        alive |= kept;
-      }
-      changed[x] = diff != 0u;
-      if (alive == 0u) s_alive = 0;
-    }
-    __syncthreads();
-    consistent = consistent && s_alive != 0;
-    k += 1;
-    __syncthreads();  // everyone has read s_alive before thread 0 resets it
+    sweep_sync(c);  // also orders every write into another CTA before a CTA exits
+    consistent = dead[p ^ 1] == 0u;
+    p ^= 1;
+    ++k;
   }
 
-  for (int i = tid; i < nd; i += blockDim.x) {
-    const int x = i / d;
-    const int a = i - x * d;
-    dom_out[static_cast<size_t>(r) * nd + i] =
-        static_cast<uint8_t>((words[x * w + (a >> 5)] >> (a & 31)) & 1u);
+  if (rank == 0) {
+    const uint32_t* fin = p ? dom1 : dom0;
+    for (int i = threadIdx.x; i < n * d; i += kThreads) {
+      const int x = i / d, a = i - x * d;
+      dom_out[static_cast<size_t>(r) * n * d + i] =
+          static_cast<uint8_t>((fin[x * w + (a >> 5)] >> (a & 31)) & 1u);
+    }
+    if (threadIdx.x == 0) {
+      consistent_out[r] = consistent ? 1 : 0;
+      k_out[r] = k;
+    }
   }
-  if (tid == 0) {
-    consistent_out[r] = consistent ? 1 : 0;
-    k_out[r] = k;
-  }
+}
+
+template <int KW>
+cudaError_t launch(int rows, int c, cudaStream_t stream, const void* cons, const void* mask,
+                   const void* idx, const void* dom_in, const void* seed_in, void* dom_out,
+                   void* consistent_out, void* k_out, int n, int d, int w) {
+  return launch_rows(packed_fixpoint_kernel<KW>, rows, c, Smem(n, d, 4 * n * w).total, stream,
+                     static_cast<const uint32_t*>(cons), static_cast<const uint8_t*>(mask),
+                     static_cast<const int32_t*>(idx), static_cast<const uint32_t*>(dom_in),
+                     static_cast<const uint8_t*>(seed_in), static_cast<uint8_t*>(dom_out),
+                     static_cast<uint8_t*>(consistent_out), static_cast<int32_t*>(k_out), n, d,
+                     w, c);
 }
 
 }  // namespace
 
-static size_t packed_fixpoint_smem_bytes(int n, int w) {
-  return static_cast<size_t>(2 * n * w + n) * sizeof(uint32_t) + static_cast<size_t>(n);
-}
-
+// c: CTAs per row (a cluster when > 1).
 extern "C" int packed_fixpoint_stacked_launch(
     const void* cons, const void* mask, const void* idx, const void* dom_in,
     const void* seed_in, void* dom_out, void* consistent_out, void* k_out,
-    int rows, int n, int d, int w, void* stream) {
+    int rows, int n, int d, int w, int c, void* stream) {
   if (rows <= 0) return 0;
-  packed_fixpoint_kernel<<<rows, kThreads, packed_fixpoint_smem_bytes(n, w),
-                           static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(cons), static_cast<const uint8_t*>(mask),
-      static_cast<const int32_t*>(idx), static_cast<const uint32_t*>(dom_in),
-      static_cast<const uint8_t*>(seed_in), static_cast<uint8_t*>(dom_out),
-      static_cast<uint8_t*>(consistent_out), static_cast<int32_t*>(k_out), n, d, w);
-  return static_cast<int>(cudaGetLastError());
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t e;
+  switch (w) {
+#define PACKED_CASE(K)                                                                  \
+  case K:                                                                               \
+    e = launch<K>(rows, c, s, cons, mask, idx, dom_in, seed_in, dom_out, consistent_out, \
+                  k_out, n, d, w);                                                      \
+    break;
+    PACKED_CASE(1)
+    PACKED_CASE(2)
+    PACKED_CASE(3)
+    PACKED_CASE(4)
+#undef PACKED_CASE
+    default:
+      e = launch<0>(rows, c, s, cons, mask, idx, dom_in, seed_in, dom_out, consistent_out,
+                    k_out, n, d, w);
+  }
+  return static_cast<int>(e);
 }

@@ -11,9 +11,11 @@ import pytest
 import torch
 
 from repro_torch.core import check_solution, mac_solve, solve_many
+from repro_torch.core.csp import CSP
 from repro_torch.core.engine import pad_dom
 from repro_torch.engines import get_engine
 from repro_torch.kernels import bitpack_support as bs, ops, ref, rtac_support as rs
+from repro_torch.kernels.launch import CLUSTER_SIZES
 from repro_torch.problems import generate
 
 pytestmark = pytest.mark.gpu
@@ -40,8 +42,9 @@ def _dom_rows(dom_p, kind, w):
 
 
 def _rows(csps, n_rows, device, kind="packed"):
-    """Main-path-shaped rows: one assignment applied (one-hot seed) or an
-    all-changed root row, each routed to a random slot."""
+    """Main-path-shaped rows: one assignment applied (one-hot seed) for 7
+    rows in 8, an all-changed root row for the rest, each routed to a random
+    slot."""
     tables, dims = get_engine(f"hopper_{kind}", device=device).prepare_many(csps).payload
     n_p, d_p = dims[:2]
     w = -(-d_p // 32)
@@ -119,8 +122,70 @@ def test_single_network_kernels_match_plain_at_full_width(cuda, family, knobs, k
     assert launches == 1
 
 
+#: fused-fixpoint edge cases: case -> (family, knobs); the case also picks
+#: the rows' seeds and domains in `_edge_rows`
+EDGE_CASES = {
+    "mixed_main": FULL_WIDTH[0],
+    "mixed_dense_mask": FULL_WIDTH[1],
+    "all_root": FULL_WIDTH[0],
+    "empty_seed": FULL_WIDTH[0],
+    "inconsistent_at_entry": FULL_WIDTH[0],
+    "zero_mask": ("random_binary", dict(n=48, d=20, density=0.5)),
+    "ones_mask_n160": FULL_WIDTH[1],  # every pair constrained: the densest lists
+    "w3_d72": ("random_binary", dict(n=40, d=72, density=0.5, tightness=0.3)),
+    "w5_d136": ("random_binary", dict(n=16, d=136, density=0.5, tightness=0.3)),
+}
+
+
+def _edge_rows(case, device, kind):
+    """(fixpoint operands, d_p, W) of 128 rows for an `EDGE_CASES` case."""
+    family, knobs = EDGE_CASES[case]
+    csps = [generate(family, seed=i, device=device, **knobs) for i in range(4)]
+    if case == "zero_mask":
+        csps = [CSP(torch.zeros_like(c.cons), torch.zeros_like(c.mask), c.dom) for c in csps]
+    elif case == "ones_mask_n160":  # unconstrained blocks allow all; x supports itself
+        n, d = csps[0].dom.shape
+        ar = torch.arange(n, device=device)
+        for i, c in enumerate(csps):
+            cons = torch.where(c.mask[:, :, None, None], c.cons, True)
+            cons[ar, ar] = torch.eye(d, dtype=torch.bool, device=device)
+            csps[i] = CSP(cons, torch.ones_like(c.mask), c.dom)
+    (cons, mask, idx, dom, seed), d_p, w = _rows(csps, 128, device, kind)
+    n_p = seed.shape[1]
+    if case == "all_root":
+        seed = ops._padded_seed(torch.full((128,), -1, device=device), csps[0].dom.shape[0],
+                                n_p).to(torch.uint8)
+    elif case == "empty_seed":
+        seed = torch.zeros_like(seed)
+    elif case == "inconsistent_at_entry":
+        dom = dom.clone()
+        dom.view(128, n_p, -1)[::2, 3] = 0
+    return (cons, mask, idx, dom.contiguous(), seed.contiguous()), d_p, w
+
+
+@pytest.mark.parametrize("cluster", CLUSTER_SIZES)
+@pytest.mark.parametrize("kind", ["packed", "dense"])
+@pytest.mark.parametrize("case", list(EDGE_CASES))
+def test_fused_kernels_match_plain_on_edge_cases(cuda, case, kind, cluster):
+    """Both fused fixpoints, at every cluster size the wrapper can pick, bit
+    for bit (domain, consistency, k) against their plain versions."""
+    args, d_p, w = _edge_rows(case, cuda, kind)
+    mod, kw = (bs, dict(d=d_p, w=w)) if kind == "packed" else (rs, dict(d=d_p))
+    fn = getattr(mod, f"{kind}_fixpoint_stacked")
+    mod.reset_launches()
+    got = fn(*args, **kw, cluster=cluster)
+    want = getattr(mod, f"{kind}_fixpoint_stacked_plain")(*args, **kw)
+    for g, e in zip(got, want):
+        torch.testing.assert_close(g, e, rtol=0, atol=0)
+    assert fn.launches == 1
+    if case == "empty_seed":
+        assert not want[2].any()
+    elif case == "inconsistent_at_entry":
+        assert not want[1][::2].any() and not want[2][::2].any()
+
+
 def test_cuda_wrapper_raises_on_a_layout_it_cannot_hold(cuda):
-    n, d, w = 4096, 8, 1  # (2·n·W + n)·4 B of shared memory > 48 KB
+    n, d, w = 4096, 8, 1  # the fused fixpoint's mask bits alone take 2 MB of shared memory
     cons = torch.zeros((1, n * d, n * w), dtype=torch.int32, device=cuda)
     args = (cons, torch.zeros((1, n, n), dtype=torch.uint8, device=cuda),
             torch.zeros((1,), dtype=torch.int32, device=cuda),
@@ -131,7 +196,7 @@ def test_cuda_wrapper_raises_on_a_layout_it_cannot_hold(cuda):
 
 
 def test_dense_wrappers_raise_on_a_layout_they_cannot_hold(cuda):
-    n, d = 1, 24584  # 2·n·d + 5n B > 48 KB for the fixpoint, n·d + 4n + 8d for the revise
+    n, d = 1, 24584  # > 227 KB for the fixpoint's lists, > 48 KB (n·d + 4n + 8d) for the revise
     cons = torch.empty((1, n * d, n * d), dtype=torch.uint8, device=cuda)
     mask = torch.ones((1, n, n), dtype=torch.uint8, device=cuda)
     dom = torch.ones((1, n * d), dtype=torch.uint8, device=cuda)

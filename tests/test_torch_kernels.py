@@ -22,13 +22,15 @@ import torch
 import jax.numpy as jnp
 
 from repro.core import rtac as ref_rtac
+from repro.core.csp import make_csp as ref_make_csp
 from repro.core.engine import pad_changed as ref_pad_changed, pad_dom as ref_pad_dom
 from repro.kernels import bitpack_support as ref_bs, ops as ref_ops, ref as ref_ref
 from repro.kernels import rtac_support as ref_rs
 from repro.problems import generate as ref_generate
 
+from repro_torch.core.csp import csp_from_numpy
 from repro_torch.core.engine import pad_changed, pad_dom
-from repro_torch.kernels import bitpack_support as bs, ops, ref, rtac_support as rs
+from repro_torch.kernels import bitpack_support as bs, launch, ops, ref, rtac_support as rs
 from repro_torch.problems import generate
 
 CPU = torch.device("cpu")
@@ -112,11 +114,44 @@ STACK_SWEEP = [
 ]
 
 
-def _stacked_fixture(n, d, brx, bry, kind="packed"):
+#: the fused fixpoints' edge cases: (n, d, brx, bry, case); ``case`` as in
+#: `_stacked_fixture`. The ids of the mixed cases are those of STACK_SWEEP.
+FIXPOINT_CASES = [pytest.param(*s, "mixed", id="-".join(map(str, s))) for s in STACK_SWEEP] + [
+    pytest.param(16, 8, 8, 8, "root", id="all_root"),
+    pytest.param(16, 8, 8, 8, "empty_seed", id="empty_seed"),
+    pytest.param(16, 8, 8, 8, "wiped", id="inconsistent_at_entry"),
+    pytest.param(16, 8, 8, 8, "zero_mask", id="zero_mask"),
+    pytest.param(160, 10, 8, 8, "ones_mask", id="ones_mask_n160"),
+    pytest.param(20, 72, 8, 8, "mixed", id="w3_d72"),
+]
+
+
+def _masked_pair(n, d, seed, case):
+    """`_pair`'s CSPs, with the mask ``case`` names: "zero_mask" (no
+    constraint), "ones_mask" (every pair constrained, the diagonal too: the
+    unconstrained blocks allow every value pair and each variable supports
+    itself value for value); any other case keeps the generated mask."""
+    ref_csp, csp = _pair(n, d, seed)
+    if case not in ("zero_mask", "ones_mask"):
+        return ref_csp, csp
+    cons, mask, dom = (np.asarray(a) for a in ref_csp)
+    if case == "zero_mask":
+        cons, mask = np.zeros_like(cons), np.zeros_like(mask)
+    else:
+        cons = np.where(mask[:, :, None, None], cons, True)
+        cons[np.arange(n), np.arange(n)] = np.eye(d, dtype=bool)
+        mask = np.ones_like(mask)
+    return ref_make_csp(cons, mask, dom), csp_from_numpy(cons, mask, dom, CPU)
+
+
+def _stacked_fixture(n, d, brx, bry, kind="packed", case="mixed"):
     """3 networks, 5 rows via idx [2,0,1,2,0], mixed seeds, one row near
     wipeout — the same inputs in both packages' kernel coordinates.
-    ``kind`` picks the packed or the dense network layout."""
-    pairs = [_pair(n, d, 300 + i) for i in range(3)]
+    ``kind`` picks the packed or the dense network layout. ``case`` other
+    than "mixed": every row all-changed ("root"), no row seeded
+    ("empty_seed"), rows 1 and 3 with an empty domain at entry ("wiped"), or
+    the mask of `_masked_pair`."""
+    pairs = [_masked_pair(n, d, 300 + i, case) for i in range(3)]
     ref_prepare = ref_ops.prepare_packed if kind == "packed" else ref_ops.prepare_dense
     prepare = ops.prepare_packed if kind == "packed" else ops.prepare_dense
     ref_nets = [ref_prepare(p[0], brx, bry)[0] for p in pairs]
@@ -133,6 +168,12 @@ def _stacked_fixture(n, d, brx, bry, kind="packed"):
     doms[4, 1, 1:] = False  # a row that starts near wipeout
     changed = rng.random((len(idx), n)) < 0.5
     changed[0] = True  # one all-changed row (the root-propagation shape)
+    if case == "root":
+        changed[:] = True
+    elif case == "empty_seed":
+        changed[:] = False
+    elif case == "wiped":
+        doms[1::2, 2] = False
     ref_in = (ref_pad_dom(jnp.asarray(doms), n_p, d_p),
               ref_pad_changed(jnp.asarray(changed), n, n_p, batch=(len(idx),)))
     port_in = (pad_dom(torch.as_tensor(doms), n_p, d_p),
@@ -157,10 +198,20 @@ def test_plain_revise_stacked_matches_reference_kernel(n, d, brx, bry):
     np.testing.assert_array_equal(got.numpy(), np.asarray(want).reshape(r, n_p * d_p))
 
 
-@pytest.mark.parametrize("n,d,brx,bry", STACK_SWEEP)
-def test_plain_fixpoint_matches_reference_stepped_chain(n, d, brx, bry):
+def _check_case(case, ok, k):
+    """What an edge case fixes on its own, beside the reference's answer."""
+    if case == "empty_seed":
+        assert not k.any()
+    elif case == "wiped":
+        assert not ok[1::2].any() and not k[1::2].any()
+    elif case == "zero_mask":  # every seeded row sweeps once and removes nothing
+        assert (k == ok).all()
+
+
+@pytest.mark.parametrize("n,d,brx,bry,case", FIXPOINT_CASES)
+def test_plain_fixpoint_matches_reference_stepped_chain(n, d, brx, bry, case):
     ref_tables, tables, idx, (rdom, rch), (dom, ch), (n_p, d_p, w) = _stacked_fixture(
-        n, d, brx, bry)
+        n, d, brx, bry, case=case)
     want = ref_rtac.enforce_rows_generic(
         ref_tables, rdom, rch, jnp.asarray(idx),
         revise_rows_fn=ref_ops._packed_rows_fn(n_p, d_p, w, brx, bry, True),
@@ -174,6 +225,7 @@ def test_plain_fixpoint_matches_reference_stepped_chain(n, d, brx, bry):
     np.testing.assert_array_equal(got_k.numpy(), np.asarray(want.n_recurrences))
     np.testing.assert_array_equal(got_dom.numpy().reshape(r, n_p, d_p).astype(bool),
                                   np.asarray(want.dom))
+    _check_case(case, got_ok.numpy(), got_k.numpy())
     # the port's own stepped chain (revise rows fn under enforce_rows_generic)
     from repro_torch.core import rtac
 
@@ -199,10 +251,10 @@ def test_plain_dense_revise_stacked_matches_reference_kernel(n, d, brx, bry):
     np.testing.assert_array_equal(got.numpy(), np.asarray(want).reshape(r, n_p * d_p))
 
 
-@pytest.mark.parametrize("n,d,brx,bry", STACK_SWEEP)
-def test_plain_dense_fixpoint_matches_reference_stepped_chain(n, d, brx, bry):
+@pytest.mark.parametrize("n,d,brx,bry,case", FIXPOINT_CASES)
+def test_plain_dense_fixpoint_matches_reference_stepped_chain(n, d, brx, bry, case):
     ref_tables, tables, idx, (rdom, rch), (dom, ch), (n_p, d_p, _) = _stacked_fixture(
-        n, d, brx, bry, "dense")
+        n, d, brx, bry, "dense", case)
     want = ref_rtac.enforce_rows_generic(
         ref_tables, rdom, rch, jnp.asarray(idx),
         revise_rows_fn=ref_ops._dense_rows_fn(n_p, d_p, brx, bry, True),
@@ -216,6 +268,7 @@ def test_plain_dense_fixpoint_matches_reference_stepped_chain(n, d, brx, bry):
     np.testing.assert_array_equal(got_k.numpy(), np.asarray(want.n_recurrences))
     np.testing.assert_array_equal(got_dom.numpy().reshape(r, n_p, d_p).astype(bool),
                                   np.asarray(want.dom))
+    _check_case(case, got_ok.numpy(), got_k.numpy())
     from repro_torch.core import rtac
 
     stepped = rtac.enforce_rows_generic(tables, dom, ch, torch.as_tensor(idx),
@@ -269,6 +322,24 @@ def _wrapper_args(kind):
                 (getattr(mod, f"{kind}_fixpoint_stacked"), stacked),
                 (getattr(mod, f"{kind}_revise"), single)]
     return mod, wrappers, kw
+
+
+def test_fixpoint_cluster_rule_and_sizes():
+    """The fused fixpoints' CTAs-per-row rule, and the sizes an explicit
+    ``cluster`` may take (on the CPU the plain version runs whatever it is)."""
+    assert launch.fixpoint_cluster("packed", 160, 16) == 2  # the dense-mask shape
+    assert launch.fixpoint_cluster("packed", 104, 40) == 1  # the main shape
+    assert launch.fixpoint_cluster("packed", 32, 16) == 1
+    assert launch.fixpoint_cluster("dense", 160, 16) == 1
+    for kind in ("packed", "dense"):
+        _, wrappers, kw = _wrapper_args(kind)
+        fn, args = wrappers[1]
+        want = fn(*args, **kw)
+        for c in launch.CLUSTER_SIZES:
+            for g, e in zip(fn(*args, **kw, cluster=c), want):
+                torch.testing.assert_close(g, e, rtol=0, atol=0)
+        with pytest.raises(ValueError, match="cluster"):
+            fn(*args, **kw, cluster=3)
 
 
 def test_cpu_wrappers_run_plain_and_count_no_launch():
