@@ -18,8 +18,8 @@ Phases (any failure exits non-zero):
               `mac_solve` gives them. Time kernel and plain version with CUDA
               events and compute the least time the card could take (bound).
               The two fused fixpoints run on three row mixes (all one-hot,
-              the main path's 7 one-hot : 1 root, all root) at every cluster
-              size their wrappers may pick, each checked and timed.
+              the main path's 7 one-hot : 1 root, all root), each checked
+              and timed.
 (c) main path — `solve_many` on 32 model_rb instances (seeds 0-31, n=100,
               alpha=0.8, r=0.7, hardness=0.9, so d=40) with ``max_assignments``
               per instance, on `hopper_packed` fused, then stepped: identical
@@ -62,8 +62,6 @@ N_INSTANCES = 32
 N_ROWS = 1024
 MAX_ASSIGNMENTS = 2000
 PARITY_N = 30
-#: device cycles the stream sleeps per timed call (about 0.3 ms at 1.98 GHz)
-SLEEP_CYCLES_PER_CALL = 600_000
 MAC_INSTANCES = 3
 CHILD_ROWS = 64
 
@@ -95,17 +93,44 @@ def gpu_name_and_limit() -> str:
     return out.stdout.strip().splitlines()[0] if out.returncode == 0 else "nvidia-smi failed"
 
 
+_SLEEP_CYCLES_PER_MS = {}
+
+
+def sleep_cycles_per_ms(device) -> float:
+    """Device cycles of ``torch.cuda._sleep`` per millisecond, measured once
+    per device with CUDA events (a private PyTorch function that spins one
+    thread for a number of clock cycles)."""
+    import torch
+
+    if device not in _SLEEP_CYCLES_PER_MS:
+        cycles = 10_000_000
+        torch.cuda._sleep(cycles // 100)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        torch.cuda._sleep(cycles)
+        end.record()
+        end.synchronize()
+        _SLEEP_CYCLES_PER_MS[device] = cycles / start.elapsed_time(end)
+    return _SLEEP_CYCLES_PER_MS[device]
+
+
 def timed_ms(fn, reps: int, device) -> float:
     """Mean milliseconds of ``fn()`` over ``reps`` calls after one warm-up,
-    timed with CUDA events. The stream first sleeps on the device for longer
-    than the host takes to queue the calls, so a kernel shorter than its
-    Python wrapper is timed back to back and not at the host's pace."""
+    timed with CUDA events. The host's time to queue the ``reps`` calls is
+    measured first; the stream then sleeps on the device for twice that long
+    before the timed calls, so a kernel shorter than its Python wrapper is
+    timed back to back and not at the host's pace."""
     import torch
 
     fn()
     torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    queue_ms = 1e3 * (time.perf_counter() - t0)
+    torch.cuda.synchronize(device)
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(SLEEP_CYCLES_PER_CALL * reps)
+    torch.cuda._sleep(int(2 * queue_ms * sleep_cycles_per_ms(device)))
     start.record()
     for _ in range(reps):
         fn()
@@ -223,10 +248,7 @@ def max_err(got, want) -> int:
 
 def check_fixpoint(csps, label: str, device, kind: str, reps: int = 5):
     """The fused fixpoint of ``kind`` vs its plain version on one shape, on
-    each row mix (`MIXES`) at each cluster size (`CLUSTER_SIZES`), and at the
-    wrapper's own pick; returns the main path's mix's measurements."""
-    from repro_torch.kernels.launch import CLUSTER_SIZES, fixpoint_cluster
-
+    each row mix (`MIXES`); returns the main path's mix's measurements."""
     mod = kernel_module(kind)
     fix, fix_plain = (getattr(mod, f"{kind}_fixpoint_stacked{s}") for s in ("", "_plain"))
     out = None
@@ -239,22 +261,19 @@ def check_fixpoint(csps, label: str, device, kind: str, reps: int = 5):
         want = fix_plain(*args, **kw, seeds_out=seeds)
         bound = work_bound(tables[1], idx, seeds, d_p, entry_bytes(kind, d_p),
                            out_bytes=N_ROWS * (n_p * d_p + 1 + 4))
-        for c in CLUSTER_SIZES:
-            err = max_err(fix(*args, **kw, cluster=c), want)
-            check(err == 0, f"{label} mix={mix} c={c}: {fix.__name__} differs from its plain "
-                            f"version (max abs err {err})")
-            ms = timed_ms(lambda: fix(*args, **kw, cluster=c), reps, device)
-            print(f"[b] {label} {fix.__name__} mix={mix} c={c}: bit-identical to plain; "
+        err = max_err(fix(*args, **kw), want)
+        check(err == 0, f"{label} mix={mix}: {fix.__name__} differs from its plain version "
+                        f"(max abs err {err})")
+        ms = timed_ms(lambda: fix(*args, **kw), reps, device)
+        if root_share == 0.125:
+            out = dict(max_abs_err=err, ms=ms,
+                       plain_ms=timed_ms(lambda: fix_plain(*args, **kw), 2, device),
+                       bound=bound, sweeps=len(seeds), k_max=int(want[2].max()))
+            report(f"{label} mix={mix}", fix.__name__, out)
+        else:
+            print(f"[b] {label} mix={mix} {fix.__name__}: bit-identical to plain; "
                   f"kernel_ms={ms:.4f} bound_ms={bound[0]:.4f} sweeps={len(seeds)} "
                   f"k_max={int(want[2].max())}", flush=True)
-        err = max_err(fix(*args, **kw), want)
-        check(err == 0, f"{label} mix={mix}: {fix.__name__} differs from its plain version")
-        if root_share == 0.125:
-            out = dict(max_abs_err=err, ms=timed_ms(lambda: fix(*args, **kw), reps, device),
-                       plain_ms=timed_ms(lambda: fix_plain(*args, **kw), 2, device),
-                       bound=bound, sweeps=len(seeds), k_max=int(want[2].max()),
-                       cluster=fixpoint_cluster(kind, n_p, d_p))
-    report(f"{label} mix=7:1 c={out['cluster']} (the wrapper's pick)", fix.__name__, out)
     return {fix.__name__: out}
 
 

@@ -30,8 +30,7 @@ from typing import Optional
 
 import torch
 
-from .launch import (SMEM_OPT_IN_LIMIT, check_cluster, check_operands, check_smem,
-                     fixpoint_cluster, fixpoint_smem, launch)
+from .launch import SMEM_OPT_IN_LIMIT, check_operands, check_smem, fixpoint_smem, launch
 from .ref import pack_bits_ref, unpack_bits_ref
 
 Tensor = torch.Tensor
@@ -146,16 +145,14 @@ def packed_fixpoint_stacked_plain(cons: Tensor, mask: Tensor, idx: Tensor, dom_w
 
 
 def packed_fixpoint_stacked(cons: Tensor, mask: Tensor, idx: Tensor, dom_words: Tensor,
-                            changed: Tensor, *, d: int, w: int, cluster: Optional[int] = None):
+                            changed: Tensor, *, d: int, w: int):
     """R packed fixpoints in ONE launch, row r against ``cons[idx[r]]``.
 
     Operands as `packed_revise_stacked` (``changed`` is the Prop. 2 seed,
     assignment already applied to ``dom_words``). Returns (dom (R, n·d) u8
     unpacked, consistent (R,) u8, k (R,) int32) — per row bit-identical to
-    the stepped fixpoint. ``cluster``: CTAs per row, one of
-    `launch.CLUSTER_SIZES`; None takes the rule `launch.fixpoint_cluster`."""
+    the stepped fixpoint."""
     r, n = _check(cons, mask, idx, dom_words, changed, d, w)
-    c = fixpoint_cluster("packed", n, d) if cluster is None else check_cluster(cluster)
     if cons.device.type == "cpu":
         return packed_fixpoint_stacked_plain(cons, mask, idx, dom_words, changed, d=d, w=w)
     check_smem("packed_fixpoint_stacked", fixpoint_smem(n, d, 4 * n * w), f"n={n}, d={d}",
@@ -165,7 +162,7 @@ def packed_fixpoint_stacked(cons: Tensor, mask: Tensor, idx: Tensor, dom_words: 
     k = torch.empty((r,), dtype=torch.int32, device=cons.device)
     if r:
         launch("packed_fixpoint", "packed_fixpoint_stacked_launch",
-               [cons, mask, idx, dom_words, changed, dom, consistent, k], r, n, d, w, c)
+               [cons, mask, idx, dom_words, changed, dom, consistent, k], r, n, d, w)
         packed_fixpoint_stacked.launches += 1
     return dom, consistent, k
 

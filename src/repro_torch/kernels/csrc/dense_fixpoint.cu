@@ -20,12 +20,15 @@
 //   (value still in x's domain) × (seeded neighbour of x), lanes over pairs
 //   with neighbours fastest; an entry is the d-byte slice cons2[x·d+a,
 //   y·d ..], read as d/8 aligned 8-byte words (d is a multiple of 8,
-//   ops.D_MULT), 4 tests a lane in flight;
+//   ops.D_MULT), 4 tests a lane in flight; d/8 = 2 is compiled as a
+//   constant (15-18 % faster than reading it at run time at the dense-mask
+//   shape), every other d/8 is read at run time (at d/8 = 5, the main
+//   shape, a constant measured 7 % slower on the main path's row mix);
 // - the owner warp applies x's removals byte by byte, detects change and
-//   wipe-out, and writes x's bytes into the other domain buffer of every CTA
-//   of the row's cluster; one barrier a sweep;
-// - a row may span a cluster of c CTAs (launch.fixpoint_cluster: c = 1 for
-//   this kernel at every shape measured).
+//   wipe-out, and writes x's bytes into the other domain buffer; one barrier
+//   a sweep;
+// - one CTA per row (thread-block clusters measured slower for this kernel
+//   at every shape and row mix, PERF.md).
 // The row's network is read in place from the slot table through
 // instance_idx: a 17 MB dense network cannot sit in 227 KB of shared memory.
 //
@@ -49,7 +52,7 @@ __global__ void __launch_bounds__(kThreads) dense_fixpoint_kernel(
     uint8_t* __restrict__ dom_out,         // (R, n*d) closure
     uint8_t* __restrict__ consistent_out,  // (R,)
     int32_t* __restrict__ k_out,           // (R,)
-    int n, int d, int c) {
+    int n, int d) {
   const int d8 = KW > 0 ? KW : d / 8;
   const int nd = n * d, nwn = (n + 31) / 32, w = (d + 31) / 32;
   const Smem L(n, d, nd);
@@ -66,8 +69,7 @@ __global__ void __launch_bounds__(kThreads) dense_fixpoint_kernel(
   uint8_t* const changed0 = smem + L.changed;  // and the two buffers of changed flags
   uint8_t* const changed1 = changed0 + n;
 
-  const int rank = c == 1 ? 0 : static_cast<int>(cg::this_cluster().block_rank());
-  const int r = blockIdx.x / c;
+  const int r = blockIdx.x;
   const size_t slot = static_cast<size_t>(idx[r]);
   const u64* net = reinterpret_cast<const u64*>(cons + slot * static_cast<size_t>(nd) * nd);
 
@@ -77,7 +79,7 @@ __global__ void __launch_bounds__(kThreads) dense_fixpoint_kernel(
   for (int x = threadIdx.x; x < n; x += kThreads)
     changed0[x] = seed_in[static_cast<size_t>(r) * n + x] != 0;
   if (threadIdx.x < 2) dead[threadIdx.x] = 0u;
-  load_mask_bits(mask + slot * n * n, smem + L.mbits, n, rank, c);
+  load_mask_bits(mask + slot * n * n, smem + L.mbits, n);
   __syncthreads();
   bool empty = false;  // a variable with no value at entry: the row does no sweep
   for (int x = threadIdx.x; x < n; x += kThreads) {
@@ -86,25 +88,23 @@ __global__ void __launch_bounds__(kThreads) dense_fixpoint_kernel(
     empty |= any == 0;
   }
   bool consistent = !__syncthreads_or(empty);
-  if (c > 1) cg::this_cluster().sync();  // every CTA is set up before any writes into it
 
-  const int stride = c * kWarps;  // this warp owns x = rank + c·warp + stride·i
   int k = 0, p = 0;
   while (consistent && seed_bits(p ? changed1 : changed0, seed, n, lane)) {
     const uint8_t* cur = p ? dom1 : dom0;
     uint8_t* next = p ? dom0 : dom1;
     uint8_t* next_changed = p ? changed0 : changed1;
-    for (int x0 = rank + c * warp; x0 < n; x0 += 32 * stride) {
-      const int x = x0 + lane * stride;  // one owned variable per lane
+    for (int x0 = warp; x0 < n; x0 += 32 * kWarps) {  // this warp owns x ≡ warp mod 8
+      const int x = x0 + lane * kWarps;  // one owned variable per lane
       const bool hit = x < n && constrained(mbits + x * nwn, seed, nwn);
       if (x < n && !hit) {  // no seeded neighbour: x keeps its domain
         const u64* from = reinterpret_cast<const u64*>(cur + x * d);
         u64* to = reinterpret_cast<u64*>(next + x * d);
-        for (int j = 0; j < d8; ++j) store_all(to + j, from[j], c);
-        store_all(next_changed + x, static_cast<uint8_t>(0), c);
+        for (int j = 0; j < d8; ++j) to[j] = from[j];
+        next_changed[x] = 0;
       }
       for (uint32_t todo = __ballot_sync(kFull, hit); todo; todo &= todo - 1) {
-        const int xv = x0 + (__ffs(todo) - 1) * stride;  // the whole warp revises xv
+        const int xv = x0 + (__ffs(todo) - 1) * kWarps;  // the whole warp revises xv
         const uint8_t* bytes = cur + xv * d;
         int nv = 0;
         for (int j = 0; j < w; ++j) {
@@ -124,71 +124,44 @@ __global__ void __launch_bounds__(kThreads) dense_fixpoint_kernel(
           const uint8_t kept = static_cast<uint8_t>(gone ? old & 0xfe : old);
           diff |= kept != old;
           alive |= kept != 0;
-          store_all(next + xv * d + a, kept, c);
+          next[xv * d + a] = kept;
         }
         diff = __any_sync(kFull, diff);
         alive = __any_sync(kFull, alive);
         if (lane == 0) {
-          store_all(next_changed + xv, static_cast<uint8_t>(diff), c);
-          if (!alive) store_all(dead + (p ^ 1), 1u, c);
+          next_changed[xv] = diff;
+          if (!alive) dead[p ^ 1] = 1u;
         }
         __syncwarp();  // the lists and viol are reused for the next variable
       }
     }
-    sweep_sync(c);  // also orders every write into another CTA before a CTA exits
+    __syncthreads();
     consistent = dead[p ^ 1] == 0u;
     p ^= 1;
     ++k;
   }
 
-  if (rank == 0) {
-    const u64* fin = reinterpret_cast<const u64*>(p ? dom1 : dom0);
-    u64* out = reinterpret_cast<u64*>(dom_out + static_cast<size_t>(r) * nd);
-    for (int i = threadIdx.x; i < nd / 8; i += kThreads) out[i] = fin[i];
-    if (threadIdx.x == 0) {
-      consistent_out[r] = consistent ? 1 : 0;
-      k_out[r] = k;
-    }
+  const u64* fin = reinterpret_cast<const u64*>(p ? dom1 : dom0);
+  u64* out = reinterpret_cast<u64*>(dom_out + static_cast<size_t>(r) * nd);
+  for (int i = threadIdx.x; i < nd / 8; i += kThreads) out[i] = fin[i];
+  if (threadIdx.x == 0) {
+    consistent_out[r] = consistent ? 1 : 0;
+    k_out[r] = k;
   }
-}
-
-template <int KW>
-cudaError_t launch(int rows, int c, cudaStream_t stream, const void* cons, const void* mask,
-                   const void* idx, const void* dom_in, const void* seed_in, void* dom_out,
-                   void* consistent_out, void* k_out, int n, int d) {
-  return launch_rows(dense_fixpoint_kernel<KW>, rows, c, Smem(n, d, n * d).total, stream,
-                     static_cast<const uint8_t*>(cons), static_cast<const uint8_t*>(mask),
-                     static_cast<const int32_t*>(idx), static_cast<const uint8_t*>(dom_in),
-                     static_cast<const uint8_t*>(seed_in), static_cast<uint8_t*>(dom_out),
-                     static_cast<uint8_t*>(consistent_out), static_cast<int32_t*>(k_out), n, d,
-                     c);
 }
 
 }  // namespace
 
-// c: CTAs per row (a cluster when > 1).
 extern "C" int dense_fixpoint_stacked_launch(
     const void* cons, const void* mask, const void* idx, const void* dom_in,
     const void* seed_in, void* dom_out, void* consistent_out, void* k_out,
-    int rows, int n, int d, int c, void* stream) {
+    int rows, int n, int d, void* stream) {
   if (rows <= 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t e;
-  switch (d / 8) {
-#define DENSE_CASE(K)                                                                   \
-  case K:                                                                               \
-    e = launch<K>(rows, c, s, cons, mask, idx, dom_in, seed_in, dom_out, consistent_out, \
-                  k_out, n, d);                                                         \
-    break;
-    DENSE_CASE(1)
-    DENSE_CASE(2)
-    DENSE_CASE(3)
-    DENSE_CASE(4)
-    DENSE_CASE(5)
-#undef DENSE_CASE
-    default:
-      e = launch<0>(rows, c, s, cons, mask, idx, dom_in, seed_in, dom_out, consistent_out,
-                    k_out, n, d);
-  }
-  return static_cast<int>(e);
+  const auto kernel = d / 8 == 2 ? &dense_fixpoint_kernel<2> : &dense_fixpoint_kernel<0>;
+  return static_cast<int>(launch_rows(
+      kernel, rows, Smem(n, d, n * d).total, static_cast<cudaStream_t>(stream),
+      static_cast<const uint8_t*>(cons), static_cast<const uint8_t*>(mask),
+      static_cast<const int32_t*>(idx), static_cast<const uint8_t*>(dom_in),
+      static_cast<const uint8_t*>(seed_in), static_cast<uint8_t*>(dom_out),
+      static_cast<uint8_t*>(consistent_out), static_cast<int32_t*>(k_out), n, d));
 }

@@ -1,25 +1,20 @@
 // Pieces shared by the two fused fixpoint kernels (packed_fixpoint.cu,
-// dense_fixpoint.cu): the shared-memory layout, the cluster helpers, the
-// mask bits, the per-warp seed and lists, and the support-test loop.
+// dense_fixpoint.cu): the shared-memory layout, the mask bits, the per-warp
+// seed and lists, the support-test loop and the launch.
 //
-// Both kernels run one row's Jacobi recurrence in one CTA, or in a cluster of
-// c CTAs that share the row's variables. Each variable x has one owner warp
-// in the cluster: rank x mod c, warp (x / c) mod kWarps. In a sweep the owner
-// tests x against its seeded neighbours, applies the removals and writes x's
-// new domain and changed flag into the NEXT domain buffer of every CTA of the
-// cluster; every CTA reads only its CURRENT buffer. One barrier (the CTA's,
-// or the cluster's) ends the sweep, then the buffers swap. So each sweep
-// tests against the domain as it stood when the sweep began, and every CTA
-// holds the same domain after each barrier.
+// Both kernels run one row's Jacobi recurrence in one CTA. Each variable x
+// has one owner warp, x mod kWarps. In a sweep the owner tests x against its
+// seeded neighbours, applies the removals and writes x's new domain and
+// changed flag into the NEXT domain buffer; every warp reads only the
+// CURRENT buffer. One barrier ends the sweep, then the buffers swap. So each
+// sweep tests against the domain as it stood when the sweep began.
 #pragma once
 
-#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace fixpoint {
 
-namespace cg = cooperative_groups;
 typedef unsigned long long u64;
 
 constexpr int kThreads = 256;  // 8 warps a CTA (launch.FIXPOINT_WARPS)
@@ -29,8 +24,7 @@ constexpr unsigned kFull = 0xffffffffu;
 
 // Byte offsets into one CTA's dynamic shared memory; `total` is what
 // launch.fixpoint_smem computes. Two domain buffers of `dom_bytes` each (a
-// multiple of 4), then u32: the mask bits of the rows this CTA owns
-// (n × ceil(n/32)), per-warp seed bits (ceil(n/32)) and violation words
+// multiple of 4), then u32: the mask bits (n × ceil(n/32)), per-warp seed bits (ceil(n/32)) and violation words
 // (ceil(d/32)), two wipe-out flags (buffered like the domain); u16: per-warp
 // neighbour list (n) and value list (d); u8: two buffers of changed flags.
 struct Smem {
@@ -48,26 +42,6 @@ struct Smem {
   }
 };
 
-// The barrier that ends a sweep: the CTA's, or the cluster's.
-__device__ __forceinline__ void sweep_sync(int c) {
-  if (c == 1) {
-    __syncthreads();
-  } else {
-    cg::this_cluster().sync();
-  }
-}
-
-// v into shared address p of every CTA of the cluster (p is this CTA's).
-template <typename T>
-__device__ __forceinline__ void store_all(T* p, T v, int c) {
-  if (c == 1) {
-    *p = v;
-    return;
-  }
-  cg::cluster_group cluster = cg::this_cluster();
-  for (int q = 0; q < c; ++q) *cluster.map_shared_rank(p, q) = v;
-}
-
 // Append the set bits of the warp-uniform `bits` as first + bit to
 // list[count ..], in order; returns the new count.
 __device__ __forceinline__ int append_bits(uint16_t* list, int count, uint32_t bits, int first,
@@ -77,18 +51,14 @@ __device__ __forceinline__ int append_bits(uint16_t* list, int count, uint32_t b
   return count + __popc(bits);
 }
 
-// The (n, n) u8 mask rows this CTA owns (x ≡ rank mod c) as bits: byte b of
-// row x's 4·ceil(n/32) bytes holds y = 8b .. 8b+7, so a row reads as
-// little-endian 32-bit words. All threads take part; one aligned 8-byte load
-// gives 8 flags when n is a multiple of 8.
-__device__ void load_mask_bits(const uint8_t* __restrict__ m, uint8_t* bits, int n, int rank,
-                               int c) {
+// The (n, n) u8 mask as bits: byte b of row x's 4·ceil(n/32) bytes holds
+// y = 8b .. 8b+7, so a row reads as little-endian 32-bit words. All threads
+// take part; one aligned 8-byte load gives 8 flags when n is a multiple of 8.
+__device__ void load_mask_bits(const uint8_t* __restrict__ m, uint8_t* bits, int n) {
   const int nb = 4 * ((n + 31) / 32);
-  const int rows = (n - rank + c - 1) / c;
   const bool wide = (n & 7) == 0 && (reinterpret_cast<uintptr_t>(m) & 7) == 0;
-  for (int i = threadIdx.x; i < rows * nb; i += kThreads) {
-    const int t = i / nb, b = i - t * nb;
-    const int x = rank + c * t, y0 = 8 * b;
+  for (int i = threadIdx.x; i < n * nb; i += kThreads) {
+    const int x = i / nb, b = i - x * nb, y0 = 8 * b;
     const uint8_t* src = m + static_cast<size_t>(x) * n + y0;
     uint32_t f = 0;
     if (wide) {
@@ -188,30 +158,18 @@ __device__ __forceinline__ void test_supports(const T* __restrict__ net, const T
   }
 }
 
-// Launch `kernel` over rows × c CTAs, as clusters of c when c > 1, opting in
-// to more than 48 KB of shared memory when the layout needs it.
+// Launch `kernel` with one CTA per row, opting in to more than 48 KB of
+// shared memory when the layout needs it.
 template <typename... Params, typename... Args>
-cudaError_t launch_rows(void (*kernel)(Params...), int rows, int c, size_t smem,
-                        cudaStream_t stream, Args... args) {
+cudaError_t launch_rows(void (*kernel)(Params...), int rows, size_t smem, cudaStream_t stream,
+                        Args... args) {
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (e != cudaSuccess) return e;
   }
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(static_cast<unsigned>(rows) * c);
-  cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = c;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = c > 1 ? 1 : 0;
-  const cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, args...);
-  return e != cudaSuccess ? e : cudaGetLastError();
+  kernel<<<rows, kThreads, smem, stream>>>(args...);
+  return cudaGetLastError();
 }
 
 }  // namespace fixpoint

@@ -18,8 +18,8 @@
 // the time.
 //
 // Design (fixpoint_common.cuh; dense_fixpoint.cu shares it):
-// - Walk only constrained pairs. The mask rows a CTA owns sit in shared
-//   memory as bits; each sweep a warp forms its seed bits with ballots, and
+// - Walk only constrained pairs. The row's mask sits in shared memory as
+//   bits; each sweep a warp forms its seed bits with ballots, and
 //   for each variable x it owns builds the list of x's seeded neighbours
 //   (mask bits & seed bits) and the list of values still in x's domain, with
 //   popc prefix sums. It tests exactly (value × neighbour) pairs: no
@@ -29,15 +29,17 @@
 // - Lanes over the pairs, neighbours fastest: with one seeded neighbour
 //   (the common one-hot seed) the lanes run over values; with many they run
 //   over neighbours and read consecutive words of one network row. Each lane
-//   keeps 4 tests (8 for W = 1) in flight.
+//   keeps 4 tests in flight, 8 for one-word entries. W = 1 and 2 (the
+//   driven shapes) are compiled as constants, which measured 10-36 % faster
+//   than reading W at run time at W = 2 (PERF.md); any other W is read at
+//   run time.
 // - One pass and one barrier per sweep. The owner warp applies x's removals,
 //   detects its change and wipe-out, and writes the result into the other
 //   domain buffer (Jacobi: every test of the sweep reads the buffer as it was
 //   when the sweep began).
-// - A row may span a thread-block cluster of c CTAs: variables are dealt to
-//   the c·8 warps, each writes its results into every CTA's next buffer
-//   through distributed shared memory, and cluster.sync() ends the sweep.
-//   launch.fixpoint_cluster picks c from the shape.
+// - One CTA per row. Splitting a row over a thread-block cluster was
+//   measured (PERF.md) and gained only at a shape the main path does not
+//   run, so it is not built.
 // - The row's network is read in place from the slot table through
 //   instance_idx; 227 KB of shared memory cannot hold one 3.5 MB network.
 //
@@ -76,7 +78,7 @@ __global__ void __launch_bounds__(kThreads) packed_fixpoint_kernel(
     uint8_t* __restrict__ dom_out,         // (R, n*d) unpacked closure
     uint8_t* __restrict__ consistent_out,  // (R,)
     int32_t* __restrict__ k_out,           // (R,)
-    int n, int d, int w_arg, int c) {
+    int n, int d, int w_arg) {
   const int w = KW > 0 ? KW : w_arg;
   const int nw = n * w, nwn = (n + 31) / 32;
   const Smem L(n, d, 4 * nw);
@@ -93,8 +95,7 @@ __global__ void __launch_bounds__(kThreads) packed_fixpoint_kernel(
   uint8_t* const changed0 = smem + L.changed;  // and the two buffers of changed flags
   uint8_t* const changed1 = changed0 + n;
 
-  const int rank = c == 1 ? 0 : static_cast<int>(cg::this_cluster().block_rank());
-  const int r = blockIdx.x / c;
+  const int r = blockIdx.x;
   const size_t slot = static_cast<size_t>(idx[r]);
   const uint32_t* net = cons + slot * static_cast<size_t>(n * d) * nw;
 
@@ -103,7 +104,7 @@ __global__ void __launch_bounds__(kThreads) packed_fixpoint_kernel(
   for (int x = threadIdx.x; x < n; x += kThreads)
     changed0[x] = seed_in[static_cast<size_t>(r) * n + x] != 0;
   if (threadIdx.x < 2) dead[threadIdx.x] = 0u;
-  load_mask_bits(mask + slot * n * n, smem + L.mbits, n, rank, c);
+  load_mask_bits(mask + slot * n * n, smem + L.mbits, n);
   __syncthreads();
   bool empty = false;  // a variable with no value at entry: the row does no sweep
   for (int x = threadIdx.x; x < n; x += kThreads) {
@@ -112,23 +113,21 @@ __global__ void __launch_bounds__(kThreads) packed_fixpoint_kernel(
     empty |= any == 0;
   }
   bool consistent = !__syncthreads_or(empty);
-  if (c > 1) cg::this_cluster().sync();  // every CTA is set up before any writes into it
 
-  const int stride = c * kWarps;  // this warp owns x = rank + c·warp + stride·i
   int k = 0, p = 0;
   while (consistent && seed_bits(p ? changed1 : changed0, seed, n, lane)) {
     const uint32_t* cur = p ? dom1 : dom0;
     uint32_t* next = p ? dom0 : dom1;
     uint8_t* next_changed = p ? changed0 : changed1;
-    for (int x0 = rank + c * warp; x0 < n; x0 += 32 * stride) {
-      const int x = x0 + lane * stride;  // one owned variable per lane
+    for (int x0 = warp; x0 < n; x0 += 32 * kWarps) {  // this warp owns x ≡ warp mod 8
+      const int x = x0 + lane * kWarps;  // one owned variable per lane
       const bool hit = x < n && constrained(mbits + x * nwn, seed, nwn);
       if (x < n && !hit) {  // no seeded neighbour: x keeps its domain
-        for (int j = 0; j < w; ++j) store_all(next + x * w + j, cur[x * w + j], c);
-        store_all(next_changed + x, static_cast<uint8_t>(0), c);
+        for (int j = 0; j < w; ++j) next[x * w + j] = cur[x * w + j];
+        next_changed[x] = 0;
       }
       for (uint32_t todo = __ballot_sync(kFull, hit); todo; todo &= todo - 1) {
-        const int xv = x0 + (__ffs(todo) - 1) * stride;  // the whole warp revises xv
+        const int xv = x0 + (__ffs(todo) - 1) * kWarps;  // the whole warp revises xv
         const uint32_t* words = cur + xv * w;
         const int nv = packed_values(words, d, w, values, lane);
         const int m = neighbours(mbits + xv * nwn, seed, nwn, ys, lane);
@@ -141,73 +140,55 @@ __global__ void __launch_bounds__(kThreads) packed_fixpoint_kernel(
           const uint32_t kept = words[j] & ~viol[j];
           diff |= kept != words[j];
           alive |= kept != 0u;
-          store_all(next + xv * w + j, kept, c);
+          next[xv * w + j] = kept;
         }
         diff = __any_sync(kFull, diff);
         alive = __any_sync(kFull, alive);
         if (lane == 0) {
-          store_all(next_changed + xv, static_cast<uint8_t>(diff), c);
-          if (!alive) store_all(dead + (p ^ 1), 1u, c);
+          next_changed[xv] = diff;
+          if (!alive) dead[p ^ 1] = 1u;
         }
         __syncwarp();  // the lists and viol are reused for the next variable
       }
     }
-    sweep_sync(c);  // also orders every write into another CTA before a CTA exits
+    __syncthreads();
     consistent = dead[p ^ 1] == 0u;
     p ^= 1;
     ++k;
   }
 
-  if (rank == 0) {
-    const uint32_t* fin = p ? dom1 : dom0;
-    for (int i = threadIdx.x; i < n * d; i += kThreads) {
-      const int x = i / d, a = i - x * d;
-      dom_out[static_cast<size_t>(r) * n * d + i] =
-          static_cast<uint8_t>((fin[x * w + (a >> 5)] >> (a & 31)) & 1u);
-    }
-    if (threadIdx.x == 0) {
-      consistent_out[r] = consistent ? 1 : 0;
-      k_out[r] = k;
-    }
+  const uint32_t* fin = p ? dom1 : dom0;
+  for (int i = threadIdx.x; i < n * d; i += kThreads) {
+    const int x = i / d, a = i - x * d;
+    dom_out[static_cast<size_t>(r) * n * d + i] =
+        static_cast<uint8_t>((fin[x * w + (a >> 5)] >> (a & 31)) & 1u);
+  }
+  if (threadIdx.x == 0) {
+    consistent_out[r] = consistent ? 1 : 0;
+    k_out[r] = k;
   }
 }
 
 template <int KW>
-cudaError_t launch(int rows, int c, cudaStream_t stream, const void* cons, const void* mask,
+cudaError_t launch(int rows, cudaStream_t stream, const void* cons, const void* mask,
                    const void* idx, const void* dom_in, const void* seed_in, void* dom_out,
                    void* consistent_out, void* k_out, int n, int d, int w) {
-  return launch_rows(packed_fixpoint_kernel<KW>, rows, c, Smem(n, d, 4 * n * w).total, stream,
+  return launch_rows(packed_fixpoint_kernel<KW>, rows, Smem(n, d, 4 * n * w).total, stream,
                      static_cast<const uint32_t*>(cons), static_cast<const uint8_t*>(mask),
                      static_cast<const int32_t*>(idx), static_cast<const uint32_t*>(dom_in),
                      static_cast<const uint8_t*>(seed_in), static_cast<uint8_t*>(dom_out),
                      static_cast<uint8_t*>(consistent_out), static_cast<int32_t*>(k_out), n, d,
-                     w, c);
+                     w);
 }
 
 }  // namespace
 
-// c: CTAs per row (a cluster when > 1).
 extern "C" int packed_fixpoint_stacked_launch(
     const void* cons, const void* mask, const void* idx, const void* dom_in,
     const void* seed_in, void* dom_out, void* consistent_out, void* k_out,
-    int rows, int n, int d, int w, int c, void* stream) {
+    int rows, int n, int d, int w, void* stream) {
   if (rows <= 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t e;
-  switch (w) {
-#define PACKED_CASE(K)                                                                  \
-  case K:                                                                               \
-    e = launch<K>(rows, c, s, cons, mask, idx, dom_in, seed_in, dom_out, consistent_out, \
-                  k_out, n, d, w);                                                      \
-    break;
-    PACKED_CASE(1)
-    PACKED_CASE(2)
-    PACKED_CASE(3)
-    PACKED_CASE(4)
-#undef PACKED_CASE
-    default:
-      e = launch<0>(rows, c, s, cons, mask, idx, dom_in, seed_in, dom_out, consistent_out,
-                    k_out, n, d, w);
-  }
-  return static_cast<int>(e);
+  const auto run = w == 1 ? &launch<1> : w == 2 ? &launch<2> : &launch<0>;
+  return static_cast<int>(run(rows, static_cast<cudaStream_t>(stream), cons, mask, idx, dom_in,
+                              seed_in, dom_out, consistent_out, k_out, n, d, w));
 }

@@ -25,19 +25,16 @@ SMEM_OPT_IN_LIMIT = 227 * 1024
 
 #: library -> {C launcher: (pointer arguments, int arguments)}; the stream
 #: follows. Stacked launchers take (rows, n, d[, w]) after their tensors,
-#: single-network launchers the same without the row→slot map; the fixpoint
-#: launchers add the cluster size c.
+#: single-network launchers the same without the row→slot map.
 SIGNATURES = {
-    "packed_fixpoint": {"packed_fixpoint_stacked_launch": (8, 5)},
+    "packed_fixpoint": {"packed_fixpoint_stacked_launch": (8, 4)},
     "packed_revise": {"packed_revise_stacked_launch": (6, 4), "packed_revise_launch": (5, 4)},
-    "dense_fixpoint": {"dense_fixpoint_stacked_launch": (8, 4)},
+    "dense_fixpoint": {"dense_fixpoint_stacked_launch": (8, 3)},
     "dense_revise": {"dense_revise_stacked_launch": (6, 3), "dense_revise_launch": (5, 3)},
 }
 
 #: warps of one fused-fixpoint CTA (``kWarps`` in csrc/fixpoint_common.cuh)
 FIXPOINT_WARPS = 8
-#: CTAs per row a fused-fixpoint launch may use (a thread-block cluster when > 1)
-CLUSTER_SIZES = (1, 2, 4)
 
 
 def fixpoint_smem(n: int, d: int, dom_bytes: int) -> int:
@@ -48,22 +45,6 @@ def fixpoint_smem(n: int, d: int, dom_bytes: int) -> int:
     nwn, w = -(-n // 32), -(-d // 32)
     return (2 * dom_bytes + 4 * (n * nwn + FIXPOINT_WARPS * (nwn + w) + 2)
             + 2 * FIXPOINT_WARPS * (n + d) + 2 * n)
-
-
-def fixpoint_cluster(kind: str, n: int, d: int) -> int:
-    """CTAs per row of a fused-fixpoint launch, fixed by the shape (the
-    phase-b table in PERF.md): 2 for the packed kernel with one-word entries
-    (d ≤ 32) and n ≥ 128, the dense-mask shape where every row is heavy and
-    two CTAs a row measured 5-8 % faster; 1 everywhere else, where clusters
-    measured slower. ``kind`` is "packed" or "dense"."""
-    return 2 if kind == "packed" and d <= 32 and n >= 128 else 1
-
-
-def check_cluster(cluster: int) -> int:
-    """``cluster`` if a fused-fixpoint launch can take it, else raise."""
-    if cluster not in CLUSTER_SIZES:
-        raise ValueError(f"cluster={cluster}: want one of {CLUSTER_SIZES}")
-    return cluster
 
 
 def check_operands(cons: Tensor, mask: Tensor, idx: Optional[Tensor], dom: Tensor,

@@ -33,8 +33,7 @@ from typing import Optional
 
 import torch
 
-from .launch import (SMEM_OPT_IN_LIMIT, check_cluster, check_operands, check_smem,
-                     fixpoint_cluster, fixpoint_smem, launch)
+from .launch import SMEM_OPT_IN_LIMIT, check_operands, check_smem, fixpoint_smem, launch
 
 Tensor = torch.Tensor
 
@@ -153,16 +152,14 @@ def dense_fixpoint_stacked_plain(cons: Tensor, mask: Tensor, idx: Tensor, dom: T
 
 
 def dense_fixpoint_stacked(cons: Tensor, mask: Tensor, idx: Tensor, dom: Tensor,
-                           changed: Tensor, *, d: int, cluster: Optional[int] = None):
+                           changed: Tensor, *, d: int):
     """R dense fixpoints in ONE launch, row r against ``cons[idx[r]]``.
 
     Operands as `dense_revise_stacked` (``changed`` is the Prop. 2 seed,
     assignment already applied to ``dom``). Returns (dom (R, n·d) u8,
     consistent (R,) u8, k (R,) int32) — per row bit-identical to the stepped
-    fixpoint. ``cluster``: CTAs per row, one of `launch.CLUSTER_SIZES`; None
-    takes the rule `launch.fixpoint_cluster`."""
+    fixpoint."""
     r, n = _check(cons, mask, idx, dom, changed, d)
-    c = fixpoint_cluster("dense", n, d) if cluster is None else check_cluster(cluster)
     if cons.device.type == "cpu":
         return dense_fixpoint_stacked_plain(cons, mask, idx, dom, changed, d=d)
     check_smem("dense_fixpoint_stacked", fixpoint_smem(n, d, n * d), f"n={n}, d={d}",
@@ -172,7 +169,7 @@ def dense_fixpoint_stacked(cons: Tensor, mask: Tensor, idx: Tensor, dom: Tensor,
     k = torch.empty((r,), dtype=torch.int32, device=cons.device)
     if r:
         launch("dense_fixpoint", "dense_fixpoint_stacked_launch",
-               [cons, mask, idx, dom, changed, out, consistent, k], r, n, d, c)
+               [cons, mask, idx, dom, changed, out, consistent, k], r, n, d)
         dense_fixpoint_stacked.launches += 1
     return out, consistent, k
 

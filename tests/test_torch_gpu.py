@@ -15,7 +15,6 @@ from repro_torch.core.csp import CSP
 from repro_torch.core.engine import pad_dom
 from repro_torch.engines import get_engine
 from repro_torch.kernels import bitpack_support as bs, ops, ref, rtac_support as rs
-from repro_torch.kernels.launch import CLUSTER_SIZES
 from repro_torch.problems import generate
 
 pytestmark = pytest.mark.gpu
@@ -163,17 +162,16 @@ def _edge_rows(case, device, kind):
     return (cons, mask, idx, dom.contiguous(), seed.contiguous()), d_p, w
 
 
-@pytest.mark.parametrize("cluster", CLUSTER_SIZES)
 @pytest.mark.parametrize("kind", ["packed", "dense"])
 @pytest.mark.parametrize("case", list(EDGE_CASES))
-def test_fused_kernels_match_plain_on_edge_cases(cuda, case, kind, cluster):
-    """Both fused fixpoints, at every cluster size the wrapper can pick, bit
-    for bit (domain, consistency, k) against their plain versions."""
+def test_fused_kernels_match_plain_on_edge_cases(cuda, case, kind):
+    """Both fused fixpoints bit for bit (domain, consistency, k) against
+    their plain versions."""
     args, d_p, w = _edge_rows(case, cuda, kind)
     mod, kw = (bs, dict(d=d_p, w=w)) if kind == "packed" else (rs, dict(d=d_p))
     fn = getattr(mod, f"{kind}_fixpoint_stacked")
     mod.reset_launches()
-    got = fn(*args, **kw, cluster=cluster)
+    got = fn(*args, **kw)
     want = getattr(mod, f"{kind}_fixpoint_stacked_plain")(*args, **kw)
     for g, e in zip(got, want):
         torch.testing.assert_close(g, e, rtol=0, atol=0)

@@ -324,22 +324,24 @@ def _wrapper_args(kind):
     return mod, wrappers, kw
 
 
-def test_fixpoint_cluster_rule_and_sizes():
-    """The fused fixpoints' CTAs-per-row rule, and the sizes an explicit
-    ``cluster`` may take (on the CPU the plain version runs whatever it is)."""
-    assert launch.fixpoint_cluster("packed", 160, 16) == 2  # the dense-mask shape
-    assert launch.fixpoint_cluster("packed", 104, 40) == 1  # the main shape
-    assert launch.fixpoint_cluster("packed", 32, 16) == 1
-    assert launch.fixpoint_cluster("dense", 160, 16) == 1
-    for kind in ("packed", "dense"):
-        _, wrappers, kw = _wrapper_args(kind)
-        fn, args = wrappers[1]
-        want = fn(*args, **kw)
-        for c in launch.CLUSTER_SIZES:
-            for g, e in zip(fn(*args, **kw, cluster=c), want):
-                torch.testing.assert_close(g, e, rtol=0, atol=0)
-        with pytest.raises(ValueError, match="cluster"):
-            fn(*args, **kw, cluster=3)
+@pytest.mark.parametrize("kind", ["packed", "dense"])
+def test_fixpoint_smem_fits_the_driven_shapes(kind):
+    """The fused fixpoints' shared memory (`launch.fixpoint_smem`, the
+    kernels' ``Smem``) fits the opt-in limit at both full-width shapes and at
+    the W=3 edge shape, and not at the shapes the GPU tests expect the
+    wrappers to refuse."""
+    def smem(n, d):
+        dom_bytes = 4 * n * -(-d // 32) if kind == "packed" else n * d
+        return launch.fixpoint_smem(n, d, dom_bytes)
+
+    for n, d in [(104, 40), (160, 16), (40, 72)]:
+        assert smem(n, d) <= launch.SMEM_OPT_IN_LIMIT
+    assert smem(4096, 8) > launch.SMEM_OPT_IN_LIMIT  # the mask bits alone take 2 MB
+    assert smem(1, 24584) > launch.SMEM_OPT_IN_LIMIT
+    # the main shape, counted by hand: two domain buffers (2 × 832 B packed,
+    # 2 × 4,160 B dense), then 4,376 B of mask bits, seed and violation
+    # words, wipe-out flags, neighbour and value lists and changed flags
+    assert smem(104, 40) == (1664 if kind == "packed" else 8320) + 4376
 
 
 def test_cpu_wrappers_run_plain_and_count_no_launch():
