@@ -2,6 +2,7 @@
 """Smoke test of the PyTorch/CUDA port (`src/repro_torch`) on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --against OTHER_TREE/src/repro_torch/kernels/csrc
 
 Phases (any failure exits non-zero):
 
@@ -17,9 +18,13 @@ Phases (any failure exits non-zero):
               the main shape on one network with 64 child domains, as
               `mac_solve` gives them. Time kernel and plain version with CUDA
               events and compute the least time the card could take (bound).
-              The two fused fixpoints run on three row mixes (all one-hot,
-              the main path's 7 one-hot : 1 root, all root), each checked
-              and timed.
+              The stacked kernels run on three row mixes (all one-hot, the
+              main path's 7 one-hot : 1 root, all root), each checked and
+              timed; the stacked revises also on a "late" mix (the 7:1 rows
+              with the third sweep's seeds of the plain fixpoint: converged
+              rows frozen, their seeds zero). Per kind, the stepped fixpoint
+              (`ops.enforce_rows`, one revise launch a sweep) is timed beside
+              the fused kernel on the 7:1 rows, with identical results.
 (c) main path — `solve_many` on 32 model_rb instances (seeds 0-31, n=100,
               alpha=0.8, r=0.7, hardness=0.9, so d=40) with ``max_assignments``
               per instance, on `hopper_packed` fused, then stepped: identical
@@ -32,18 +37,26 @@ Phases (any failure exits non-zero):
 (e) mac_solve — a few instances of the (c) shape solved one at a time on
               `hopper_packed`, `hopper_dense` and `einsum` (the single-network
               kernels): identical solutions and statistics, ms per round.
-(p) profile — one fused `solve_many` on each Hopper engine under
-              `torch.profiler`: device busy share and the kernels that take
-              the device's time.
+(p) profile — one fused and one stepped `solve_many` on each Hopper engine
+              under `torch.profiler`: device busy share and the kernels that
+              take the device's time, each with its share of the wall time.
 
 Prints a ``{"kernels": [...]}`` JSON line, then the card's name and power
 limit, then ``{"ok": true, "device": {...}}`` as the last line. Exits 2
 without printing a result when no CUDA device is present or when run outside
 a checkout of the repository.
+
+With ``--against DIR`` it runs phase a, then only a same-call comparison:
+the stacked revise kernels of this tree against those built from ``DIR``
+(another tree's ``csrc``, e.g. the parent commit's from ``git archive``) on
+every phase-b mix at both shapes, bit for bit and timed in turns (other,
+this, this, other), and stepped `solve_many` on both Hopper engines in the
+same turns. It prints no result line.
 """
 
 from __future__ import annotations
 
+import hashlib
 import json
 import os
 import subprocess
@@ -179,7 +192,9 @@ MIXES = (("one-hot", 0.0), ("7:1", 0.125), ("root", 1.0))
 def kernel_inputs(csps, n_rows: int, seed: int, device, kind: str, root_share: float = 0.125):
     """Rows as the main path gives them: a root domain with one assignment
     applied (one-hot seed), or for ``root_share`` of the rows (1 in 8 on the
-    main path) an all-changed root row, each routed to a random table slot."""
+    main path) an all-changed root row, each routed to a random table slot.
+    Returns (tables, idx, rows in the kernel's layout, seed u8, the bool
+    domains (R, n_p, d_p), (n_p, d_p))."""
     import numpy as np
     import torch
 
@@ -200,7 +215,7 @@ def kernel_inputs(csps, n_rows: int, seed: int, device, kind: str, root_share: f
     doms = torch.stack([c.dom for c in csps])[idx.long()]
     dom_p = ops.assign_padded_rows(pad_dom(doms, n_p, d_p), var, val)
     seed_u8 = ops._padded_seed(var, n, n_p).to(torch.uint8).contiguous()
-    return tables, idx, dom_rows(dom_p, kind), seed_u8, (n_p, d_p)
+    return tables, idx, dom_rows(dom_p, kind), seed_u8, dom_p, (n_p, d_p)
 
 
 def work_bound(mask, idx, seeds, d: int, entry: int, out_bytes: int, idx_bytes: int = 4):
@@ -253,8 +268,8 @@ def check_fixpoint(csps, label: str, device, kind: str, reps: int = 5):
     fix, fix_plain = (getattr(mod, f"{kind}_fixpoint_stacked{s}") for s in ("", "_plain"))
     out = None
     for mix, root_share in MIXES:
-        tables, idx, rows, seed, (n_p, d_p) = kernel_inputs(csps, N_ROWS, 7, device, kind,
-                                                            root_share)
+        tables, idx, rows, seed, _, (n_p, d_p) = kernel_inputs(csps, N_ROWS, 7, device, kind,
+                                                               root_share)
         args = (*tables, idx, rows, seed)
         kw = kernel_kw(kind, d_p)
         seeds = []
@@ -277,28 +292,89 @@ def check_fixpoint(csps, label: str, device, kind: str, reps: int = 5):
     return {fix.__name__: out}
 
 
-def check_kernels(csps, label: str, device, kind: str, reps: int = 5):
-    """The stacked fixpoint and revise of ``kind`` vs their plain versions on
-    one shape; returns per-kernel measurements."""
-    mod = kernel_module(kind)
-    out = check_fixpoint(csps, label, device, kind, reps)
-    tables, idx, rows, seed, (n_p, d_p) = kernel_inputs(csps, N_ROWS, 7, device, kind)
-    cons_t, mask_t = tables
-    args = (cons_t, mask_t, idx, rows, seed)
-    kw = kernel_kw(kind, d_p)
-    entry = entry_bytes(kind, d_p)
-    r = N_ROWS
+def revise_mixes(csps, device, kind: str):
+    """The stacked revise's inputs on each row mix of phase b: (mix, tables,
+    idx, rows, seed, (n_p, d_p)) for `MIXES`, then "late": the 7:1 rows with
+    the third sweep's seeds of the plain fixpoint, as a later stepped sweep
+    revises them (converged rows frozen, their seeds zero)."""
+    import torch
 
+    fix_plain = getattr(kernel_module(kind), f"{kind}_fixpoint_stacked_plain")
+    for mix, root_share in MIXES:
+        tables, idx, rows, seed, _, dims = kernel_inputs(csps, N_ROWS, 7, device, kind,
+                                                         root_share)
+        yield mix, tables, idx, rows, seed, dims
+        if mix == "7:1":
+            seeds = []
+            fix_plain(*tables, idx, rows, seed, **kernel_kw(kind, dims[1]), seeds_out=seeds)
+            seed = seeds[min(2, len(seeds) - 1)].to(torch.uint8).contiguous()
+            late = (f"late (sweep {min(3, len(seeds))} of {len(seeds)}, "
+                    f"{int(seed.any(dim=1).sum())} of {N_ROWS} rows seeded)",
+                    tables, idx, rows, seed, dims)
+    yield late
+
+
+def check_revise(csps, label: str, device, kind: str, reps: int = 5):
+    """The stacked revise of ``kind`` vs its plain version on each row mix of
+    `revise_mixes`, bit for bit, each timed beside its bound; returns the
+    main path's mix's (7:1) measurements."""
+    mod = kernel_module(kind)
     rev, rev_plain = (getattr(mod, f"{kind}_revise_stacked{s}") for s in ("", "_plain"))
-    err = max_err(rev(*args, **kw), rev_plain(*args, **kw))
-    check(err == 0, f"{label}: {rev.__name__} differs from its plain version (max abs err {err})")
-    out[rev.__name__] = dict(
-        max_abs_err=err,
-        ms=timed_ms(lambda: rev(*args, **kw), 4 * reps, device),
-        plain_ms=timed_ms(lambda: rev_plain(*args, **kw), 2, device),
-        bound=work_bound(mask_t, idx, [seed.bool()], d_p, entry, out_bytes=r * n_p * d_p),
-    )
-    report(label, rev.__name__, out[rev.__name__])
+    out = None
+    for mix, tables, idx, rows, seed, (n_p, d_p) in revise_mixes(csps, device, kind):
+        args = (*tables, idx, rows, seed)
+        kw = kernel_kw(kind, d_p)
+        err = max_err(rev(*args, **kw), rev_plain(*args, **kw))
+        check(err == 0, f"{label} mix={mix}: {rev.__name__} differs from its plain version "
+                        f"(max abs err {err})")
+        ms = timed_ms(lambda: rev(*args, **kw), 4 * reps, device)
+        bound = work_bound(tables[1], idx, [seed.bool()], d_p, entry_bytes(kind, d_p),
+                           out_bytes=N_ROWS * n_p * d_p)
+        if mix == "7:1":
+            out = dict(max_abs_err=err, ms=ms,
+                       plain_ms=timed_ms(lambda: rev_plain(*args, **kw), 2, device),
+                       bound=bound)
+            report(f"{label} mix={mix}", rev.__name__, out)
+        else:
+            print(f"[b] {label} mix={mix} {rev.__name__}: bit-identical to plain; "
+                  f"kernel_ms={ms:.4f} bound_ms={bound[0]:.4f} (by {bound[1]}: {bound[2]} B, "
+                  f"{bound[3]} 32-bit ANDs)", flush=True)
+    return {rev.__name__: out}
+
+
+def check_stepped(csps, label: str, device, kind: str, reps: int = 3):
+    """The whole stepped fixpoint of ``kind`` (`ops.enforce_rows`, one
+    stacked revise launch a sweep, one host sync a sweep) beside the fused
+    kernel on the 7:1 rows: identical results; both timed."""
+    import torch
+
+    from repro_torch.kernels import ops
+
+    tables, idx, _, seed, dom_p, (n_p, d_p) = kernel_inputs(csps, N_ROWS, 7, device, kind)
+    kdims = ops.dims(kind, n_p, d_p)
+    ch = seed.bool()
+    run = lambda fused: ops.enforce_rows(kind, fused, tables, dom_p, ch, idx, kdims)  # noqa: E731
+    rev = getattr(kernel_module(kind), f"{kind}_revise_stacked")
+    before = rev.launches
+    stepped = run(False)
+    launches = rev.launches - before
+    fused = run(True)
+    for a, b in zip(stepped, fused):
+        check(torch.equal(a, b), f"{label}: {kind} stepped fixpoint differs from the fused one")
+    ms_stepped = timed_ms(lambda: run(False), reps, device)
+    ms_fused = timed_ms(lambda: run(True), reps, device)
+    print(f"[b] {label} mix=7:1 {kind} stepped fixpoint (ops.enforce_rows): {ms_stepped:.4f} ms "
+          f"in {int(stepped[2].max())} sweeps ({launches} {rev.__name__} launches); fused "
+          f"{ms_fused:.4f} ms; identical results", flush=True)
+
+
+def check_kernels(csps, label: str, device, kind: str):
+    """The stacked fixpoint and revise of ``kind`` vs their plain versions on
+    one shape, and the stepped fixpoint beside the fused one; returns
+    per-kernel measurements at the main path's mix."""
+    out = check_fixpoint(csps, label, device, kind)
+    out.update(check_revise(csps, label, device, kind))
+    check_stepped(csps, label, device, kind)
     return out
 
 
@@ -518,12 +594,13 @@ def mac_path(device, max_assignments: int = MAX_ASSIGNMENTS, n_instances: int = 
     return runs
 
 
-def profile_main_path(device, engine: str, max_assignments: int = 500,
+def profile_main_path(device, engine: str, fixpoint: str, max_assignments: int = 500,
                       n_instances: int = N_INSTANCES, spec=MAIN):
-    """Where a fused round's time goes: `torch.profiler` over one fused
-    `solve_many` on ``engine`` (a smaller budget keeps the trace short).
-    Prints the wall time, the summed device time of every kernel and copy,
-    the device busy share, and the kernels that take the most device time."""
+    """Where a round's time goes: `torch.profiler` over one `solve_many` on
+    ``engine`` with its ``fixpoint`` ("fused" or "stepped"; a smaller budget
+    keeps the trace short). Prints the wall time, the summed device time of
+    every kernel and copy, the device busy share, and the kernels that take
+    the most device time, each with its share of the wall time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -531,7 +608,7 @@ def profile_main_path(device, engine: str, max_assignments: int = 500,
     from repro_torch.problems import generate
 
     csps = [generate("model_rb", seed=i, device=device, **spec) for i in range(n_instances)]
-    eng = get_engine(engine, fixpoint="fused", device=device)
+    eng = get_engine(engine, fixpoint=fixpoint, device=device)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         run = run_solve(csps, eng, max_assignments, device)
     wall_ms = 1e3 * run[3]
@@ -546,11 +623,12 @@ def profile_main_path(device, engine: str, max_assignments: int = 500,
     if not on_device:
         print("[p] profiler recorded no device time: device busy share not measured")
         return
-    print(f"[p] profiled {engine} fused solve_many (max_assignments={max_assignments}): wall "
-          f"{wall_ms:.1f} ms over {rounds} rounds ({wall_ms / rounds:.3f} ms/round, profiler "
-          f"on); device busy {busy_ms:.1f} ms = {100 * busy_ms / wall_ms:.1f}% of wall")
+    print(f"[p] profiled {engine} {fixpoint} solve_many (max_assignments={max_assignments}): "
+          f"wall {wall_ms:.1f} ms over {rounds} rounds ({wall_ms / rounds:.3f} ms/round, "
+          f"profiler on); device busy {busy_ms:.1f} ms = {100 * busy_ms / wall_ms:.1f}% of wall")
     for e in on_device[:8]:
-        print(f"[p]   {device_time(e):9.2f} ms  {e.count:6d} calls  {e.key[:90]}")
+        print(f"[p]   {device_time(e):9.2f} ms ({100 * device_time(e) / wall_ms:5.1f}% of wall) "
+              f"{e.count:6d} calls  {e.key[:90]}")
 
 
 def parity_einsum(device, max_assignments: int = MAX_ASSIGNMENTS,
@@ -569,7 +647,92 @@ def parity_einsum(device, max_assignments: int = MAX_ASSIGNMENTS,
     print("[d] hopper_packed == einsum: solutions and search statistics identical", flush=True)
 
 
-def main() -> int:
+# ---------------------------------------------------------------------------
+# --against: this tree's stacked revises beside another tree's, in one call
+# ---------------------------------------------------------------------------
+
+#: the libraries `compare_against` loads from the other tree
+COMPARED = ("packed_revise", "dense_revise")
+#: turns of a same-call comparison
+TURNS = ("other", "this", "this", "other")
+
+
+def build_other(csrc: str) -> dict:
+    """`COMPARED` built from ``csrc`` (another tree's kernel sources) with
+    this tree's nvcc flags, one nvcc per source, all at once, into the
+    ignored build directory; returns {library: ctypes.CDLL}."""
+    import ctypes
+
+    from repro_torch.kernels import build
+
+    tree = hashlib.sha256(os.path.abspath(csrc).encode()).hexdigest()[:16]
+    out_dir = build.BUILD_DIR / "against" / tree  # one directory a tree: a loaded
+    out_dir.mkdir(parents=True, exist_ok=True)   # library is never overwritten
+    procs = {}
+    for name in COMPARED:
+        out = out_dir / f"lib{name}.so"
+        cmd = [build.nvcc(), *build.NVCC_FLAGS, "-o", str(out), os.path.join(csrc, f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                        text=True), out)
+    libs = {}
+    for name, (proc, out) in procs.items():
+        log = proc.communicate()[0]
+        check(proc.returncode == 0, f"{csrc}/{name}.cu did not build:\n{log}")
+        libs[name] = ctypes.CDLL(str(out))
+    return libs
+
+
+def compare_against(csrc: str, shapes, device, max_assignments: int = 500):
+    """This tree's stacked revise kernels against those built from ``csrc``,
+    on one card in one process, the wrappers routed to either side's
+    library: bit for bit and timed in `TURNS` on every row mix of phase b at
+    each of ``shapes`` ((label, csps)), then stepped `solve_many` on both
+    Hopper engines in the same turns (identical solutions and statistics)."""
+    from repro_torch.engines import get_engine
+    from repro_torch.kernels import build
+
+    sides = {"this": {name: build.load(name) for name in COMPARED}, "other": build_other(csrc)}
+    use = lambda side: build._LIBS.update(sides[side])  # noqa: E731  (what launch.launch loads)
+    fmt = lambda ms: f"{sum(ms) / len(ms):.4f} ({', '.join(f'{m:.4f}' for m in ms)})"  # noqa: E731
+    print(f"[vs] other = {csrc}; turns {', '.join(TURNS)}; kernel ms, mean (turns)", flush=True)
+    for label, csps in shapes:
+        for kind in ("packed", "dense"):
+            rev = getattr(kernel_module(kind), f"{kind}_revise_stacked")
+            for mix, tables, idx, rows, seed, (_, d_p) in revise_mixes(csps, device, kind):
+                args, kw = (*tables, idx, rows, seed), kernel_kw(kind, d_p)
+                got, ms = {}, {"other": [], "this": []}
+                for side in TURNS:
+                    use(side)
+                    got[side] = rev(*args, **kw)
+                    ms[side].append(timed_ms(lambda: rev(*args, **kw), 20, device))
+                err = max_err(got["this"], got["other"])
+                check(err == 0, f"[vs] {label} {kind} mix={mix}: the two trees differ")
+                ratio = sum(ms["other"]) / sum(ms["this"])
+                print(f"[vs] {label} {rev.__name__} mix={mix}: other {fmt(ms['other'])} -> "
+                      f"this {fmt(ms['this'])}; {ratio:.2f}x; bit-identical", flush=True)
+    csps = shapes[0][1]
+    for engine in ("hopper_packed", "hopper_dense"):
+        runs, per_round = {}, {"other": [], "this": []}
+        for side in TURNS:
+            use(side)
+            runs[side] = run_solve(csps, get_engine(engine, fixpoint="stepped", device=device),
+                                   max_assignments, device)
+            per_round[side].append(1e3 * runs[side][3] / runs[side][2]["rounds"])
+        compare_runs(f"[vs] {engine} stepped", csps, runs["this"], runs["other"])
+        print(f"[vs] {engine} stepped solve_many (max_assignments={max_assignments}, "
+              f"{runs['this'][2]['rounds']} rounds, {runs['this'][2]['launches']} launches) "
+              f"ms/round: other {fmt(per_round['other'])} -> this {fmt(per_round['this'])}; "
+              f"identical solutions and statistics", flush=True)
+    use("this")
+
+
+def main(argv) -> int:
+    against = None
+    if argv:
+        if len(argv) != 2 or argv[0] != "--against":
+            print("usage: chip_smoke.py [--against OTHER_CSRC_DIR]", file=sys.stderr)
+            return 2
+        against = argv[1]
     try:
         import torch
     except ImportError:
@@ -601,24 +764,33 @@ def main() -> int:
                 if "registers" in line or "spill" in line:
                     print(f"[a] {name}: {line.strip()}")
 
-        main_csps = [generate("model_rb", seed=i, device=device, **MAIN)
-                     for i in range(N_INSTANCES)]
-        wide_csps = [generate("random_binary", seed=i, device=device, n=160, d=10,
-                              density=1.0) for i in range(N_INSTANCES)]
+        shapes = [
+            ("main n_p=104 d_p=40 W=2",
+             [generate("model_rb", seed=i, device=device, **MAIN) for i in range(N_INSTANCES)]),
+            ("density-1 n_p=160 d_p=16 W=1",
+             [generate("random_binary", seed=i, device=device, n=160, d=10, density=1.0)
+              for i in range(N_INSTANCES)]),
+        ]
+        if against is not None:
+            compare_against(against, shapes, device)
+            print(f"[done] {time.perf_counter() - t_start:.1f} s in all", flush=True)
+            return 0
+        main_csps = shapes[0][1]
         measured = {}
         for kind in ("packed", "dense"):
-            measured.update(check_kernels(main_csps, "main n_p=104 d_p=40 W=2", device, kind))
-            check_kernels(wide_csps, "density-1 n_p=160 d_p=16 W=1", device, kind)
+            measured.update(check_kernels(main_csps, shapes[0][0], device, kind))
+            check_kernels(shapes[1][1], shapes[1][0], device, kind)
         measured.update(check_single_kernels(main_csps[0], f"main n_p=104 d_p=40 "
                                              f"B={CHILD_ROWS} one network", device))
-        del main_csps, wide_csps
+        del main_csps, shapes
 
         run_f, run_s = main_path(device)
         run_df, run_ds = dense_path(device, run_f)
         parity_einsum(device)
         macs = mac_path(device)
         for name in ("hopper_packed", "hopper_dense"):
-            profile_main_path(device, name)
+            for fixpoint in ("fused", "stepped"):
+                profile_main_path(device, name, fixpoint)
 
         counts = {"packed fused": run_f[4], "packed stepped": run_s[4],
                   "dense fused": run_df[4], "dense stepped": run_ds[4],
@@ -650,4 +822,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -11,12 +11,13 @@ uint32 bit patterns):
 The stacked kernels take the slot TABLES and a row→slot map ``idx`` and read
 each row's network in place — no per-round gathered copy of the networks:
 
-- :func:`packed_revise_stacked` — one revise step for R rows
-  (``csrc/packed_revise.cu``; the stepped fixpoint's revise);
+- :func:`packed_revise_stacked` — one revise step for R rows, one CTA a row
+  (``csrc/packed_revise.cu`` with ``csrc/revise_stacked.cuh``; the stepped
+  fixpoint's revise);
 - :func:`packed_fixpoint_stacked` — the whole incremental fixpoint of R rows
   in one launch (``csrc/packed_fixpoint.cu``; the fused default);
 - :func:`packed_revise` — one revise step of B domains against ONE network
-  (``csrc/packed_revise.cu``, same body; the single-network path of
+  (``csrc/packed_revise.cu``, its own kernel; the single-network path of
   ``enforce``/``enforce_batch`` and so of ``mac_solve``).
 
 Device rule: a wrapper given CPU tensors computes the plain version; given
@@ -30,7 +31,8 @@ from typing import Optional
 
 import torch
 
-from .launch import SMEM_OPT_IN_LIMIT, check_operands, check_smem, fixpoint_smem, launch
+from .launch import (SMEM_OPT_IN_LIMIT, check_operands, check_smem, fixpoint_smem, launch,
+                     revise_smem)
 from .ref import pack_bits_ref, unpack_bits_ref
 
 Tensor = torch.Tensor
@@ -67,11 +69,6 @@ def _revise_rows_plain(net: Tensor, mask: Tensor, dom_words: Tensor, changed: Te
 # ---------------------------------------------------------------------------
 
 
-def _revise_smem(n: int, d: int, w: int) -> int:
-    """Shared memory of one revise block: domain words, seed list, 8·d flags."""
-    return (n * w + n) * 4 + 8 * d
-
-
 def packed_revise_stacked_plain(cons: Tensor, mask: Tensor, idx: Tensor, dom_words: Tensor,
                                 changed: Tensor, *, d: int, w: int) -> Tensor:
     """Plain PyTorch version of `packed_revise_stacked` (same operands, same
@@ -95,7 +92,8 @@ def packed_revise_stacked(cons: Tensor, mask: Tensor, idx: Tensor, dom_words: Te
     r, n = _check(cons, mask, idx, dom_words, changed, d, w)
     if cons.device.type == "cpu":
         return packed_revise_stacked_plain(cons, mask, idx, dom_words, changed, d=d, w=w)
-    check_smem("packed_revise_stacked", _revise_smem(n, d, w), f"n·W={n * w}")
+    check_smem("packed_revise_stacked", revise_smem(n, d, 4 * n * w), f"n={n}, d={d}",
+               SMEM_OPT_IN_LIMIT)
     out = torch.empty((r, n * d), dtype=torch.uint8, device=cons.device)
     if r:
         launch("packed_revise", "packed_revise_stacked_launch",
@@ -175,6 +173,12 @@ packed_fixpoint_stacked.launches = 0
 # ---------------------------------------------------------------------------
 
 
+def _single_revise_smem(n: int, d: int, w: int) -> int:
+    """Shared memory of one single-network revise block: domain words, seed
+    list, 8·d flags."""
+    return (n * w + n) * 4 + 8 * d
+
+
 def packed_revise_plain(cons: Tensor, mask: Tensor, dom_words: Tensor, changed: Tensor, *,
                         d: int, w: int) -> Tensor:
     """Plain PyTorch version of `packed_revise`, in chunks of rows."""
@@ -197,7 +201,7 @@ def packed_revise(cons: Tensor, mask: Tensor, dom_words: Tensor, changed: Tensor
     b, n = _check(cons, mask, None, dom_words, changed, d, w)
     if cons.device.type == "cpu":
         return packed_revise_plain(cons, mask, dom_words, changed, d=d, w=w)
-    check_smem("packed_revise", _revise_smem(n, d, w), f"n·W={n * w}")
+    check_smem("packed_revise", _single_revise_smem(n, d, w), f"n·W={n * w}")
     out = torch.empty((b, n * d), dtype=torch.uint8, device=cons.device)
     if b:
         launch("packed_revise", "packed_revise_launch", [cons, mask, dom_words, changed, out],

@@ -5,25 +5,26 @@
 // - dense_revise_stacked (body _revise_stacked_kernel): each row against its
 //   own network, read through instance_idx. It is the stepped fixpoint's
 //   revise (one launch per recurrence) — the fallback rung and the parity
-//   oracle of the fused kernel (dense_fixpoint.cu).
-// - dense_revise (body _revise_kernel): B domains against ONE network
-//   (instance_idx null, network stride 0) — the single-network path of
-//   enforce/enforce_batch and so of mac_solve; the reference vmaps it.
+//   oracle of the fused kernel (dense_fixpoint.cu). Its kernel is
+//   revise_stacked.cuh's, one CTA a row, an entry read as d/8 u64 words; see
+//   there for what bounds it and how it is built.
+// - dense_revise (body _revise_kernel): B domains against ONE network — the
+//   single-network path of enforce/enforce_batch and so of mac_solve; the
+//   reference vmaps it. Its kernel is below.
 // violated[r, x·d+a] = ∃y: seed[r,y] ∧ mask[x,y] ∧
 //                      no byte of (cons2[x·d+a, y·d ..] & dom[r, y·d ..]) is nonzero.
+// d is a multiple of 8 (ops.D_MULT), so each (x·a, y) slice is read as d/8
+// aligned 8-byte words.
 //
-// What bounds it on an H100: bytes — the (n*d, d) column slice of each
-// seeded y is read once and ANDed once, one byte per constraint bit.
-//
-// Design (that of packed_revise.cu): the Pallas kernel walked a grid
-// (r, i, j) and ORed partial results across the sequential axis j. Blocks on
-// the card run in no order, so here one block owns one (row r, block of kVars
-// variables) output tile and loops over the row's seeded y columns itself: no
-// cross-block reduction, no atomics in global memory. The row's domain bytes
-// and its compacted seed list sit in shared memory. d is a multiple of 8
-// (ops.D_MULT), so each (x·a, y) slice is read as d/8 aligned 8-byte words.
-#include <cuda_runtime.h>
-#include <stdint.h>
+// The single-network kernel (that of packed_revise.cu): the Pallas kernel
+// walked a grid (r, i, j) and ORed partial results across the sequential
+// axis j. Blocks on the card run in no order, so here one block owns one
+// (row r, block of kVars variables) output tile and loops over the row's
+// seeded y columns itself: no cross-block reduction, no atomics in global
+// memory. The row's domain bytes and its compacted seed list sit in shared
+// memory. What bounds it on an H100: bytes — the (n*d, d) column slice of
+// each seeded y is read once and ANDed once, one byte per constraint bit.
+#include "revise_stacked.cuh"
 
 namespace {
 
@@ -92,28 +93,33 @@ static size_t dense_revise_smem_bytes(int n, int d) {
          static_cast<size_t>(kVars) * d;
 }
 
-static int launch(const void* cons, const void* mask, const void* idx, const void* dom_in,
-                  const void* seed_in, void* viol_out, int rows, int n, int d, void* stream) {
+static int launch_single(const void* cons, const void* mask, const void* dom_in,
+                         const void* seed_in, void* viol_out, int rows, int n, int d,
+                         void* stream) {
   if (rows <= 0) return 0;
   const dim3 grid(rows, (n + kVars - 1) / kVars);
   dense_revise_kernel<<<grid, kThreads, dense_revise_smem_bytes(n, d),
                         static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(cons), static_cast<const uint8_t*>(mask),
-      static_cast<const int32_t*>(idx), static_cast<const uint8_t*>(dom_in),
-      static_cast<const uint8_t*>(seed_in), static_cast<uint8_t*>(viol_out), n, d);
+      static_cast<const uint8_t*>(cons), static_cast<const uint8_t*>(mask), nullptr,
+      static_cast<const uint8_t*>(dom_in), static_cast<const uint8_t*>(seed_in),
+      static_cast<uint8_t*>(viol_out), n, d);
   return static_cast<int>(cudaGetLastError());
 }
 
-// R rows, row r against the slot table's network idx[r].
+// R rows, row r against the slot table's network idx[r]: one CTA a row.
+// d/8 = 2 is compiled as a constant, as in dense_fixpoint.cu; any other d/8
+// is read at run time.
 extern "C" int dense_revise_stacked_launch(
     const void* cons, const void* mask, const void* idx, const void* dom_in,
     const void* seed_in, void* viol_out, int rows, int n, int d, void* stream) {
-  return launch(cons, mask, idx, dom_in, seed_in, viol_out, rows, n, d, stream);
+  const auto run = d / 8 == 2 ? &revise::launch_stacked<u64, 2>
+                              : &revise::launch_stacked<u64, 0>;
+  return run(cons, mask, idx, dom_in, seed_in, viol_out, rows, n, d, d / 8, stream);
 }
 
 // B rows against one network.
 extern "C" int dense_revise_launch(
     const void* cons, const void* mask, const void* dom_in, const void* seed_in,
     void* viol_out, int rows, int n, int d, void* stream) {
-  return launch(cons, mask, nullptr, dom_in, seed_in, viol_out, rows, n, d, stream);
+  return launch_single(cons, mask, dom_in, seed_in, viol_out, rows, n, d, stream);
 }

@@ -5,24 +5,23 @@
 // - packed_revise_stacked (body _revise_packed_stacked_kernel): each row
 //   against its own network, read through instance_idx. It is the stepped
 //   fixpoint's revise (one launch per recurrence) — the fallback rung and the
-//   parity oracle of the fused kernel.
+//   parity oracle of the fused kernel. Its kernel is revise_stacked.cuh's,
+//   one CTA a row, with u32 words (W per entry); see there for what bounds it
+//   and how it is built.
 // - packed_revise (body _revise_packed_kernel): B domains against ONE
-//   network (instance_idx null, network stride 0) — the single-network path
-//   of enforce/enforce_batch and so of mac_solve; the reference vmaps it.
+//   network — the single-network path of enforce/enforce_batch and so of
+//   mac_solve; the reference vmaps it. Its kernel is below.
 // violated[r, x·d+a] = ∃y: seed[r,y] ∧ mask[x,y] ∧ (cons[x·d+a, y·W..] & dom[r, y·W..]) == 0.
 //
-// What bounds it on an H100: bytes — the (n*d, W) column slice of each seeded
-// y is read once and ANDed once.
-//
-// Design: the Pallas kernel walked a grid (r, i, j) and ORed partial results
-// across the sequential axis j. Blocks on the card run in no order, so here
-// one block owns one (row r, block of kVars variables) output tile and loops
-// over the row's seeded y columns itself: no cross-block reduction, no
-// atomics in global memory. The network is read in place from the slot table
-// through instance_idx (or is the one network); the row's domain words and
-// its compacted seed list sit in shared memory.
-#include <cuda_runtime.h>
-#include <stdint.h>
+// The single-network kernel: the Pallas kernel walked a grid (r, i, j) and
+// ORed partial results across the sequential axis j. Blocks on the card run
+// in no order, so here one block owns one (row r, block of kVars variables)
+// output tile and loops over the row's seeded y columns itself: no
+// cross-block reduction, no atomics in global memory. The row's domain words
+// and its compacted seed list sit in shared memory. What bounds it on an
+// H100: bytes — the (n*d, W) column slice of each seeded y is read once and
+// ANDed once.
+#include "revise_stacked.cuh"
 
 namespace {
 
@@ -88,29 +87,39 @@ static size_t packed_revise_smem_bytes(int n, int d, int w) {
   return static_cast<size_t>(n * w + n) * sizeof(uint32_t) + static_cast<size_t>(kVars * d);
 }
 
-static int launch(const void* cons, const void* mask, const void* idx, const void* dom_in,
-                  const void* seed_in, void* viol_out, int rows, int n, int d, int w,
-                  void* stream) {
+static int launch_single(const void* cons, const void* mask, const void* dom_in,
+                         const void* seed_in, void* viol_out, int rows, int n, int d, int w,
+                         void* stream) {
   if (rows <= 0) return 0;
   const dim3 grid(rows, (n + kVars - 1) / kVars);
   packed_revise_kernel<<<grid, kThreads, packed_revise_smem_bytes(n, d, w),
                          static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(cons), static_cast<const uint8_t*>(mask),
-      static_cast<const int32_t*>(idx), static_cast<const uint32_t*>(dom_in),
-      static_cast<const uint8_t*>(seed_in), static_cast<uint8_t*>(viol_out), n, d, w);
+      static_cast<const uint32_t*>(cons), static_cast<const uint8_t*>(mask), nullptr,
+      static_cast<const uint32_t*>(dom_in), static_cast<const uint8_t*>(seed_in),
+      static_cast<uint8_t*>(viol_out), n, d, w);
   return static_cast<int>(cudaGetLastError());
 }
 
-// R rows, row r against the slot table's network idx[r].
+// R rows, row r against the slot table's network idx[r]: one CTA a row.
+// An entry of W = 2 words is read as one 8-byte word where the table and
+// the domains are 8-byte aligned; W = 1 is a constant too; any other W is
+// read at run time.
 extern "C" int packed_revise_stacked_launch(
     const void* cons, const void* mask, const void* idx, const void* dom_in,
     const void* seed_in, void* viol_out, int rows, int n, int d, int w, void* stream) {
-  return launch(cons, mask, idx, dom_in, seed_in, viol_out, rows, n, d, w, stream);
+  const bool wide = w == 2 && ((reinterpret_cast<uintptr_t>(cons) |
+                                reinterpret_cast<uintptr_t>(dom_in)) & 7) == 0;
+  if (wide)
+    return revise::launch_stacked<revise::u64, 1>(cons, mask, idx, dom_in, seed_in, viol_out,
+                                                  rows, n, d, 1, stream);
+  const auto run = w == 1 ? &revise::launch_stacked<uint32_t, 1>
+                          : &revise::launch_stacked<uint32_t, 0>;
+  return run(cons, mask, idx, dom_in, seed_in, viol_out, rows, n, d, w, stream);
 }
 
 // B rows against one network.
 extern "C" int packed_revise_launch(
     const void* cons, const void* mask, const void* dom_in, const void* seed_in,
     void* viol_out, int rows, int n, int d, int w, void* stream) {
-  return launch(cons, mask, nullptr, dom_in, seed_in, viol_out, rows, n, d, w, stream);
+  return launch_single(cons, mask, dom_in, seed_in, viol_out, rows, n, d, w, stream);
 }

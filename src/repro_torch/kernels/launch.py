@@ -20,7 +20,7 @@ Tensor = torch.Tensor
 
 #: dynamic shared memory a block may use without an opt-in attribute
 SMEM_LIMIT = 48 * 1024
-#: the most a block may use after opting in (the fixpoint launchers do)
+#: the most a block may use after opting in (the one-CTA-a-row launchers do)
 SMEM_OPT_IN_LIMIT = 227 * 1024
 
 #: library -> {C launcher: (pointer arguments, int arguments)}; the stream
@@ -33,8 +33,9 @@ SIGNATURES = {
     "dense_revise": {"dense_revise_stacked_launch": (6, 3), "dense_revise_launch": (5, 3)},
 }
 
-#: warps of one fused-fixpoint CTA (``kWarps`` in csrc/fixpoint_common.cuh)
-FIXPOINT_WARPS = 8
+#: warps of one fused-fixpoint or stacked-revise CTA (``kWarps`` in
+#: csrc/fixpoint_common.cuh)
+CTA_WARPS = 8
 
 
 def fixpoint_smem(n: int, d: int, dom_bytes: int) -> int:
@@ -43,8 +44,19 @@ def fixpoint_smem(n: int, d: int, dom_bytes: int) -> int:
     bits, per-warp seed bits and violation words, two wipe-out flags,
     per-warp neighbour and value lists (u16), two changed-flag buffers."""
     nwn, w = -(-n // 32), -(-d // 32)
-    return (2 * dom_bytes + 4 * (n * nwn + FIXPOINT_WARPS * (nwn + w) + 2)
-            + 2 * FIXPOINT_WARPS * (n + d) + 2 * n)
+    return (2 * dom_bytes + 4 * (n * nwn + CTA_WARPS * (nwn + w) + 2)
+            + 2 * CTA_WARPS * (n + d) + 2 * n)
+
+
+def revise_smem(n: int, d: int, dom_bytes: int) -> int:
+    """Shared memory of one stacked-revise CTA (``Smem`` in
+    csrc/revise_stacked.cuh): the row's domain of ``dom_bytes``, then per
+    warp its seed bits, and for each of its owner lanes (one a variable,
+    ``min(32, ceil(n/8))``) the variable's seeded-neighbour bits and
+    violation words (u32) and n (variable, neighbour) pairs (u16)."""
+    nwn, w = -(-n // 32), -(-d // 32)
+    lanes = min(32, -(-n // CTA_WARPS))
+    return dom_bytes + 4 * CTA_WARPS * (nwn + lanes * (nwn + w)) + 2 * CTA_WARPS * lanes * n
 
 
 def check_operands(cons: Tensor, mask: Tensor, idx: Optional[Tensor], dom: Tensor,

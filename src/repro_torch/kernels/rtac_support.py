@@ -11,12 +11,13 @@ The counterpart of `repro.kernels.rtac_support`. A network is the padded
 same). The stacked kernels take the slot TABLES and a row→slot map ``idx``
 and read each row's network in place — no per-round gathered copy:
 
-- :func:`dense_revise_stacked` — one revise step for R rows
-  (``csrc/dense_revise.cu``; the stepped fixpoint's revise);
+- :func:`dense_revise_stacked` — one revise step for R rows, one CTA a row
+  (``csrc/dense_revise.cu`` with ``csrc/revise_stacked.cuh``; the stepped
+  fixpoint's revise);
 - :func:`dense_fixpoint_stacked` — the whole incremental fixpoint of R rows
   in one launch (``csrc/dense_fixpoint.cu``; the fused default);
 - :func:`dense_revise` — one revise step of B domains against ONE network
-  (``csrc/dense_revise.cu``, same body; the single-network path of
+  (``csrc/dense_revise.cu``, its own kernel; the single-network path of
   ``enforce``/``enforce_batch`` and so of ``mac_solve``).
 
 The kernels read each (x·a, y) slice as d/8 eight-byte words, so d must be a
@@ -33,7 +34,8 @@ from typing import Optional
 
 import torch
 
-from .launch import SMEM_OPT_IN_LIMIT, check_operands, check_smem, fixpoint_smem, launch
+from .launch import (SMEM_OPT_IN_LIMIT, check_operands, check_smem, fixpoint_smem, launch,
+                     revise_smem)
 
 Tensor = torch.Tensor
 
@@ -72,11 +74,6 @@ def _revise_rows_plain(net: Tensor, mask: Tensor, dom: Tensor, changed: Tensor,
     return (seed & ~has).any(dim=-1).view(rows, n * d).to(torch.uint8)
 
 
-def _revise_smem(n: int, d: int) -> int:
-    """Shared memory of one revise block: domain bytes, seed list, 8·d flags."""
-    return n * d + 4 * n + 8 * d
-
-
 # ---------------------------------------------------------------------------
 # One revise step (stepped fixpoint)
 # ---------------------------------------------------------------------------
@@ -105,7 +102,8 @@ def dense_revise_stacked(cons: Tensor, mask: Tensor, idx: Tensor, dom: Tensor,
     r, n = _check(cons, mask, idx, dom, changed, d)
     if cons.device.type == "cpu":
         return dense_revise_stacked_plain(cons, mask, idx, dom, changed, d=d)
-    check_smem("dense_revise_stacked", _revise_smem(n, d), f"n·d={n * d}")
+    check_smem("dense_revise_stacked", revise_smem(n, d, n * d), f"n={n}, d={d}",
+               SMEM_OPT_IN_LIMIT)
     out = torch.empty((r, n * d), dtype=torch.uint8, device=cons.device)
     if r:
         launch("dense_revise", "dense_revise_stacked_launch",
@@ -182,6 +180,12 @@ dense_fixpoint_stacked.launches = 0
 # ---------------------------------------------------------------------------
 
 
+def _single_revise_smem(n: int, d: int) -> int:
+    """Shared memory of one single-network revise block: domain bytes, seed
+    list, 8·d flags."""
+    return n * d + 4 * n + 8 * d
+
+
 def dense_revise_plain(cons: Tensor, mask: Tensor, dom: Tensor, changed: Tensor, *,
                        d: int) -> Tensor:
     """Plain PyTorch version of `dense_revise`, in chunks of rows."""
@@ -204,7 +208,7 @@ def dense_revise(cons: Tensor, mask: Tensor, dom: Tensor, changed: Tensor, *,
     b, n = _check(cons, mask, None, dom, changed, d)
     if cons.device.type == "cpu":
         return dense_revise_plain(cons, mask, dom, changed, d=d)
-    check_smem("dense_revise", _revise_smem(n, d), f"n·d={n * d}")
+    check_smem("dense_revise", _single_revise_smem(n, d), f"n·d={n * d}")
     out = torch.empty((b, n * d), dtype=torch.uint8, device=cons.device)
     if b:
         launch("dense_revise", "dense_revise_launch", [cons, mask, dom, changed, out], b, n, d)

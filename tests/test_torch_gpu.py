@@ -121,13 +121,14 @@ def test_single_network_kernels_match_plain_at_full_width(cuda, family, knobs, k
     assert launches == 1
 
 
-#: fused-fixpoint edge cases: case -> (family, knobs); the case also picks
+#: stacked-kernel edge cases: case -> (family, knobs); the case also picks
 #: the rows' seeds and domains in `_edge_rows`
 EDGE_CASES = {
     "mixed_main": FULL_WIDTH[0],
     "mixed_dense_mask": FULL_WIDTH[1],
     "all_root": FULL_WIDTH[0],
     "empty_seed": FULL_WIDTH[0],
+    "every_16th_seeded": FULL_WIDTH[0],  # a late stepped sweep: most rows frozen
     "inconsistent_at_entry": FULL_WIDTH[0],
     "zero_mask": ("random_binary", dict(n=48, d=20, density=0.5)),
     "ones_mask_n160": FULL_WIDTH[1],  # every pair constrained: the densest lists
@@ -137,7 +138,7 @@ EDGE_CASES = {
 
 
 def _edge_rows(case, device, kind):
-    """(fixpoint operands, d_p, W) of 128 rows for an `EDGE_CASES` case."""
+    """(stacked-kernel operands, d_p, W) of 128 rows for an `EDGE_CASES` case."""
     family, knobs = EDGE_CASES[case]
     csps = [generate(family, seed=i, device=device, **knobs) for i in range(4)]
     if case == "zero_mask":
@@ -156,29 +157,37 @@ def _edge_rows(case, device, kind):
                                 n_p).to(torch.uint8)
     elif case == "empty_seed":
         seed = torch.zeros_like(seed)
+    elif case == "every_16th_seeded":
+        seed = seed.clone()
+        seed[torch.arange(128, device=device) % 16 != 0] = 0
     elif case == "inconsistent_at_entry":
         dom = dom.clone()
         dom.view(128, n_p, -1)[::2, 3] = 0
     return (cons, mask, idx, dom.contiguous(), seed.contiguous()), d_p, w
 
 
+@pytest.mark.parametrize("fn", ["fixpoint", "revise"])
 @pytest.mark.parametrize("kind", ["packed", "dense"])
 @pytest.mark.parametrize("case", list(EDGE_CASES))
-def test_fused_kernels_match_plain_on_edge_cases(cuda, case, kind):
-    """Both fused fixpoints bit for bit (domain, consistency, k) against
-    their plain versions."""
+def test_fused_kernels_match_plain_on_edge_cases(cuda, case, kind, fn):
+    """Both fused fixpoints (domain, consistency, k) and both stacked
+    revises (violations) bit for bit against their plain versions."""
     args, d_p, w = _edge_rows(case, cuda, kind)
     mod, kw = (bs, dict(d=d_p, w=w)) if kind == "packed" else (rs, dict(d=d_p))
-    fn = getattr(mod, f"{kind}_fixpoint_stacked")
+    kernel = getattr(mod, f"{kind}_{fn}_stacked")
     mod.reset_launches()
-    got = fn(*args, **kw)
-    want = getattr(mod, f"{kind}_fixpoint_stacked_plain")(*args, **kw)
+    got = kernel(*args, **kw)
+    want = getattr(mod, f"{kind}_{fn}_stacked_plain")(*args, **kw)
+    if fn == "revise":
+        got, want = (got,), (want,)
     for g, e in zip(got, want):
         torch.testing.assert_close(g, e, rtol=0, atol=0)
-    assert fn.launches == 1
-    if case == "empty_seed":
+    assert kernel.launches == 1
+    if fn == "revise" and case in ("empty_seed", "zero_mask"):
+        assert not want[0].any()
+    elif fn == "fixpoint" and case == "empty_seed":
         assert not want[2].any()
-    elif case == "inconsistent_at_entry":
+    elif fn == "fixpoint" and case == "inconsistent_at_entry":
         assert not want[1][::2].any() and not want[2][::2].any()
 
 
@@ -193,17 +202,26 @@ def test_cuda_wrapper_raises_on_a_layout_it_cannot_hold(cuda):
         bs.packed_fixpoint_stacked(*args, d=d, w=w)
 
 
+def _dense_operands(n, d, device):
+    """(cons, mask, idx, dom, seed) of one dense row at (n, d); cons is left
+    uninitialised (the wrappers refuse the layout before any launch)."""
+    return (torch.empty((1, n * d, n * d), dtype=torch.uint8, device=device),
+            torch.ones((1, n, n), dtype=torch.uint8, device=device),
+            torch.zeros((1,), dtype=torch.int32, device=device),
+            torch.ones((1, n * d), dtype=torch.uint8, device=device),
+            torch.ones((1, n), dtype=torch.uint8, device=device))
+
+
 def test_dense_wrappers_raise_on_a_layout_they_cannot_hold(cuda):
-    n, d = 1, 24584  # > 227 KB for the fixpoint's lists, > 48 KB (n·d + 4n + 8d) for the revise
-    cons = torch.empty((1, n * d, n * d), dtype=torch.uint8, device=cuda)
-    mask = torch.ones((1, n, n), dtype=torch.uint8, device=cuda)
-    dom = torch.ones((1, n * d), dtype=torch.uint8, device=cuda)
-    seed = torch.ones((1, n), dtype=torch.uint8, device=cuda)
-    idx = torch.zeros((1,), dtype=torch.int32, device=cuda)
+    # n=1, d=24584: > 227 KB for the fixpoint's lists, > 48 KB (n·d + 4n + 8d)
+    # for the single-network revise; the stacked revise holds it (49,272 B),
+    # and refuses n=4096, d=8 (2,266,112 B, launch.revise_smem)
+    cons, mask, idx, dom, seed = _dense_operands(1, 24584, cuda)
+    big = _dense_operands(4096, 8, cuda)
     rs.reset_launches()
-    for call in (lambda: rs.dense_fixpoint_stacked(cons, mask, idx, dom, seed, d=d),
-                 lambda: rs.dense_revise_stacked(cons, mask, idx, dom, seed, d=d),
-                 lambda: rs.dense_revise(cons[0], mask[0], dom, seed, d=d)):
+    for call in (lambda: rs.dense_fixpoint_stacked(cons, mask, idx, dom, seed, d=24584),
+                 lambda: rs.dense_revise_stacked(*big, d=8),
+                 lambda: rs.dense_revise(cons[0], mask[0], dom, seed, d=24584)):
         with pytest.raises(ValueError, match="shared memory"):
             call()
     assert (rs.dense_fixpoint_stacked.launches, rs.dense_revise_stacked.launches,

@@ -344,6 +344,34 @@ def test_fixpoint_smem_fits_the_driven_shapes(kind):
     assert smem(104, 40) == (1664 if kind == "packed" else 8320) + 4376
 
 
+#: `launch.revise_smem` at the driven shapes: (kind, n_p, d_p) -> bytes
+REVISE_SMEM = {
+    ("packed", 104, 40): 25088, ("packed", 160, 16): 55840, ("packed", 40, 72): 4544,
+    ("dense", 104, 40): 28416, ("dense", 160, 16): 57760, ("dense", 40, 72): 6944,
+}
+
+
+@pytest.mark.parametrize("kind,n,d", list(REVISE_SMEM))
+def test_revise_smem_pins_the_driven_shapes(kind, n, d):
+    """The stacked revises' shared memory (`launch.revise_smem`, ``Smem`` in
+    csrc/revise_stacked.cuh) at both full-width shapes and the W=3 edge
+    shape, within the opt-in limit; the shapes the GPU tests expect the
+    dense wrappers to refuse still exceed their limits."""
+    dom_bytes = 4 * n * -(-d // 32) if kind == "packed" else n * d
+    assert launch.revise_smem(n, d, dom_bytes) == REVISE_SMEM[kind, n, d]
+    assert REVISE_SMEM[kind, n, d] <= launch.SMEM_OPT_IN_LIMIT
+    if (n, d) == (104, 40):
+        # by hand: the domain (104 × 2 words × 4 B packed, 104 × 40 B dense);
+        # per warp 4 seed words and, for each of its 13 owner lanes, 4
+        # neighbour-bit words and 2 violation words (8 × 82 × 4 B); per warp
+        # 13 × 104 (variable, neighbour) pairs of 2 B (8 × 2,704 B)
+        assert REVISE_SMEM[kind, n, d] == (832 if kind == "packed" else 4160) + 2624 + 21632
+    if kind == "dense":
+        assert launch.revise_smem(4096, 8, 4096 * 8) > launch.SMEM_OPT_IN_LIMIT
+        assert rs._single_revise_smem(1, 24584) > launch.SMEM_LIMIT
+        assert launch.fixpoint_smem(1, 24584, 24584) > launch.SMEM_OPT_IN_LIMIT
+
+
 def test_cpu_wrappers_run_plain_and_count_no_launch():
     for kind in ("packed", "dense"):
         mod, wrappers, kw = _wrapper_args(kind)
