@@ -15,9 +15,14 @@ Phases (any failure exits non-zero):
               1,024 rows over 32 tables of model_rb n=100 networks) and at
               one W=1 dense-mask shape (random_binary n=160, d=10, density
               1.0); the single-network revise kernels (packed and dense) at
-              the main shape on one network with 64 child domains, as
-              `mac_solve` gives them. Time kernel and plain version with CUDA
-              events and compute the least time the card could take (bound).
+              the main shape on one network with 64 one-hot child domains,
+              and on the calls `mac_solve` really makes: every call of one
+              phase-e solve (instance 1) is recorded by wrapping the wrapper,
+              then replayed back to back, kernel and plain, printed with its
+              B histogram, beside the launch floor (an empty launch) and the
+              solve's root calls alone. Time kernel and plain version with
+              CUDA events and compute the least time the card could take
+              (bound).
               The stacked kernels run on three row mixes (all one-hot, the
               main path's 7 one-hot : 1 root, all root), each checked and
               timed; the stacked revises also on a "late" mix (the 7:1 rows
@@ -37,21 +42,24 @@ Phases (any failure exits non-zero):
 (e) mac_solve — a few instances of the (c) shape solved one at a time on
               `hopper_packed`, `hopper_dense` and `einsum` (the single-network
               kernels): identical solutions and statistics, ms per round.
-(p) profile — one fused and one stepped `solve_many` on each Hopper engine
-              under `torch.profiler`: device busy share and the kernels that
-              take the device's time, each with its share of the wall time.
+(p) profile — one fused and one stepped `solve_many` and one phase-e
+              `mac_solve` (instance 1) on each Hopper engine under
+              `torch.profiler`: device busy share and the kernels that take
+              the device's time, each with its share of the wall time.
 
 Prints a ``{"kernels": [...]}`` JSON line, then the card's name and power
 limit, then ``{"ok": true, "device": {...}}`` as the last line. Exits 2
 without printing a result when no CUDA device is present or when run outside
 a checkout of the repository.
 
-With ``--against DIR`` it runs phase a, then only a same-call comparison:
-the stacked revise kernels of this tree against those built from ``DIR``
-(another tree's ``csrc``, e.g. the parent commit's from ``git archive``) on
-every phase-b mix at both shapes, bit for bit and timed in turns (other,
-this, this, other), and stepped `solve_many` on both Hopper engines in the
-same turns. It prints no result line.
+With ``--against DIR`` it runs phase a, then only a same-call comparison of
+this tree's revise kernels against those built from ``DIR`` (another tree's
+``csrc``, e.g. the parent commit's from ``git archive``), bit for bit and
+timed in turns (other, this, this, other): the stacked revises on every
+phase-b mix at both shapes; the single-network revises on the B=64 children,
+the replayed `mac_solve` calls and its root calls; then stepped
+`solve_many` and phase e's `mac_solve` on both Hopper engines in the same
+turns. It prints no result line.
 """
 
 from __future__ import annotations
@@ -378,10 +386,10 @@ def check_kernels(csps, label: str, device, kind: str):
     return out
 
 
-def check_single_kernels(csp, label: str, device, reps: int = 20):
-    """`packed_revise` and `dense_revise` vs their plain versions: one
-    network, CHILD_ROWS children of its root (variable 0 assigned each value
-    in turn, one-hot seeds), as `mac_solve` enforces a node's children."""
+def child_inputs(csp, device, kind: str):
+    """(args, kw) of one network and CHILD_ROWS children of its root
+    (variable 0 assigned each value in turn, one-hot seeds), as `mac_solve`
+    enforces a node's children."""
     import torch
 
     from repro_torch.core.engine import pad_dom
@@ -390,17 +398,42 @@ def check_single_kernels(csp, label: str, device, reps: int = 20):
 
     b = CHILD_ROWS
     n, d = csp.dom.shape
+    (cons, mask), dims, _ = get_engine(f"hopper_{kind}", device=device).prepare(csp).payload
+    n_p, d_p = dims[:2]
+    var = torch.zeros(b, dtype=torch.long, device=device)
+    val = torch.arange(b, device=device) % d
+    dom_p = ops.assign_padded_rows(pad_dom(csp.dom.expand(b, n, d), n_p, d_p), var, val)
+    seed = ops._padded_seed(var, n, n_p).to(torch.uint8).contiguous()
+    return (cons, mask, dom_rows(dom_p, kind), seed), kernel_kw(kind, d_p)
+
+
+def single_bound(kind: str, calls, kw):
+    """`work_bound` of single-network revise ``calls`` ((network, rows,
+    seed) operands each), summed: (bound_ms, bound_by, bytes, and32)."""
+    import torch
+
+    total = [0.0, {}, 0, 0]
+    for cons, mask, _, seed in calls:
+        b = seed.shape[0]
+        bound = work_bound(mask[None], torch.zeros(b, dtype=torch.int32, device=mask.device),
+                           [seed.bool()], kw["d"], entry_bytes(kind, kw["d"]),
+                           out_bytes=b * cons.shape[0], idx_bytes=0)
+        total[0] += bound[0]
+        total[1][bound[1]] = total[1].get(bound[1], 0) + 1
+        total[2] += bound[2]
+        total[3] += bound[3]
+    return total[0], max(total[1], key=total[1].get), total[2], total[3]
+
+
+def check_single_kernels(csp, label: str, device, reps: int = 20):
+    """`packed_revise` and `dense_revise` vs their plain versions on
+    CHILD_ROWS one-hot children of one network (`child_inputs`)."""
+    import torch
+
     out = {}
     for kind in ("packed", "dense"):
         mod = kernel_module(kind)
-        (cons, mask), dims, _ = get_engine(f"hopper_{kind}", device=device).prepare(csp).payload
-        n_p, d_p = dims[:2]
-        var = torch.zeros(b, dtype=torch.long, device=device)
-        val = torch.arange(b, device=device) % d
-        dom_p = ops.assign_padded_rows(pad_dom(csp.dom.expand(b, n, d), n_p, d_p), var, val)
-        seed = ops._padded_seed(var, n, n_p).to(torch.uint8).contiguous()
-        args = (cons, mask, dom_rows(dom_p, kind), seed)
-        kw = kernel_kw(kind, d_p)
+        args, kw = child_inputs(csp, device, kind)
         fn, plain = getattr(mod, f"{kind}_revise"), getattr(mod, f"{kind}_revise_plain")
         err = max_err(fn(*args, **kw), plain(*args, **kw))
         check(err == 0, f"{label}: {fn.__name__} differs from its plain version "
@@ -409,12 +442,128 @@ def check_single_kernels(csp, label: str, device, reps: int = 20):
             max_abs_err=err,
             ms=timed_ms(lambda: fn(*args, **kw), reps, device),
             plain_ms=timed_ms(lambda: plain(*args, **kw), 2, device),
-            bound=work_bound(mask[None], torch.zeros(b, dtype=torch.int32, device=device),
-                             [seed.bool()], d_p, entry_bytes(kind, d_p),
-                             out_bytes=b * n_p * d_p, idx_bytes=0),
+            bound=single_bound(kind, [args], kw),
         )
         report(label, fn.__name__, out[fn.__name__])
     return out
+
+
+# ---------------------------------------------------------------------------
+# (b) the single-network revise calls of one mac_solve, replayed
+# ---------------------------------------------------------------------------
+
+#: the phase-e instance whose single-network revise calls phase b replays
+REPLAY_INSTANCE = 1
+#: calls a replay queues behind one device sleep (`timed_ms`), well under the
+#: launch queue's depth
+REPLAY_CHUNK = 256
+
+
+def record_single_calls(device, kind: str, max_assignments: int = MAX_ASSIGNMENTS,
+                        spec=MAIN):
+    """The operands of every `packed_revise` or `dense_revise` call of one
+    phase-e `mac_solve` (instance `REPLAY_INSTANCE`), recorded by wrapping
+    the wrapper in its module for that solve: (calls, kw), each call a
+    (network, mask, rows, seed) tuple with rows and seed copied."""
+    from repro_torch.core import mac_solve
+    from repro_torch.problems import generate
+
+    mod, name = kernel_module(kind), f"{kind}_revise"
+    wrapper, calls, kws = getattr(mod, name), [], set()
+
+    def record(cons, mask, rows, seed, **kw):
+        calls.append((cons, mask, rows.clone(), seed.clone()))
+        kws.add(tuple(sorted(kw.items())))
+        return wrapper(cons, mask, rows, seed, **kw)
+
+    csp = generate("model_rb", seed=REPLAY_INSTANCE, device=device, **spec)
+    setattr(mod, name, record)
+    try:
+        mac_solve(csp, engine=f"hopper_{kind}", device=device, max_assignments=max_assignments)
+    finally:
+        setattr(mod, name, wrapper)
+    check(len(kws) == 1 and len({(id(c[0]), id(c[1])) for c in calls}) == 1,
+          f"{name}: a mac_solve called it on more than one network or shape")
+    return calls, dict(kws.pop())
+
+
+def root_calls(calls, n: int):
+    """The calls that revise one row with every real variable seeded."""
+    return [c for c in calls if c[3].shape[0] == 1 and int(c[3].sum()) == n]
+
+
+def replay_ms(fn, calls, kw, device) -> float:
+    """Device ms per launch of ``fn`` over ``calls``, back to back: chunks of
+    `REPLAY_CHUNK` calls, each timed by `timed_ms` (so the device runs them
+    at its own pace behind one sleep), summed."""
+    total = 0.0
+    for i in range(0, len(calls), REPLAY_CHUNK):
+        chunk = calls[i:i + REPLAY_CHUNK]
+        total += timed_ms(lambda: [fn(*c, **kw) for c in chunk], 1, device)
+    return total / len(calls)
+
+
+def launch_floor_ms(device) -> float:
+    """Device ms of an empty launch on the same stream, timed as a replay
+    chunk is: `torch.cuda._sleep(0)`, REPLAY_CHUNK times behind one sleep."""
+    import torch
+
+    return timed_ms(lambda: torch.cuda._sleep(0), REPLAY_CHUNK, device)
+
+
+def describe_calls(calls, n: int) -> str:
+    """The B histogram and seeds per row of recorded calls."""
+    import collections
+
+    import torch
+
+    hist = collections.Counter(c[3].shape[0] for c in calls)
+    per_row = torch.cat([c[3].sum(dim=1) for c in calls])
+    seeded = per_row[per_row > 0].float()
+    return (f"{len(calls)} calls, B histogram "
+            f"{dict(sorted(hist.items()))}; {per_row.numel()} rows, "
+            f"{int((per_row == 0).sum())} seedless; seeded rows: mean "
+            f"{float(seeded.mean()):.2f} seeds, median {float(seeded.median()):.0f}, "
+            f"max {int(seeded.max())}; {len(root_calls(calls, n))} root calls")
+
+
+def check_replay(device, kind: str, floor_ms: float, n: int):
+    """``kind``'s single-network revise over the recorded calls of one
+    phase-e `mac_solve`: the kernel and its plain version bit for bit on
+    every call; the kernel timed back to back (device ms per launch), the
+    plain version once (ms per call, its host time included); the summed
+    bound per launch; the same for the root calls alone."""
+    import torch
+
+    mod = kernel_module(kind)
+    fn, plain = getattr(mod, f"{kind}_revise"), getattr(mod, f"{kind}_revise_plain")
+    calls, kw = record_single_calls(device, kind)
+    err = 0
+    torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    want = [plain(*c, **kw) for c in calls]
+    torch.cuda.synchronize(device)
+    plain_ms = 1e3 * (time.perf_counter() - t0) / len(calls)
+    for c, w in zip(calls, want):
+        err = max(err, max_err(fn(*c, **kw), w))
+    check(err == 0, f"replay: {fn.__name__} differs from its plain version (max abs err {err})")
+    ms = replay_ms(fn, calls, kw, device)
+    bound = single_bound(kind, calls, kw)
+    print(f"[b] replay {fn.__name__} (mac_solve instance {REPLAY_INSTANCE}, "
+          f"max_assignments={MAX_ASSIGNMENTS}): {describe_calls(calls, n)}", flush=True)
+    print(f"[b] replay {fn.__name__}: bit-identical to plain on every call; kernel "
+          f"{1e3 * ms:.3f} us/launch ({1e3 * (ms - floor_ms):.3f} above the launch floor), "
+          f"plain {1e3 * plain_ms:.1f} us/call, bound {1e3 * bound[0] / len(calls):.4f} "
+          f"us/launch (by {bound[1]}: {bound[2]} B, {bound[3]} 32-bit ANDs in all)", flush=True)
+    roots = root_calls(calls, n)
+    if roots:
+        root_ms = replay_ms(fn, roots * (REPLAY_CHUNK // len(roots)), kw, device)
+        root_bound = single_bound(kind, roots, kw)
+        print(f"[b] replay {fn.__name__} root calls (B=1, all {n} variables seeded): kernel "
+              f"{1e3 * root_ms:.3f} us/launch, bound {1e3 * root_bound[0] / len(roots):.4f} "
+              f"us/launch (by {root_bound[1]})", flush=True)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound=(bound[0] / len(calls), *bound[1:]))
 
 
 # ---------------------------------------------------------------------------
@@ -546,37 +695,51 @@ def dense_path(device, run_packed, max_assignments: int = MAX_ASSIGNMENTS,
     return run_f, run_s
 
 
+def mac_instances(device, n_instances: int = MAC_INSTANCES, spec=MAIN):
+    from repro_torch.problems import generate
+
+    return [generate("model_rb", seed=i, device=device, **spec) for i in range(n_instances)]
+
+
+def run_mac(csps, engine: str, max_assignments: int, device):
+    """`mac_solve` of each of ``csps`` on ``engine``, one at a time, with
+    every launch count set to 0 just before and read just after: (results,
+    seconds, rounds, launch counts)."""
+    import torch
+
+    from repro_torch.core import mac_solve
+
+    reset_launches()
+    t0 = time.perf_counter()
+    out = [mac_solve(csp, engine=engine, device=device, max_assignments=max_assignments)
+           for csp in csps]
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    seconds = time.perf_counter() - t0
+    return out, seconds, sum(st.rounds for _, st in out), launch_counts()
+
+
 def mac_path(device, max_assignments: int = MAX_ASSIGNMENTS, n_instances: int = MAC_INSTANCES,
              spec=MAIN):
     """(e): `mac_solve` on a few instances of the main shape, one at a time,
     on the two Hopper engines (single-network kernels) and on `einsum`."""
-    import torch
+    from repro_torch.core import check_solution
 
-    from repro_torch.core import check_solution, mac_solve
-    from repro_torch.problems import generate
-
-    csps = [generate("model_rb", seed=i, device=device, **spec) for i in range(n_instances)]
+    csps = mac_instances(device, n_instances, spec)
     n, d = csps[0].dom.shape
     print(f"[e] mac_solve on {n_instances} model_rb instances n={n} d={d} "
           f"max_assignments={max_assignments}", flush=True)
     runs = {}
     for name in ("hopper_packed", "hopper_dense", "einsum"):
-        reset_launches()
-        t0 = time.perf_counter()
-        out = [mac_solve(csp, engine=name, device=device, max_assignments=max_assignments)
-               for csp in csps]
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-        seconds = time.perf_counter() - t0
-        rounds = sum(st.rounds for _, st in out)
-        runs[name] = (out, launch_counts())
+        out, seconds, rounds, counts = run_mac(csps, name, max_assignments, device)
+        runs[name] = (out, counts)
         print(f"    {name}: {seconds:.3f} s, rounds={rounds} "
               f"ms/round={1e3 * seconds / max(rounds, 1):.3f} "
               f"rows={sum(st.rows for _, st in out)} "
               f"assignments={sum(st.n_assignments for _, st in out)} "
               f"solved={sum(sol is not None for sol, _ in out)} "
               f"exhausted={sum(st.exhausted for _, st in out)} "
-              f"kernel counts={launched(runs[name][1])}", flush=True)
+              f"kernel counts={launched(counts)}", flush=True)
     want = [(sol, stats_key(st)) for sol, st in runs["einsum"][0]]
     for name in ("hopper_packed", "hopper_dense"):
         check([(sol, stats_key(st)) for sol, st in runs[name][0]] == want,
@@ -594,24 +757,17 @@ def mac_path(device, max_assignments: int = MAX_ASSIGNMENTS, n_instances: int = 
     return runs
 
 
-def profile_main_path(device, engine: str, fixpoint: str, max_assignments: int = 500,
-                      n_instances: int = N_INSTANCES, spec=MAIN):
-    """Where a round's time goes: `torch.profiler` over one `solve_many` on
-    ``engine`` with its ``fixpoint`` ("fused" or "stepped"; a smaller budget
-    keeps the trace short). Prints the wall time, the summed device time of
-    every kernel and copy, the device busy share, and the kernels that take
-    the most device time, each with its share of the wall time."""
+def profiled(label: str, run):
+    """Where a round's time goes: `torch.profiler` over ``run()``, which
+    returns (wall seconds, rounds). Prints the wall time, the summed device
+    time of every kernel and copy, the device busy share, and the kernels
+    that take the most device time, each with its share of the wall time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.engines import get_engine
-    from repro_torch.problems import generate
-
-    csps = [generate("model_rb", seed=i, device=device, **spec) for i in range(n_instances)]
-    eng = get_engine(engine, fixpoint=fixpoint, device=device)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        run = run_solve(csps, eng, max_assignments, device)
-    wall_ms = 1e3 * run[3]
+        seconds, rounds = run()
+    wall_ms = 1e3 * seconds
     device_time = lambda e: e.self_device_time_total / 1e3  # us -> ms
     # device-side events only (kernels, copies): a CPU op's entry repeats the
     # device time of the kernels it launched
@@ -619,16 +775,45 @@ def profile_main_path(device, engine: str, fixpoint: str, max_assignments: int =
                         if e.device_type != torch.autograd.DeviceType.CPU and device_time(e) > 0),
                        key=device_time, reverse=True)
     busy_ms = sum(device_time(e) for e in on_device)
-    rounds = run[2]["rounds"]
     if not on_device:
-        print("[p] profiler recorded no device time: device busy share not measured")
+        print(f"[p] {label}: profiler recorded no device time: device busy share not measured")
         return
-    print(f"[p] profiled {engine} {fixpoint} solve_many (max_assignments={max_assignments}): "
+    print(f"[p] profiled {label}: "
           f"wall {wall_ms:.1f} ms over {rounds} rounds ({wall_ms / rounds:.3f} ms/round, "
           f"profiler on); device busy {busy_ms:.1f} ms = {100 * busy_ms / wall_ms:.1f}% of wall")
     for e in on_device[:8]:
         print(f"[p]   {device_time(e):9.2f} ms ({100 * device_time(e) / wall_ms:5.1f}% of wall) "
               f"{e.count:6d} calls  {e.key[:90]}")
+
+
+def profile_main_path(device, engine: str, fixpoint: str, max_assignments: int = 500,
+                      n_instances: int = N_INSTANCES, spec=MAIN):
+    """`profiled` over one `solve_many` on ``engine`` with its ``fixpoint``
+    ("fused" or "stepped"; a smaller budget keeps the trace short)."""
+    from repro_torch.engines import get_engine
+    from repro_torch.problems import generate
+
+    csps = [generate("model_rb", seed=i, device=device, **spec) for i in range(n_instances)]
+    eng = get_engine(engine, fixpoint=fixpoint, device=device)
+
+    def run():
+        out = run_solve(csps, eng, max_assignments, device)
+        return out[3], out[2]["rounds"]
+
+    profiled(f"{engine} {fixpoint} solve_many (max_assignments={max_assignments})", run)
+
+
+def profile_mac(device, engine: str, max_assignments: int = MAX_ASSIGNMENTS):
+    """`profiled` over one phase-e `mac_solve` (instance `REPLAY_INSTANCE`)
+    on ``engine``, the single-network kernels' path."""
+    csp = mac_instances(device, REPLAY_INSTANCE + 1)[REPLAY_INSTANCE]
+
+    def run():
+        _, seconds, rounds, _ = run_mac([csp], engine, max_assignments, device)
+        return seconds, rounds
+
+    profiled(f"{engine} mac_solve (instance {REPLAY_INSTANCE}, "
+             f"max_assignments={max_assignments})", run)
 
 
 def parity_einsum(device, max_assignments: int = MAX_ASSIGNMENTS,
@@ -683,11 +868,16 @@ def build_other(csrc: str) -> dict:
 
 
 def compare_against(csrc: str, shapes, device, max_assignments: int = 500):
-    """This tree's stacked revise kernels against those built from ``csrc``,
-    on one card in one process, the wrappers routed to either side's
-    library: bit for bit and timed in `TURNS` on every row mix of phase b at
-    each of ``shapes`` ((label, csps)), then stepped `solve_many` on both
-    Hopper engines in the same turns (identical solutions and statistics)."""
+    """This tree's revise kernels against those built from ``csrc``, on one
+    card in one process, the wrappers routed to either side's library, bit
+    for bit and timed in `TURNS`: the stacked revises on every row mix of
+    phase b at each of ``shapes`` ((label, csps)); the single-network
+    revises on phase b's B=64 one-hot children, on the recorded calls of one
+    phase-e `mac_solve` and on its root calls. Then, in the same turns,
+    stepped `solve_many` and phase e's `mac_solve` on both Hopper engines
+    (identical solutions and statistics)."""
+    import torch
+
     from repro_torch.engines import get_engine
     from repro_torch.kernels import build
 
@@ -711,6 +901,27 @@ def compare_against(csrc: str, shapes, device, max_assignments: int = 500):
                 print(f"[vs] {label} {rev.__name__} mix={mix}: other {fmt(ms['other'])} -> "
                       f"this {fmt(ms['this'])}; {ratio:.2f}x; bit-identical", flush=True)
     csps = shapes[0][1]
+    n = csps[0].dom.shape[0]
+    for kind in ("packed", "dense"):
+        fn = getattr(kernel_module(kind), f"{kind}_revise")
+        use("this")
+        calls, kw = record_single_calls(device, kind)
+        roots = root_calls(calls, n)
+        cases = {f"B={CHILD_ROWS} one-hot": [child_inputs(csps[0], device, kind)[0]] * REPLAY_CHUNK,
+                 f"replay ({len(calls)} calls)": calls}
+        if roots:
+            cases[f"root calls ({len(roots)})"] = roots * (REPLAY_CHUNK // len(roots))
+        for case, case_calls in cases.items():
+            got, ms = {}, {"other": [], "this": []}
+            for side in TURNS:
+                use(side)
+                got[side] = [fn(*c, **kw) for c in case_calls]
+                ms[side].append(1e3 * replay_ms(fn, case_calls, kw, device))
+            check(all(torch.equal(a, b) for a, b in zip(got["this"], got["other"])),
+                  f"[vs] {fn.__name__} {case}: the two trees differ")
+            ratio = sum(ms["other"]) / sum(ms["this"])
+            print(f"[vs] {fn.__name__} {case}: us/launch other {fmt(ms['other'])} -> this "
+                  f"{fmt(ms['this'])}; {ratio:.2f}x; bit-identical", flush=True)
     for engine in ("hopper_packed", "hopper_dense"):
         runs, per_round = {}, {"other": [], "this": []}
         for side in TURNS:
@@ -723,6 +934,19 @@ def compare_against(csrc: str, shapes, device, max_assignments: int = 500):
               f"{runs['this'][2]['rounds']} rounds, {runs['this'][2]['launches']} launches) "
               f"ms/round: other {fmt(per_round['other'])} -> this {fmt(per_round['this'])}; "
               f"identical solutions and statistics", flush=True)
+    mac_csps = mac_instances(device)
+    for engine in ("hopper_packed", "hopper_dense"):
+        runs, per_round = {}, {"other": [], "this": []}
+        for side in TURNS:
+            use(side)
+            out, seconds, rounds, counts = run_mac(mac_csps, engine, MAX_ASSIGNMENTS, device)
+            runs[side] = [(sol, stats_key(st)) for sol, st in out]
+            per_round[side].append(1e3 * seconds / rounds)
+        check(runs["this"] == runs["other"], f"[vs] {engine} mac_solve: the two trees differ")
+        print(f"[vs] {engine} mac_solve ({len(mac_csps)} instances, max_assignments="
+              f"{MAX_ASSIGNMENTS}, {rounds} rounds, kernel counts {launched(counts)}) ms/round: "
+              f"other {fmt(per_round['other'])} -> this {fmt(per_round['this'])}; identical "
+              f"solutions and statistics", flush=True)
     use("this")
 
 
@@ -780,8 +1004,14 @@ def main(argv) -> int:
         for kind in ("packed", "dense"):
             measured.update(check_kernels(main_csps, shapes[0][0], device, kind))
             check_kernels(shapes[1][1], shapes[1][0], device, kind)
-        measured.update(check_single_kernels(main_csps[0], f"main n_p=104 d_p=40 "
-                                             f"B={CHILD_ROWS} one network", device))
+        check_single_kernels(main_csps[0], f"main n_p=104 d_p=40 B={CHILD_ROWS} one network",
+                             device)
+        floor_ms = launch_floor_ms(device)
+        print(f"[b] launch floor: {1e3 * floor_ms:.3f} us a launch (torch.cuda._sleep(0), "
+              f"{REPLAY_CHUNK} back to back on the same stream)", flush=True)
+        for kind in ("packed", "dense"):
+            measured[f"{kind}_revise"] = check_replay(device, kind, floor_ms,
+                                                      main_csps[0].dom.shape[0])
         del main_csps, shapes
 
         run_f, run_s = main_path(device)
@@ -791,6 +1021,7 @@ def main(argv) -> int:
         for name in ("hopper_packed", "hopper_dense"):
             for fixpoint in ("fused", "stepped"):
                 profile_main_path(device, name, fixpoint)
+            profile_mac(device, name)
 
         counts = {"packed fused": run_f[4], "packed stepped": run_s[4],
                   "dense fused": run_df[4], "dense stepped": run_ds[4],

@@ -12,12 +12,13 @@ The stacked kernels take the slot TABLES and a row→slot map ``idx`` and read
 each row's network in place — no per-round gathered copy of the networks:
 
 - :func:`packed_revise_stacked` — one revise step for R rows, one CTA a row
-  (``csrc/packed_revise.cu`` with ``csrc/revise_stacked.cuh``; the stepped
+  (``csrc/packed_revise.cu`` with ``csrc/revise_common.cuh``; the stepped
   fixpoint's revise);
 - :func:`packed_fixpoint_stacked` — the whole incremental fixpoint of R rows
   in one launch (``csrc/packed_fixpoint.cu``; the fused default);
-- :func:`packed_revise` — one revise step of B domains against ONE network
-  (``csrc/packed_revise.cu``, its own kernel; the single-network path of
+- :func:`packed_revise` — one revise step of B domains against ONE network,
+  a CTA per (row, span of variables) (``csrc/packed_revise.cu`` with
+  ``csrc/revise_common.cuh``; the single-network path of
   ``enforce``/``enforce_batch`` and so of ``mac_solve``).
 
 Device rule: a wrapper given CPU tensors computes the plain version; given
@@ -31,8 +32,7 @@ from typing import Optional
 
 import torch
 
-from .launch import (SMEM_OPT_IN_LIMIT, check_operands, check_smem, fixpoint_smem, launch,
-                     revise_smem)
+from .launch import check_operands, check_smem, fixpoint_smem, launch, revise_smem
 from .ref import pack_bits_ref, unpack_bits_ref
 
 Tensor = torch.Tensor
@@ -92,8 +92,7 @@ def packed_revise_stacked(cons: Tensor, mask: Tensor, idx: Tensor, dom_words: Te
     r, n = _check(cons, mask, idx, dom_words, changed, d, w)
     if cons.device.type == "cpu":
         return packed_revise_stacked_plain(cons, mask, idx, dom_words, changed, d=d, w=w)
-    check_smem("packed_revise_stacked", revise_smem(n, d, 4 * n * w), f"n={n}, d={d}",
-               SMEM_OPT_IN_LIMIT)
+    check_smem("packed_revise_stacked", revise_smem(n, d, 4 * n * w), f"n={n}, d={d}")
     out = torch.empty((r, n * d), dtype=torch.uint8, device=cons.device)
     if r:
         launch("packed_revise", "packed_revise_stacked_launch",
@@ -153,8 +152,7 @@ def packed_fixpoint_stacked(cons: Tensor, mask: Tensor, idx: Tensor, dom_words: 
     r, n = _check(cons, mask, idx, dom_words, changed, d, w)
     if cons.device.type == "cpu":
         return packed_fixpoint_stacked_plain(cons, mask, idx, dom_words, changed, d=d, w=w)
-    check_smem("packed_fixpoint_stacked", fixpoint_smem(n, d, 4 * n * w), f"n={n}, d={d}",
-               SMEM_OPT_IN_LIMIT)
+    check_smem("packed_fixpoint_stacked", fixpoint_smem(n, d, 4 * n * w), f"n={n}, d={d}")
     dom = torch.empty((r, n * d), dtype=torch.uint8, device=cons.device)
     consistent = torch.empty((r,), dtype=torch.uint8, device=cons.device)
     k = torch.empty((r,), dtype=torch.int32, device=cons.device)
@@ -171,12 +169,6 @@ packed_fixpoint_stacked.launches = 0
 # ---------------------------------------------------------------------------
 # One revise step against one network (the single-network path)
 # ---------------------------------------------------------------------------
-
-
-def _single_revise_smem(n: int, d: int, w: int) -> int:
-    """Shared memory of one single-network revise block: domain words, seed
-    list, 8·d flags."""
-    return (n * w + n) * 4 + 8 * d
 
 
 def packed_revise_plain(cons: Tensor, mask: Tensor, dom_words: Tensor, changed: Tensor, *,
@@ -201,7 +193,7 @@ def packed_revise(cons: Tensor, mask: Tensor, dom_words: Tensor, changed: Tensor
     b, n = _check(cons, mask, None, dom_words, changed, d, w)
     if cons.device.type == "cpu":
         return packed_revise_plain(cons, mask, dom_words, changed, d=d, w=w)
-    check_smem("packed_revise", _single_revise_smem(n, d, w), f"n·W={n * w}")
+    check_smem("packed_revise", revise_smem(n, d, 0), f"n={n}, d={d}")
     out = torch.empty((b, n * d), dtype=torch.uint8, device=cons.device)
     if b:
         launch("packed_revise", "packed_revise_launch", [cons, mask, dom_words, changed, out],

@@ -158,17 +158,18 @@ __device__ __forceinline__ void test_supports(const T* __restrict__ net, const T
   }
 }
 
-// Launch `kernel` with one CTA per row, opting in to more than 48 KB of
-// shared memory when the layout needs it.
+// Launch `kernel` on `grid` (one CTA per row, or per (row, span of
+// variables)), opting in to more than 48 KB of shared memory when the
+// layout needs it.
 template <typename... Params, typename... Args>
-cudaError_t launch_rows(void (*kernel)(Params...), int rows, size_t smem, cudaStream_t stream,
+cudaError_t launch_rows(void (*kernel)(Params...), dim3 grid, size_t smem, cudaStream_t stream,
                         Args... args) {
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (e != cudaSuccess) return e;
   }
-  kernel<<<rows, kThreads, smem, stream>>>(args...);
+  kernel<<<grid, kThreads, smem, stream>>>(args...);
   return cudaGetLastError();
 }
 

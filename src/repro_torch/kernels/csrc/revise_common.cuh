@@ -1,34 +1,34 @@
-// One stacked revise step, one CTA a row: the body of the packed and dense
-// stacked revise kernels (packed_revise_stacked_launch in packed_revise.cu,
-// dense_revise_stacked_launch in dense_revise.cu). Row r is revised against
-// the slot table's network idx[r], read in place:
+// One revise step, the body of all four revise kernels: the stacked ones
+// (packed_revise_stacked_launch in packed_revise.cu, dense_revise_stacked_launch
+// in dense_revise.cu), where row r is revised against the slot table's
+// network idx[r], read in place, and the single-network ones
+// (packed_revise_launch, dense_revise_launch), where every row is revised
+// against ONE network:
 //
-//   violated[r, x·d+a] = ∃y: seed[r,y] ∧ mask[idx[r],x,y] ∧
+//   violated[r, x·d+a] = ∃y: seed[r,y] ∧ mask[x,y] ∧
 //                        no word of (net[x·d+a, y·K ..] & dom[r, y·K ..]) is nonzero
 //
 // for every value a, live or not, one byte per (x, a); an entry is K words
 // of T (packed: W u32 words; dense: d/8 u64 words of the byte-per-bit
 // table).
 //
-// What bounded the first design (a block per (row, 8 variables), a thread
-// per (x·a, seeded y) pair): not bytes. Thread 0 of each of a row's n/8
-// blocks listed the seed alone with n serial global loads; every pair paid
-// a 32-bit division and a global mask load before the mask said whether it
-// was constrained (6.5 % are at the main shape), and reloaded that mask byte
-// for each of x's d values; and a frozen row, whose seed the stepped loop
-// zeroes and which most rows are after two sweeps, cost as much as an
-// active one.
+// What bounded the first design of both (a block per (row, 8 variables), a
+// thread per (x·a, seeded y) pair): not bytes. Thread 0 of each of a row's
+// n/8 blocks listed the seed alone with n serial global loads; every pair
+// paid a 32-bit division and a global mask load before the mask said
+// whether it was constrained (6.5 % are at the main shape), and reloaded
+// that mask byte for each of x's d values; and a row with no seed, which
+// most stepped rows are after two sweeps and a fifth of mac_solve's rows
+// are, cost as much as an active one.
 //
-// Design (with pieces of fixpoint_common.cuh): one CTA of 8 warps a row.
+// Design (with pieces of fixpoint_common.cuh): CTAs of 8 warps.
 // - Seed bits: one 4-byte load a lane covers 128 flags, 8 lanes OR their
-//   nibbles into a word. A row with no seed writes its n·d zero bytes with
+//   nibbles into a word. A row with no seed writes its zero bytes with
 //   16-byte stores and exits without reading its mask or its domain.
-// - The row's domain goes to shared memory with the widest loads its
-//   alignment allows.
-// - Each variable x has an owner warp, x mod 8, and in it a lane. The lane
-//   reads x's mask row, 8 flags a u64 load, and only the bytes in which the
-//   seed has a bit (one load for a one-hot seed), and keeps x's seeded
-//   neighbours as bits.
+// - Each variable x has an owner warp and in it a lane. The lane reads x's
+//   mask row, 8 flags a u64 load, and only the bytes in which the seed has a
+//   bit (one load for a one-hot seed), and keeps x's seeded neighbours as
+//   bits.
 // - A scan over the lanes' counts places every (owned x, seeded neighbour y)
 //   pair of the warp in one list, and the warp tests every (value a, pair)
 //   at once, pairs fastest, several tests a lane in flight: no division and
@@ -38,16 +38,32 @@
 // - Each owned x's d output bytes go out as 4-byte stores from its
 //   violation bits (zeros for an x with no seeded neighbour).
 //
-// What bounds it now (measured on an H100, PERF.md): the memory system's
-// rate for scattered sectors. A test reads one 8-byte (packed) or 40-byte
-// (dense, two 32-byte sectors) entry of a row it shares with seldom-seeded
-// neighbours, so a root row of the main shape reads 28K-56K sectors, and
-// the root rows set the length of a launch that mixes them with light
-// rows; the dense tables, several times L2, serve them from HBM. Designs
-// measured and dropped: a group of lanes a dense entry, one 8-byte word a
-// lane (slower on light rows and on a lone heavy row); 8 tests in flight
-// for multi-word entries; values fastest; heavy rows split over 4 CTAs
-// (faster for the dense 7:1 mix only, slower for light rows).
+// The stacked kernel: one CTA a row, x owned by warp x mod 8; the row's
+// domain goes to shared memory with the widest loads its alignment allows.
+// What bounds it (measured on an H100, PERF.md): the memory system's rate
+// for scattered sectors. A test reads one 8-byte (packed) or 40-byte
+// (dense, two 32-byte sectors) entry of a row it shares with
+// seldom-seeded neighbours, so a root row of the main shape reads 28K-56K
+// sectors, and the root rows set the length of a launch that mixes them
+// with light rows; the dense tables, several times L2, serve them from
+// HBM. Designs measured and dropped: a group of lanes a dense entry, one
+// 8-byte word a lane (slower on light rows and on a lone heavy row); 8
+// tests in flight for multi-word entries; values fastest; heavy rows split
+// over 4 CTAs (faster for the dense 7:1 mix only, slower for light rows).
+//
+// The single-network kernel: `mac_solve` calls it once a recurrence with
+// B = 1-64 rows (mostly 2 or 4, several seeds a row), so one CTA a row
+// leaves most of the card idle and makes a root row's thousands of tests
+// run on one SM. Here a row's variables are split over CTAs, a CTA per
+// (row, span of variables), as many CTAs a row as fill the card
+// (`single_span`), down to one variable a warp. The network is compiled in
+// as one (no slot map read), and a test reads its domain entry straight
+// from global memory beside the network entry (both L2/L1 hits: the
+// networks, 3.5 MB packed and 17.3 MB dense at the main shape, stay in the
+// 50 MB L2), so no CTA stages the domain or waits at a barrier. What
+// bounds it at the driven shapes: latency — a launch's few dependent
+// rounds (seed, mask bytes, scan, tests, store) above the launch floor,
+// not bytes (PERF.md).
 #pragma once
 
 #include "fixpoint_common.cuh"
@@ -67,16 +83,18 @@ __host__ __device__ inline int owner_lanes(int n) {
 
 // Byte offsets into one CTA's dynamic shared memory; `total` is what
 // launch.revise_smem computes. The row's domain (`dom_bytes`, a multiple of
-// 4), then per warp, u32: seed bits (ceil(n/32)), its owner lanes'
-// seeded-neighbour bits (ceil(n/32) × owner_lanes, word-major, so the lanes
-// store to distinct banks) and violation words (owner_lanes × ceil(d/32));
-// u16: the (variable, neighbour) pairs of its owner lanes (owner_lanes × n).
-// The pairs alone outgrow the shared memory for n ≥ 460, so a pair's
-// neighbour always fits its 11 bits.
+// 4; 0 for the single-network kernel, which reads it in place), then per
+// warp, u32: seed bits (ceil(n/32)), its `lanes` owner lanes'
+// seeded-neighbour bits (ceil(n/32) × lanes, word-major, so the lanes store
+// to distinct banks) and violation words (lanes × ceil(d/32)); u16: the
+// (variable, neighbour) pairs of its owner lanes (lanes × n). A CTA that
+// owns every variable of a row has owner_lanes(n) lanes a warp; its pairs
+// alone outgrow the shared memory for n ≥ 460, and the launchers refuse
+// n ≥ 2^kPairY, so a pair's neighbour always fits its 11 bits.
 struct Smem {
   int seed, nbits, viol, pairs, total;
-  __host__ __device__ Smem(int n, int d, int dom_bytes) {
-    const int nwn = (n + 31) / 32, w = (d + 31) / 32, lanes = owner_lanes(n);
+  __host__ __device__ Smem(int n, int d, int dom_bytes, int lanes) {
+    const int nwn = (n + 31) / 32, w = (d + 31) / 32;
     seed = dom_bytes;
     nbits = seed + 4 * kWarps * nwn;
     viol = nbits + 4 * kWarps * lanes * nwn;
@@ -261,45 +279,24 @@ __device__ __forceinline__ void store_flags(uint8_t* out, const uint32_t* viol, 
   }
 }
 
-template <typename T, int KW>  // KW: words per entry, or 0: k_arg at run time
-__global__ void __launch_bounds__(kThreads) revise_stacked_kernel(
-    const T* __restrict__ cons,           // (C, n*d, n*K) slot table
-    const uint8_t* __restrict__ mask,     // (C, n, n)
-    const int32_t* __restrict__ idx,      // (R,) row -> table slot
-    const T* __restrict__ dom_in,         // (R, n*K) domains
-    const uint8_t* __restrict__ seed_in,  // (R, n) revision seed
-    uint8_t* __restrict__ viol_out,       // (R, n*d)
-    int n, int d, int k_arg) {
-  const int K = KW > 0 ? KW : k_arg;
-  const int nwn = (n + 31) / 32, w = (d + 31) / 32, nd = n * d, lanes = owner_lanes(n);
-  const int dom_bytes = n * K * static_cast<int>(sizeof(T));
-  const Smem L(n, d, dom_bytes);
-  extern __shared__ __align__(16) uint8_t revise_smem[];  // not the .cu's own `smem`
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  T* dom = reinterpret_cast<T*>(revise_smem);
-  uint32_t* seed = reinterpret_cast<uint32_t*>(revise_smem + L.seed) + warp * nwn;
-  uint32_t* nbits = reinterpret_cast<uint32_t*>(revise_smem + L.nbits) + warp * lanes * nwn;
-  uint32_t* viol = reinterpret_cast<uint32_t*>(revise_smem + L.viol) + warp * lanes * w;
-  uint16_t* pairs = reinterpret_cast<uint16_t*>(revise_smem + L.pairs) + warp * lanes * n;
-
-  const int r = blockIdx.x;
-  const int slot_r = __ldg(idx + r);
-  uint8_t* out = viol_out + static_cast<size_t>(r) * nd;
-  // Every warp reads the same seed, so all agree and leave together.
-  if (!row_seed_bits(seed_in + static_cast<size_t>(r) * n, seed, n, lane)) {
-    zero_row(out, nd);
-    return;
-  }
-  const size_t slot = static_cast<size_t>(slot_r);
-  const T* net = cons + slot * static_cast<size_t>(nd) * n * K;
-  const uint8_t* m = mask + slot * n * n;
-  load_row(dom, dom_in + static_cast<size_t>(r) * n * K, dom_bytes);
-  __syncthreads();
-
-  for (int x0 = warp; x0 < n; x0 += 32 * kWarps) {  // this warp owns x ≡ warp mod 8
+// The revise of one row's variables [x_begin, x_end) against network `net`
+// (mask rows `m`), the row's domain at `dom` (shared or global memory) and
+// its seed bits in the warp's `seed`: warp `warp` owns x ≡ x_begin + warp
+// (mod 8), one variable a lane, 32·8 variables a pass. The warp's `lanes`
+// owner lanes keep their seeded-neighbour bits in `nbits`, their violation
+// words in `viol` and the warp's pairs in `pairs`.
+template <typename T, int KW>
+__device__ __forceinline__ void revise_vars(const T* __restrict__ net,
+                                            const uint8_t* __restrict__ m, const T* dom,
+                                            const uint32_t* seed, uint32_t* nbits,
+                                            uint32_t* viol, uint16_t* pairs, uint8_t* out,
+                                            int x_begin, int x_end, int n, int d, int K,
+                                            int lanes, int warp, int lane) {
+  const int w = (d + 31) / 32;
+  for (int x0 = x_begin + warp; x0 < x_end; x0 += 32 * kWarps) {
     const int x = x0 + lane * kWarps;  // one owned variable per lane
-    const int c = x < n ? seeded_neighbours(m + static_cast<size_t>(x) * n, seed, n,
-                                            nbits + lane, lanes) : 0;
+    const int c = x < x_end ? seeded_neighbours(m + static_cast<size_t>(x) * n, seed, n,
+                                                nbits + lane, lanes) : 0;
     int end = c;  // this lane's pairs go to [end - c, end)
     for (int s = 1; s < 32; s <<= 1) {
       const int t = __shfl_up_sync(kFull, end, s);
@@ -313,10 +310,90 @@ __global__ void __launch_bounds__(kThreads) revise_stacked_kernel(
     __syncwarp();
     if (np) test_pairs<T, KW>(net, dom, x0, n, d, K, pairs, np, viol, w, lane);
     __syncwarp();
-    for (int l = 0; l < lanes && x0 + l * kWarps < n; ++l)
+    for (int l = 0; l < lanes && x0 + l * kWarps < x_end; ++l)
       store_flags(out + static_cast<size_t>(x0 + l * kWarps) * d, viol + l * w, d, lane);
     __syncwarp();  // nbits, pairs and viol are reused for the next 32 variables
   }
+}
+
+// The per-warp regions of `L` in this CTA's dynamic shared memory.
+struct WarpSmem {
+  uint32_t *seed, *nbits, *viol;
+  uint16_t* pairs;
+  __device__ WarpSmem(uint8_t* base, const Smem& L, int n, int d, int lanes, int warp) {
+    const int nwn = (n + 31) / 32, w = (d + 31) / 32;
+    seed = reinterpret_cast<uint32_t*>(base + L.seed) + warp * nwn;
+    nbits = reinterpret_cast<uint32_t*>(base + L.nbits) + warp * lanes * nwn;
+    viol = reinterpret_cast<uint32_t*>(base + L.viol) + warp * lanes * w;
+    pairs = reinterpret_cast<uint16_t*>(base + L.pairs) + warp * lanes * n;
+  }
+};
+
+template <typename T, int KW>  // KW: words per entry, or 0: k_arg at run time
+__global__ void __launch_bounds__(kThreads) revise_stacked_kernel(
+    const T* __restrict__ cons,           // (C, n*d, n*K) slot table
+    const uint8_t* __restrict__ mask,     // (C, n, n)
+    const int32_t* __restrict__ idx,      // (R,) row -> table slot
+    const T* __restrict__ dom_in,         // (R, n*K) domains
+    const uint8_t* __restrict__ seed_in,  // (R, n) revision seed
+    uint8_t* __restrict__ viol_out,       // (R, n*d)
+    int n, int d, int k_arg) {
+  const int K = KW > 0 ? KW : k_arg;
+  const int nd = n * d, lanes = owner_lanes(n);
+  const int dom_bytes = n * K * static_cast<int>(sizeof(T));
+  const Smem L(n, d, dom_bytes, lanes);
+  extern __shared__ __align__(16) uint8_t revise_smem[];  // not the .cu's own `smem`
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  T* dom = reinterpret_cast<T*>(revise_smem);
+  const WarpSmem S(revise_smem, L, n, d, lanes, warp);
+
+  const int r = blockIdx.x;
+  const int slot_r = __ldg(idx + r);
+  uint8_t* out = viol_out + static_cast<size_t>(r) * nd;
+  // Every warp reads the same seed, so all agree and leave together.
+  if (!row_seed_bits(seed_in + static_cast<size_t>(r) * n, S.seed, n, lane)) {
+    zero_row(out, nd);
+    return;
+  }
+  const size_t slot = static_cast<size_t>(slot_r);
+  load_row(dom, dom_in + static_cast<size_t>(r) * n * K, dom_bytes);
+  __syncthreads();
+  revise_vars<T, KW>(cons + slot * static_cast<size_t>(nd) * n * K, mask + slot * n * n, dom,
+                     S.seed, S.nbits, S.viol, S.pairs, out, 0, n, n, d, K, lanes, warp, lane);
+}
+
+// B rows against one network: CTA (r, s) revises row r's variables
+// [s·span, (s+1)·span); span is a multiple of 8.
+template <typename T, int KW>  // KW: words per entry, or 0: k_arg at run time
+__global__ void __launch_bounds__(kThreads) revise_single_kernel(
+    const T* __restrict__ net,            // (n*d, n*K) the network
+    const uint8_t* __restrict__ mask,     // (n, n)
+    const T* __restrict__ dom_in,         // (B, n*K) domains
+    const uint8_t* __restrict__ seed_in,  // (B, n) revision seed
+    uint8_t* __restrict__ viol_out,       // (B, n*d)
+    int n, int d, int k_arg, int span) {
+  const int K = KW > 0 ? KW : k_arg;
+  const int lanes = owner_lanes(span);
+  const Smem L(n, d, 0, lanes);
+  extern __shared__ __align__(16) uint8_t revise_smem[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const WarpSmem S(revise_smem, L, n, d, lanes, warp);
+
+  const int r = blockIdx.x;
+  const int x_begin = blockIdx.y * span, x_end = min(n, x_begin + span);
+  uint8_t* out = viol_out + static_cast<size_t>(r) * n * d;
+  if (!row_seed_bits(seed_in + static_cast<size_t>(r) * n, S.seed, n, lane)) {
+    zero_row(out + static_cast<size_t>(x_begin) * d, (x_end - x_begin) * d);
+    return;
+  }
+  revise_vars<T, KW>(net, mask, dom_in + static_cast<size_t>(r) * n * K, S.seed, S.nbits,
+                     S.viol, S.pairs, out, x_begin, x_end, n, d, K, lanes, warp, lane);
+}
+
+// Whether the kernels take (n, d, K): a pair's neighbour has kPairY bits,
+// and word offsets into a network are 32-bit.
+inline bool takes(int n, int d, int k) {
+  return n < (1 << kPairY) && static_cast<double>(n) * d * n * k < 4294967296.0;
 }
 
 // Launch one CTA per row.
@@ -325,15 +402,47 @@ int launch_stacked(const void* cons, const void* mask, const void* idx, const vo
                    const void* seed_in, void* viol_out, int rows, int n, int d, int k,
                    void* stream) {
   if (rows <= 0) return 0;
-  // a pair's neighbour has kPairY bits; word offsets into a network are 32-bit
-  if (n >= (1 << kPairY) || static_cast<double>(n) * d * n * k >= 4294967296.0)
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (!takes(n, d, k)) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(fixpoint::launch_rows(
-      revise_stacked_kernel<T, KW>, rows, Smem(n, d, n * k * static_cast<int>(sizeof(T))).total,
+      revise_stacked_kernel<T, KW>, rows,
+      Smem(n, d, n * k * static_cast<int>(sizeof(T)), owner_lanes(n)).total,
       static_cast<cudaStream_t>(stream), static_cast<const T*>(cons),
       static_cast<const uint8_t*>(mask), static_cast<const int32_t*>(idx),
       static_cast<const T*>(dom_in), static_cast<const uint8_t*>(seed_in),
       static_cast<uint8_t*>(viol_out), n, d, k));
+}
+
+constexpr int kCtasPerSm = 0;  // single-network CTAs a launch aims to give each SM
+
+// Variables a single-network CTA revises (a multiple of 8): the fewest
+// that still give the card kCtasPerSm CTAs an SM over `rows` rows, and at
+// least one a warp, so B = 1-40 rows at n = 104 run 13 CTAs a row.
+inline int single_span(int rows, int n) {
+  static const int sms = [] {
+    int dev = 0, count = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, dev);
+    return count > 0 ? count : 1;
+  }();
+  const int blocks = (n + kWarps - 1) / kWarps;  // groups of 8 variables
+  const int want = (kCtasPerSm * sms + rows - 1) / rows;
+  const int groups = want < 1 ? 1 : (want < blocks ? want : blocks);
+  return kWarps * ((blocks + groups - 1) / groups);
+}
+
+// Launch rows × ceil(n / span) CTAs against one network.
+template <typename T, int KW>
+int launch_single(const void* net, const void* mask, const void* dom_in, const void* seed_in,
+                  void* viol_out, int rows, int n, int d, int k, void* stream) {
+  if (rows <= 0) return 0;
+  if (!takes(n, d, k)) return static_cast<int>(cudaErrorInvalidValue);
+  const int span = single_span(rows, n);
+  return static_cast<int>(fixpoint::launch_rows(
+      revise_single_kernel<T, KW>, dim3(rows, (n + span - 1) / span),
+      Smem(n, d, 0, owner_lanes(span)).total, static_cast<cudaStream_t>(stream),
+      static_cast<const T*>(net), static_cast<const uint8_t*>(mask),
+      static_cast<const T*>(dom_in), static_cast<const uint8_t*>(seed_in),
+      static_cast<uint8_t*>(viol_out), n, d, k, span));
 }
 
 }  // namespace revise

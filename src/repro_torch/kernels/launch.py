@@ -18,9 +18,8 @@ from . import build
 
 Tensor = torch.Tensor
 
-#: dynamic shared memory a block may use without an opt-in attribute
-SMEM_LIMIT = 48 * 1024
-#: the most a block may use after opting in (the one-CTA-a-row launchers do)
+#: the most dynamic shared memory a block may use; the launchers opt in to
+#: more than 48 KB where a layout needs it
 SMEM_OPT_IN_LIMIT = 227 * 1024
 
 #: library -> {C launcher: (pointer arguments, int arguments)}; the stream
@@ -49,11 +48,14 @@ def fixpoint_smem(n: int, d: int, dom_bytes: int) -> int:
 
 
 def revise_smem(n: int, d: int, dom_bytes: int) -> int:
-    """Shared memory of one stacked-revise CTA (``Smem`` in
-    csrc/revise_stacked.cuh): the row's domain of ``dom_bytes``, then per
+    """Shared memory of one revise CTA that owns a whole row (``Smem`` in
+    csrc/revise_common.cuh): the row's domain of ``dom_bytes``, then per
     warp its seed bits, and for each of its owner lanes (one a variable,
     ``min(32, ceil(n/8))``) the variable's seeded-neighbour bits and
-    violation words (u32) and n (variable, neighbour) pairs (u16)."""
+    violation words (u32) and n (variable, neighbour) pairs (u16). The
+    single-network kernel reads the domain in place (``dom_bytes`` 0), and
+    its CTAs that own a span of a row's variables have fewer owner lanes, so
+    this is the most one of them uses."""
     nwn, w = -(-n // 32), -(-d // 32)
     lanes = min(32, -(-n // CTA_WARPS))
     return dom_bytes + 4 * CTA_WARPS * (nwn + lanes * (nwn + w)) + 2 * CTA_WARPS * lanes * n
@@ -92,11 +94,12 @@ def check_operands(cons: Tensor, mask: Tensor, idx: Optional[Tensor], dom: Tenso
     return r, n
 
 
-def check_smem(kernel: str, nbytes: int, layout: str, limit: int = SMEM_LIMIT) -> None:
-    """Raise if a block of ``kernel`` needs more shared memory than ``limit``."""
-    if nbytes > limit:
+def check_smem(kernel: str, nbytes: int, layout: str) -> None:
+    """Raise if a block of ``kernel`` needs more shared memory than a block
+    may have (`SMEM_OPT_IN_LIMIT`)."""
+    if nbytes > SMEM_OPT_IN_LIMIT:
         raise ValueError(f"{kernel}: {layout} needs {nbytes} B of shared memory, more than "
-                         f"its layout's {limit} B")
+                         f"a block's {SMEM_OPT_IN_LIMIT} B")
 
 
 def _function(library: str, launcher: str):

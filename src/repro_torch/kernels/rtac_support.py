@@ -12,12 +12,13 @@ same). The stacked kernels take the slot TABLES and a row→slot map ``idx``
 and read each row's network in place — no per-round gathered copy:
 
 - :func:`dense_revise_stacked` — one revise step for R rows, one CTA a row
-  (``csrc/dense_revise.cu`` with ``csrc/revise_stacked.cuh``; the stepped
+  (``csrc/dense_revise.cu`` with ``csrc/revise_common.cuh``; the stepped
   fixpoint's revise);
 - :func:`dense_fixpoint_stacked` — the whole incremental fixpoint of R rows
   in one launch (``csrc/dense_fixpoint.cu``; the fused default);
-- :func:`dense_revise` — one revise step of B domains against ONE network
-  (``csrc/dense_revise.cu``, its own kernel; the single-network path of
+- :func:`dense_revise` — one revise step of B domains against ONE network,
+  a CTA per (row, span of variables) (``csrc/dense_revise.cu`` with
+  ``csrc/revise_common.cuh``; the single-network path of
   ``enforce``/``enforce_batch`` and so of ``mac_solve``).
 
 The kernels read each (x·a, y) slice as d/8 eight-byte words, so d must be a
@@ -34,8 +35,7 @@ from typing import Optional
 
 import torch
 
-from .launch import (SMEM_OPT_IN_LIMIT, check_operands, check_smem, fixpoint_smem, launch,
-                     revise_smem)
+from .launch import check_operands, check_smem, fixpoint_smem, launch, revise_smem
 
 Tensor = torch.Tensor
 
@@ -102,8 +102,7 @@ def dense_revise_stacked(cons: Tensor, mask: Tensor, idx: Tensor, dom: Tensor,
     r, n = _check(cons, mask, idx, dom, changed, d)
     if cons.device.type == "cpu":
         return dense_revise_stacked_plain(cons, mask, idx, dom, changed, d=d)
-    check_smem("dense_revise_stacked", revise_smem(n, d, n * d), f"n={n}, d={d}",
-               SMEM_OPT_IN_LIMIT)
+    check_smem("dense_revise_stacked", revise_smem(n, d, n * d), f"n={n}, d={d}")
     out = torch.empty((r, n * d), dtype=torch.uint8, device=cons.device)
     if r:
         launch("dense_revise", "dense_revise_stacked_launch",
@@ -160,8 +159,7 @@ def dense_fixpoint_stacked(cons: Tensor, mask: Tensor, idx: Tensor, dom: Tensor,
     r, n = _check(cons, mask, idx, dom, changed, d)
     if cons.device.type == "cpu":
         return dense_fixpoint_stacked_plain(cons, mask, idx, dom, changed, d=d)
-    check_smem("dense_fixpoint_stacked", fixpoint_smem(n, d, n * d), f"n={n}, d={d}",
-               SMEM_OPT_IN_LIMIT)
+    check_smem("dense_fixpoint_stacked", fixpoint_smem(n, d, n * d), f"n={n}, d={d}")
     out = torch.empty((r, n * d), dtype=torch.uint8, device=cons.device)
     consistent = torch.empty((r,), dtype=torch.uint8, device=cons.device)
     k = torch.empty((r,), dtype=torch.int32, device=cons.device)
@@ -178,12 +176,6 @@ dense_fixpoint_stacked.launches = 0
 # ---------------------------------------------------------------------------
 # One revise step against one network (the single-network path)
 # ---------------------------------------------------------------------------
-
-
-def _single_revise_smem(n: int, d: int) -> int:
-    """Shared memory of one single-network revise block: domain bytes, seed
-    list, 8·d flags."""
-    return n * d + 4 * n + 8 * d
 
 
 def dense_revise_plain(cons: Tensor, mask: Tensor, dom: Tensor, changed: Tensor, *,
@@ -208,7 +200,7 @@ def dense_revise(cons: Tensor, mask: Tensor, dom: Tensor, changed: Tensor, *,
     b, n = _check(cons, mask, None, dom, changed, d)
     if cons.device.type == "cpu":
         return dense_revise_plain(cons, mask, dom, changed, d=d)
-    check_smem("dense_revise", _single_revise_smem(n, d), f"n·d={n * d}")
+    check_smem("dense_revise", revise_smem(n, d, 0), f"n={n}, d={d}")
     out = torch.empty((b, n * d), dtype=torch.uint8, device=cons.device)
     if b:
         launch("dense_revise", "dense_revise_launch", [cons, mask, dom, changed, out], b, n, d)

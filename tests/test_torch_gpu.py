@@ -12,7 +12,7 @@ import torch
 
 from repro_torch.core import check_solution, mac_solve, solve_many
 from repro_torch.core.csp import CSP
-from repro_torch.core.engine import pad_dom
+from repro_torch.core.engine import pad_changed, pad_dom
 from repro_torch.engines import get_engine
 from repro_torch.kernels import bitpack_support as bs, ops, ref, rtac_support as rs
 from repro_torch.problems import generate
@@ -121,6 +121,63 @@ def test_single_network_kernels_match_plain_at_full_width(cuda, family, knobs, k
     assert launches == 1
 
 
+#: single-network shapes: the two full widths and W=3 (d_p=72)
+SINGLE_SHAPES = {
+    "main": FULL_WIDTH[0],
+    "dense_mask": FULL_WIDTH[1],
+    "w3_d72": ("random_binary", dict(n=40, d=72, density=0.5, tightness=0.3)),
+}
+#: the rows `mac_solve` gives the single-network kernels (`_single_rows`)
+SINGLE_ROWS = ["root_b1", "multi_seed_b2", "multi_seed_b4", "one_hot_b64"]
+
+
+def _single_rows(csp, rows, device, kind):
+    """One network and a `SINGLE_ROWS` case of its children: the root alone
+    with every variable seeded; B = 2 or 4 rows, the even ones with a few
+    variables assigned and several seeds, each odd one a seedless duplicate
+    of the row before it (a frozen row, or the padding up to a power of
+    two); or 64 one-hot children."""
+    if rows == "one_hot_b64":
+        return _children(csp, 64, device, kind)
+    network, dims, _ = get_engine(f"hopper_{kind}", device=device).prepare(csp).payload
+    n_p, d_p = dims[:2]
+    n, d = csp.dom.shape
+    b = 1 if rows == "root_b1" else int(rows[-1])
+    dom = csp.dom.expand(b, n, d).clone()
+    changed = torch.ones((b, n), dtype=torch.bool, device=device)
+    if rows != "root_b1":
+        rng = np.random.default_rng(b)
+        dom &= torch.as_tensor(rng.random((b, n, d)) < 0.8, device=device)
+        assigned = torch.as_tensor(rng.random((b, n)) < 0.05, device=device)
+        assigned[:, 0] = True
+        dom[assigned] = False
+        dom[assigned, 0] = True
+        changed = assigned | torch.as_tensor(rng.random((b, n)) < 0.05, device=device)
+        dom[1::2], changed[1::2] = dom[::2], False
+    seed = pad_changed(changed, n, n_p, batch=(b,), device=device).to(torch.uint8)
+    return (*network, _dom_rows(pad_dom(dom, n_p, d_p), kind, -(-d_p // 32)),
+            seed.contiguous()), d_p
+
+
+@pytest.mark.parametrize("kind", ["packed", "dense"])
+@pytest.mark.parametrize("rows", SINGLE_ROWS)
+@pytest.mark.parametrize("shape", list(SINGLE_SHAPES))
+def test_single_network_kernels_match_plain_on_mac_solve_rows(cuda, shape, rows, kind):
+    """`packed_revise` and `dense_revise` bit for bit against their plain
+    versions on the row mixes `mac_solve` launches them on."""
+    family, knobs = SINGLE_SHAPES[shape]
+    args, d_p = _single_rows(generate(family, seed=0, device=cuda, **knobs), rows, cuda, kind)
+    mod, kw = (bs, dict(d=d_p, w=-(-d_p // 32))) if kind == "packed" else (rs, dict(d=d_p))
+    kernel = getattr(mod, f"{kind}_revise")
+    mod.reset_launches()
+    got = kernel(*args, **kw)
+    want = getattr(mod, f"{kind}_revise_plain")(*args, **kw)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    assert kernel.launches == 1
+    if rows.startswith("multi_seed"):
+        assert not want[1::2].any() and want[::2].any()
+
+
 #: stacked-kernel edge cases: case -> (family, knobs); the case also picks
 #: the rows' seeds and domains in `_edge_rows`
 EDGE_CASES = {
@@ -213,15 +270,15 @@ def _dense_operands(n, d, device):
 
 
 def test_dense_wrappers_raise_on_a_layout_they_cannot_hold(cuda):
-    # n=1, d=24584: > 227 KB for the fixpoint's lists, > 48 KB (n·d + 4n + 8d)
-    # for the single-network revise; the stacked revise holds it (49,272 B),
-    # and refuses n=4096, d=8 (2,266,112 B, launch.revise_smem)
+    # n=1, d=24584: > 227 KB for the fixpoint's lists; both revises hold it
+    # (49,272 B stacked, 24,688 B single-network) and refuse n=4096, d=8
+    # (2,266,112 B and 2,233,344 B, launch.revise_smem)
     cons, mask, idx, dom, seed = _dense_operands(1, 24584, cuda)
     big = _dense_operands(4096, 8, cuda)
     rs.reset_launches()
     for call in (lambda: rs.dense_fixpoint_stacked(cons, mask, idx, dom, seed, d=24584),
                  lambda: rs.dense_revise_stacked(*big, d=8),
-                 lambda: rs.dense_revise(cons[0], mask[0], dom, seed, d=24584)):
+                 lambda: rs.dense_revise(big[0][0], big[1][0], *big[3:], d=8)):
         with pytest.raises(ValueError, match="shared memory"):
             call()
     assert (rs.dense_fixpoint_stacked.launches, rs.dense_revise_stacked.launches,

@@ -4,7 +4,8 @@
   byte for byte (the port's int32 words viewed as uint32);
 - the plain `packed_revise_stacked`, `dense_revise_stacked`, `packed_revise`
   and `dense_revise` equal the reference Pallas kernels in interpret mode,
-  row by row;
+  row by row (the single-network ones also on `mac_solve`'s rows: several
+  seeds a row, seedless duplicates);
 - the plain `packed_fixpoint_stacked` and `dense_fixpoint_stacked` equal the
   reference *stepped* chain (`rtac.enforce_rows_generic` over
   `ops._packed_rows_fn` / `_dense_rows_fn`) on domains, verdicts and per-row
@@ -305,6 +306,55 @@ def test_plain_single_network_revise_matches_reference_kernel(kind, n, d, brx, b
     np.testing.assert_array_equal(got.numpy(), want)
 
 
+@pytest.mark.parametrize("b", [2, 4])
+@pytest.mark.parametrize("kind", ["packed", "dense"])
+@pytest.mark.parametrize("n,d,brx,bry", STACK_SWEEP)
+def test_plain_single_network_revise_on_mac_solve_rows(kind, n, d, brx, bry, b):
+    """`packed_revise` / `dense_revise` on the rows `mac_solve` gives them:
+    B = 2 or 4 children of one network, the even rows with a few variables
+    assigned and several seeds, each odd row a seedless duplicate of the row
+    before it (a frozen row, or the padding up to a power of two). Each row
+    equals the reference single-network kernel on that row; the seedless
+    rows violate nothing."""
+    ref_csp, csp = _pair(n, d, n * 31 + d)
+    ref_prepare = ref_ops.prepare_packed if kind == "packed" else ref_ops.prepare_dense
+    prepare = ops.prepare_packed if kind == "packed" else ops.prepare_dense
+    ref_net = ref_prepare(ref_csp, brx, bry)[0]
+    net, _, dims = prepare(csp, brx, bry)
+    n_p, d_p = dims[:2]
+    w = -(-d_p // 32)
+    rng = np.random.default_rng(n * 13 + d + b)
+    doms = np.asarray(ref_csp.dom)[None] & (rng.random((b, n, d)) < 0.8)
+    assigned = rng.random((b, n)) < 0.15
+    assigned[:, 0] = True
+    doms[assigned] = False
+    doms[assigned, 0] = True
+    changed = assigned | (rng.random((b, n)) < 0.2)
+    doms[1::2], changed[1::2] = doms[::2], False
+    rdom = ref_pad_dom(jnp.asarray(doms), n_p, d_p)
+    rch = ref_pad_changed(jnp.asarray(changed), n, n_p, batch=(b,))
+    dom = pad_dom(torch.as_tensor(doms), n_p, d_p)
+    ch_u8 = pad_changed(changed, n, n_p, batch=(b,)).to(torch.uint8)
+    if kind == "packed":
+        got = bs.packed_revise_plain(*net, ref.pack_bits_ref(dom).reshape(b, n_p * w), ch_u8,
+                                     d=d_p, w=w)
+        ref_doms = ref_ref.pack_bits_ref(rdom).reshape(b, 1, n_p * w)
+        call = lambda i: ref_bs.packed_revise(  # noqa: E731
+            ref_net[0], ref_doms[i], rch[i].astype(jnp.uint8).reshape(1, n_p), ref_net[1],
+            d=d_p, w=w, block_rx=brx, block_ry=bry, interpret=True)
+    else:
+        got = rs.dense_revise_plain(*net, dom.to(torch.uint8).reshape(b, n_p * d_p), ch_u8,
+                                    d=d_p)
+        call = lambda i: ref_rs.dense_revise(  # noqa: E731
+            ref_net[0], rdom[i].astype(jnp.uint8).reshape(1, n_p * d_p),
+            rch[i].astype(jnp.uint8).reshape(1, n_p), ref_net[1],
+            d=d_p, block_rx=brx, block_ry=bry, interpret=True)
+    want = np.concatenate([np.asarray(call(i)) for i in range(b)])
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert want[::2].any() and not want[1::2].any()
+    assert changed[::2].sum(axis=1).min() >= 2
+
+
 def _wrapper_args(kind):
     """(wrappers, args, kw) of every kernel wrapper of ``kind`` on one
     stacked fixture: stacked operands and the single-network ones."""
@@ -368,8 +418,33 @@ def test_revise_smem_pins_the_driven_shapes(kind, n, d):
         assert REVISE_SMEM[kind, n, d] == (832 if kind == "packed" else 4160) + 2624 + 21632
     if kind == "dense":
         assert launch.revise_smem(4096, 8, 4096 * 8) > launch.SMEM_OPT_IN_LIMIT
-        assert rs._single_revise_smem(1, 24584) > launch.SMEM_LIMIT
+        assert launch.revise_smem(4096, 8, 0) > launch.SMEM_OPT_IN_LIMIT  # single network
         assert launch.fixpoint_smem(1, 24584, 24584) > launch.SMEM_OPT_IN_LIMIT
+
+
+#: the single-network revises' shared memory at the driven shapes, as their
+#: wrappers check it (`launch.revise_smem` with no domain: a CTA that owns
+#: every variable of a row): (n_p, d_p) -> bytes, the same for both kinds
+SINGLE_REVISE_SMEM = {(104, 40): 24256, (160, 16): 55200, (40, 72): 4064}
+
+
+@pytest.mark.parametrize("n,d", list(SINGLE_REVISE_SMEM))
+def test_single_revise_smem_pins_the_driven_shapes(n, d):
+    """The single-network revises read the domain in place, so their layout
+    is the stacked one without the domain; it fits the opt-in limit at the
+    driven shapes, and the shape the GPU test expects the wrappers to refuse
+    does not fit."""
+    assert launch.revise_smem(n, d, 0) == SINGLE_REVISE_SMEM[n, d]
+    assert SINGLE_REVISE_SMEM[n, d] <= launch.SMEM_OPT_IN_LIMIT
+    if (n, d) == (104, 40):
+        # by hand: per warp 4 seed words and, for each of its 13 owner lanes,
+        # 4 neighbour-bit words and 2 violation words (8 × 82 × 4 B); per warp
+        # 13 × 104 (variable, neighbour) pairs of 2 B (8 × 2,704 B)
+        assert SINGLE_REVISE_SMEM[n, d] == 2624 + 21632
+        for kind, dom_bytes in (("packed", 832), ("dense", 4160)):
+            assert launch.revise_smem(n, d, dom_bytes) == REVISE_SMEM[kind, n, d]
+    # the pairs of 32 owner lanes a warp: 8 × 32 × 4,096 × 2 B
+    assert launch.revise_smem(4096, 8, 0) > 8 * 32 * 4096 * 2 > launch.SMEM_OPT_IN_LIMIT
 
 
 def test_cpu_wrappers_run_plain_and_count_no_launch():
