@@ -106,6 +106,24 @@ def check(cond, msg):
         raise SmokeFailure(msg)
 
 
+def ptxas_report(log: str):
+    """(kernel, "registers; spills") of each kernel in an ``nvcc -Xptxas -v``
+    log, the kernel named by its mangled name's function and template
+    arguments (``revise_single_kernel<yLi5>``: u64 words, 5 an entry)."""
+    import re
+
+    kernel, spills = "?", ""
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '(\S+)'", line)
+        if entry:
+            m = re.search(r"\d+([A-Za-z_]+kernel)(?:I(\w+?)E)?", entry.group(1))
+            kernel = f"{m.group(1)}<{m.group(2) or ''}>" if m else entry.group(1)[:60]
+        elif "spill" in line:
+            spills = line.strip()
+        elif "registers" in line:
+            yield kernel, f"{line.split(':', 1)[1].strip()}; {spills}"
+
+
 def gpu_name_and_limit() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -463,8 +481,10 @@ def record_single_calls(device, kind: str, max_assignments: int = MAX_ASSIGNMENT
                         spec=MAIN):
     """The operands of every `packed_revise` or `dense_revise` call of one
     phase-e `mac_solve` (instance `REPLAY_INSTANCE`), recorded by wrapping
-    the wrapper in its module for that solve: (calls, kw), each call a
-    (network, mask, rows, seed) tuple with rows and seed copied."""
+    the wrapper in its module for that solve (the wrapper counts its
+    launches on the module's name, so the recorder carries the count):
+    (calls, kw), each call a (network, mask, rows, seed) tuple with rows and
+    seed copied."""
     from repro_torch.core import mac_solve
     from repro_torch.problems import generate
 
@@ -477,11 +497,13 @@ def record_single_calls(device, kind: str, max_assignments: int = MAX_ASSIGNMENT
         return wrapper(cons, mask, rows, seed, **kw)
 
     csp = generate("model_rb", seed=REPLAY_INSTANCE, device=device, **spec)
+    record.launches = wrapper.launches
     setattr(mod, name, record)
     try:
         mac_solve(csp, engine=f"hopper_{kind}", device=device, max_assignments=max_assignments)
     finally:
         setattr(mod, name, wrapper)
+        wrapper.launches = record.launches
     check(len(kws) == 1 and len({(id(c[0]), id(c[1])) for c in calls}) == 1,
           f"{name}: a mac_solve called it on more than one network or shape")
     return calls, dict(kws.pop())
@@ -803,9 +825,10 @@ def profile_main_path(device, engine: str, fixpoint: str, max_assignments: int =
     profiled(f"{engine} {fixpoint} solve_many (max_assignments={max_assignments})", run)
 
 
-def profile_mac(device, engine: str, max_assignments: int = MAX_ASSIGNMENTS):
+def profile_mac(device, engine: str, max_assignments: int = 500):
     """`profiled` over one phase-e `mac_solve` (instance `REPLAY_INSTANCE`)
-    on ``engine``, the single-network kernels' path."""
+    on ``engine``, the single-network kernels' path (a smaller budget keeps
+    the trace short)."""
     csp = mac_instances(device, REPLAY_INSTANCE + 1)[REPLAY_INSTANCE]
 
     def run():
@@ -984,9 +1007,8 @@ def main(argv) -> int:
         print(f"[a] built {sorted(per_source)} in {time.perf_counter() - t0:.2f} s "
               f"(per source: {', '.join(f'{k} {v:.2f} s' for k, v in per_source.items())})")
         for name, log in build.LOGS.items():
-            for line in log.splitlines():
-                if "registers" in line or "spill" in line:
-                    print(f"[a] {name}: {line.strip()}")
+            for kernel, report in ptxas_report(log):
+                print(f"[a] {name} {kernel}: {report}")
 
         shapes = [
             ("main n_p=104 d_p=40 W=2",
@@ -999,26 +1021,33 @@ def main(argv) -> int:
             compare_against(against, shapes, device)
             print(f"[done] {time.perf_counter() - t_start:.1f} s in all", flush=True)
             return 0
+        stamp = lambda phase: print(f"[t] {time.perf_counter() - t_start:.1f} s: {phase}",  # noqa: E731
+                                    flush=True)
         main_csps = shapes[0][1]
         measured = {}
         for kind in ("packed", "dense"):
+            stamp(f"phase b, {kind} stacked kernels")
             measured.update(check_kernels(main_csps, shapes[0][0], device, kind))
             check_kernels(shapes[1][1], shapes[1][0], device, kind)
+        stamp("phase b, single-network kernels")
         check_single_kernels(main_csps[0], f"main n_p=104 d_p=40 B={CHILD_ROWS} one network",
                              device)
         floor_ms = launch_floor_ms(device)
         print(f"[b] launch floor: {1e3 * floor_ms:.3f} us a launch (torch.cuda._sleep(0), "
               f"{REPLAY_CHUNK} back to back on the same stream)", flush=True)
         for kind in ("packed", "dense"):
+            stamp(f"phase b, {kind} replay")
             measured[f"{kind}_revise"] = check_replay(device, kind, floor_ms,
                                                       main_csps[0].dom.shape[0])
         del main_csps, shapes
 
+        stamp("phases c-e")
         run_f, run_s = main_path(device)
         run_df, run_ds = dense_path(device, run_f)
         parity_einsum(device)
         macs = mac_path(device)
         for name in ("hopper_packed", "hopper_dense"):
+            stamp(f"phase p, {name}")
             for fixpoint in ("fused", "stepped"):
                 profile_main_path(device, name, fixpoint)
             profile_mac(device, name)

@@ -32,7 +32,8 @@ from typing import Optional
 
 import torch
 
-from .launch import check_operands, check_smem, fixpoint_smem, launch, revise_smem
+from .launch import (check_operands, check_smem, fixpoint_smem, launch, revise_smem,
+                     single_revise_smem)
 from .ref import pack_bits_ref, unpack_bits_ref
 
 Tensor = torch.Tensor
@@ -193,7 +194,7 @@ def packed_revise(cons: Tensor, mask: Tensor, dom_words: Tensor, changed: Tensor
     b, n = _check(cons, mask, None, dom_words, changed, d, w)
     if cons.device.type == "cpu":
         return packed_revise_plain(cons, mask, dom_words, changed, d=d, w=w)
-    check_smem("packed_revise", revise_smem(n, d, 0), f"n={n}, d={d}")
+    check_smem("packed_revise", single_revise_smem(n, d), f"n={n}, d={d}")
     out = torch.empty((b, n * d), dtype=torch.uint8, device=cons.device)
     if b:
         launch("packed_revise", "packed_revise_launch", [cons, mask, dom_words, changed, out],

@@ -11,12 +11,18 @@
 //   (row, span of variables), the network compiled in as one.
 // violated[r, x·d+a] = ∃y: seed[r,y] ∧ mask[x,y] ∧ (cons[x·d+a, y·W..] & dom[r, y·W..]) == 0.
 //
-// Both kernels are revise_common.cuh's, with u32 words (W per entry): see
-// there for what bounds each now and what was measured and dropped. What
-// bounded the single-network kernel's first design (a block per (row, 8
-// variables), a thread per (x·a, seeded y) pair, thread 0 listing the seed
-// alone) was latency, not bytes: serial seed loads, a division and a mask
-// load per pair, and a seedless row paying as much as a seeded one.
+// Both kernels are revise_common.cuh's, with u32 words (W per entry). What
+// bounds them now (an H100, PERF.md): the stacked kernel, the rate of
+// scattered 32-byte sectors of its root rows; the single-network one,
+// latency: 5.2 µs a launch on the calls of one mac_solve (PR 12's body:
+// 10.8), three dependent rounds of loads above a 1.7 µs launch floor.
+// Measured and dropped, single network: one CTA a row (11.6 µs), cp.async
+// staging of the seeded mask groups, 8 CTAs an SM; stacked: see
+// revise_common.cuh. The single-network kernel's first design (a block per
+// (row, 8 variables), a thread per (x·a, seeded y) pair, thread 0 listing
+// the seed alone) was bound by latency too: serial seed loads, a division
+// and a mask load per pair, and a seedless row paying as much as a seeded
+// one.
 //
 // An entry of W = 2 words is read as one 8-byte word where the table and
 // the domains are 8-byte aligned; W = 1 is a constant too; any other W is

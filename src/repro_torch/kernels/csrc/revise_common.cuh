@@ -52,18 +52,26 @@
 // over 4 CTAs (faster for the dense 7:1 mix only, slower for light rows).
 //
 // The single-network kernel: `mac_solve` calls it once a recurrence with
-// B = 1-64 rows (mostly 2 or 4, several seeds a row), so one CTA a row
-// leaves most of the card idle and makes a root row's thousands of tests
-// run on one SM. Here a row's variables are split over CTAs, a CTA per
-// (row, span of variables), as many CTAs a row as fill the card
-// (`single_span`), down to one variable a warp. The network is compiled in
-// as one (no slot map read), and a test reads its domain entry straight
-// from global memory beside the network entry (both L2/L1 hits: the
-// networks, 3.5 MB packed and 17.3 MB dense at the main shape, stay in the
-// 50 MB L2), so no CTA stages the domain or waits at a barrier. What
-// bounds it at the driven shapes: latency — a launch's few dependent
-// rounds (seed, mask bytes, scan, tests, store) above the launch floor,
-// not bytes (PERF.md).
+// B = 1-64 rows (at the main shape 93 % of its launches have B = 2 or 4,
+// about 10 seeds a seeded row), so one CTA a row leaves most of the card
+// idle and runs a root row's ~28,000 tests on one SM. Here a row's
+// variables are split over CTAs, a CTA per (row, span of variables), as
+// many a row as give the card 4 CTAs an SM (`single_span`), down to one
+// variable a warp. The network is compiled in as one (no slot map read).
+// The CTA's mask rows are read whole, 8 flags a load, the first load issued
+// before the seed's, and kept as bits; a test reads its domain entry from
+// global memory beside the network entry (both L2 hits: the networks,
+// 3.5 MB packed and 17.3 MB dense at the main shape, stay in the 50 MB L2).
+// So a launch is three dependent rounds of loads (seed and mask, tests,
+// stores), and no CTA stages the domain. What bounds it: latency, not
+// bytes (measured on an H100, PERF.md): 5.2 µs (packed) and 6.8 µs (dense)
+// a launch on the calls of one mac_solve, against a launch floor of 1.7 µs
+// and byte bounds of 0.013 and 0.049 µs. Measured and dropped: one CTA a
+// row (11.6 and 22.9 µs on those calls, 29 and 108 µs on the root call);
+// 8 CTAs an SM (slower at B = 64, the same below); the mask groups the seed
+// names, staged with cp.async after the seed (0.3-1.2 µs slower than plain
+// loads); dense d/8 = 5 read at run time (a round of loads a word: 9.7
+// against 7.9 µs).
 #pragma once
 
 #include "fixpoint_common.cuh"
@@ -83,7 +91,8 @@ __host__ __device__ inline int owner_lanes(int n) {
 
 // Byte offsets into one CTA's dynamic shared memory; `total` is what
 // launch.revise_smem computes. The row's domain (`dom_bytes`, a multiple of
-// 4; 0 for the single-network kernel, which reads it in place), then per
+// 4; the single-network kernel reads the domain in place and keeps its mask
+// rows as bits there, `mbits_bytes`), then per
 // warp, u32: seed bits (ceil(n/32)), its `lanes` owner lanes'
 // seeded-neighbour bits (ceil(n/32) × lanes, word-major, so the lanes store
 // to distinct banks) and violation words (lanes × ceil(d/32)); u16: the
@@ -199,6 +208,20 @@ __device__ __forceinline__ int seeded_neighbours(const uint8_t* __restrict__ mro
   return count;
 }
 
+// One lane: the seeded neighbours of its variable from its mask row as bits
+// (`mrow`, ceil(n/32) words in shared memory) and the warp's `seed` bits —
+// word j goes to bits[stride * j]. Returns how many there are.
+__device__ __forceinline__ int masked_neighbours(const uint32_t* mrow, const uint32_t* seed,
+                                                 int nwn, uint32_t* bits, int stride) {
+  int count = 0;
+  for (int j = 0; j < nwn; ++j) {
+    const uint32_t word = mrow[j] & seed[j];
+    bits[stride * j] = word;
+    count += __popc(word);
+  }
+  return count;
+}
+
 // The support tests of a warp's owned variables, all at once: every (value
 // a < d, pair p) of the np `pairs` — (lane l << kPairY) | y, variable
 // x0 + l·kWarps against its seeded neighbour y — pairs fastest, so lanes
@@ -284,19 +307,24 @@ __device__ __forceinline__ void store_flags(uint8_t* out, const uint32_t* viol, 
 // its seed bits in the warp's `seed`: warp `warp` owns x ≡ x_begin + warp
 // (mod 8), one variable a lane, 32·8 variables a pass. The warp's `lanes`
 // owner lanes keep their seeded-neighbour bits in `nbits`, their violation
-// words in `viol` and the warp's pairs in `pairs`.
+// words in `viol` and the warp's pairs in `pairs`. With `mbits` (the mask
+// rows of [x_begin, x_end) as bits, ceil(n/32) words a row, in shared
+// memory) the neighbours come from there; without, from `m`.
 template <typename T, int KW>
 __device__ __forceinline__ void revise_vars(const T* __restrict__ net,
-                                            const uint8_t* __restrict__ m, const T* dom,
+                                            const uint8_t* __restrict__ m,
+                                            const uint32_t* mbits, const T* dom,
                                             const uint32_t* seed, uint32_t* nbits,
                                             uint32_t* viol, uint16_t* pairs, uint8_t* out,
                                             int x_begin, int x_end, int n, int d, int K,
                                             int lanes, int warp, int lane) {
-  const int w = (d + 31) / 32;
+  const int w = (d + 31) / 32, nwn = (n + 31) / 32;
   for (int x0 = x_begin + warp; x0 < x_end; x0 += 32 * kWarps) {
     const int x = x0 + lane * kWarps;  // one owned variable per lane
-    const int c = x < x_end ? seeded_neighbours(m + static_cast<size_t>(x) * n, seed, n,
-                                                nbits + lane, lanes) : 0;
+    int c = 0;
+    if (x < x_end)
+      c = mbits ? masked_neighbours(mbits + (x - x_begin) * nwn, seed, nwn, nbits + lane, lanes)
+                : seeded_neighbours(m + static_cast<size_t>(x) * n, seed, n, nbits + lane, lanes);
     int end = c;  // this lane's pairs go to [end - c, end)
     for (int s = 1; s < 32; s <<= 1) {
       const int t = __shfl_up_sync(kFull, end, s);
@@ -358,12 +386,19 @@ __global__ void __launch_bounds__(kThreads) revise_stacked_kernel(
   const size_t slot = static_cast<size_t>(slot_r);
   load_row(dom, dom_in + static_cast<size_t>(r) * n * K, dom_bytes);
   __syncthreads();
-  revise_vars<T, KW>(cons + slot * static_cast<size_t>(nd) * n * K, mask + slot * n * n, dom,
-                     S.seed, S.nbits, S.viol, S.pairs, out, 0, n, n, d, K, lanes, warp, lane);
+  revise_vars<T, KW>(cons + slot * static_cast<size_t>(nd) * n * K, mask + slot * n * n,
+                     nullptr, dom, S.seed, S.nbits, S.viol, S.pairs, out, 0, n, n, d, K, lanes,
+                     warp, lane);
 }
 
+// Bytes of a single-network CTA's mask bits (in the layout's domain place):
+// ceil(n/32) words for each variable of its span.
+__host__ __device__ inline int mbits_bytes(int n, int span) { return 4 * ((n + 31) / 32) * span; }
+
 // B rows against one network: CTA (r, s) revises row r's variables
-// [s·span, (s+1)·span); span is a multiple of 8.
+// [s·span, (s+1)·span); span is a multiple of 8. The CTA's mask rows go to
+// shared memory as bits, each 8 flags one load, and a thread's first load
+// is issued before the seed's, so the two take one round together.
 template <typename T, int KW>  // KW: words per entry, or 0: k_arg at run time
 __global__ void __launch_bounds__(kThreads) revise_single_kernel(
     const T* __restrict__ net,            // (n*d, n*K) the network
@@ -374,20 +409,43 @@ __global__ void __launch_bounds__(kThreads) revise_single_kernel(
     int n, int d, int k_arg, int span) {
   const int K = KW > 0 ? KW : k_arg;
   const int lanes = owner_lanes(span);
-  const Smem L(n, d, 0, lanes);
+  const Smem L(n, d, mbits_bytes(n, span), lanes);
   extern __shared__ __align__(16) uint8_t revise_smem[];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const WarpSmem S(revise_smem, L, n, d, lanes, warp);
+  uint8_t* mbits = revise_smem;  // row v - x_begin: 4·ceil(n/32) bytes, flags of y = 8b.. in byte b
 
   const int r = blockIdx.x;
   const int x_begin = blockIdx.y * span, x_end = min(n, x_begin + span);
+  const int groups = (n + 7) / 8, nb = 4 * ((n + 31) / 32);
+  const int items = (x_end - x_begin) * groups;  // (variable, 8-flag group) pairs
+  // with n a multiple of 8 the span's mask rows are items aligned u64 words
+  const bool wide = (n & 7) == 0 && (reinterpret_cast<uintptr_t>(mask) & 7) == 0;
+  const uint8_t* mrows = mask + static_cast<size_t>(x_begin) * n;
+  const u64* mwords = reinterpret_cast<const u64*>(mrows);
+  const u64 first = wide && tid < items ? __ldg(mwords + tid) : 0ull;
   uint8_t* out = viol_out + static_cast<size_t>(r) * n * d;
   if (!row_seed_bits(seed_in + static_cast<size_t>(r) * n, S.seed, n, lane)) {
     zero_row(out + static_cast<size_t>(x_begin) * d, (x_end - x_begin) * d);
     return;
   }
-  revise_vars<T, KW>(net, mask, dom_in + static_cast<size_t>(r) * n * K, S.seed, S.nbits,
-                     S.viol, S.pairs, out, x_begin, x_end, n, d, K, lanes, warp, lane);
+  for (int i = tid; i < items; i += kThreads) {
+    const int v = i / groups, b = i - v * groups;
+    uint32_t f = 0;
+    if (wide) {
+      const u64 word = i < kThreads ? first : __ldg(mwords + i);
+#pragma unroll
+      for (int q = 0; q < 8; ++q) f |= static_cast<uint32_t>(((word >> (8 * q)) & 0xffu) != 0) << q;
+    } else {
+      for (int q = 0; q < 8 && 8 * b + q < n; ++q)
+        f |= static_cast<uint32_t>(__ldg(mrows + v * n + 8 * b + q) != 0) << q;
+    }
+    mbits[v * nb + b] = static_cast<uint8_t>(f);  // bytes past `groups` are never written:
+  }                                               // the seed's bits there are 0
+  __syncthreads();
+  revise_vars<T, KW>(net, mask, reinterpret_cast<const uint32_t*>(mbits),
+                     dom_in + static_cast<size_t>(r) * n * K, S.seed, S.nbits, S.viol, S.pairs,
+                     out, x_begin, x_end, n, d, K, lanes, warp, lane);
 }
 
 // Whether the kernels take (n, d, K): a pair's neighbour has kPairY bits,
@@ -412,7 +470,7 @@ int launch_stacked(const void* cons, const void* mask, const void* idx, const vo
       static_cast<uint8_t*>(viol_out), n, d, k));
 }
 
-constexpr int kCtasPerSm = 0;  // single-network CTAs a launch aims to give each SM
+constexpr int kCtasPerSm = 4;  // single-network CTAs a launch aims to give each SM
 
 // Variables a single-network CTA revises (a multiple of 8): the fewest
 // that still give the card kCtasPerSm CTAs an SM over `rows` rows, and at
@@ -439,7 +497,8 @@ int launch_single(const void* net, const void* mask, const void* dom_in, const v
   const int span = single_span(rows, n);
   return static_cast<int>(fixpoint::launch_rows(
       revise_single_kernel<T, KW>, dim3(rows, (n + span - 1) / span),
-      Smem(n, d, 0, owner_lanes(span)).total, static_cast<cudaStream_t>(stream),
+      Smem(n, d, mbits_bytes(n, span), owner_lanes(span)).total,
+      static_cast<cudaStream_t>(stream),
       static_cast<const T*>(net), static_cast<const uint8_t*>(mask),
       static_cast<const T*>(dom_in), static_cast<const uint8_t*>(seed_in),
       static_cast<uint8_t*>(viol_out), n, d, k, span));

@@ -48,17 +48,24 @@ def fixpoint_smem(n: int, d: int, dom_bytes: int) -> int:
 
 
 def revise_smem(n: int, d: int, dom_bytes: int) -> int:
-    """Shared memory of one revise CTA that owns a whole row (``Smem`` in
+    """Shared memory of one stacked-revise CTA (``Smem`` in
     csrc/revise_common.cuh): the row's domain of ``dom_bytes``, then per
     warp its seed bits, and for each of its owner lanes (one a variable,
     ``min(32, ceil(n/8))``) the variable's seeded-neighbour bits and
-    violation words (u32) and n (variable, neighbour) pairs (u16). The
-    single-network kernel reads the domain in place (``dom_bytes`` 0), and
-    its CTAs that own a span of a row's variables have fewer owner lanes, so
-    this is the most one of them uses."""
+    violation words (u32) and n (variable, neighbour) pairs (u16)."""
     nwn, w = -(-n // 32), -(-d // 32)
     lanes = min(32, -(-n // CTA_WARPS))
     return dom_bytes + 4 * CTA_WARPS * (nwn + lanes * (nwn + w)) + 2 * CTA_WARPS * lanes * n
+
+
+def single_revise_smem(n: int, d: int) -> int:
+    """The most shared memory one single-network revise CTA uses: that of a
+    CTA owning a whole row, the stacked layout with, in the domain's place
+    (the domain is read in place), its variables' mask rows as bits,
+    ``ceil(n/32)`` u32 words a row (``mbits_bytes`` in
+    csrc/revise_common.cuh). A CTA that owns a span of a row's variables
+    has fewer rows and owner lanes."""
+    return revise_smem(n, d, 4 * -(-n // 32) * CTA_WARPS * -(-n // CTA_WARPS))
 
 
 def check_operands(cons: Tensor, mask: Tensor, idx: Optional[Tensor], dom: Tensor,

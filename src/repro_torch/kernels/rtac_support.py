@@ -35,7 +35,8 @@ from typing import Optional
 
 import torch
 
-from .launch import check_operands, check_smem, fixpoint_smem, launch, revise_smem
+from .launch import (check_operands, check_smem, fixpoint_smem, launch, revise_smem,
+                     single_revise_smem)
 
 Tensor = torch.Tensor
 
@@ -200,7 +201,7 @@ def dense_revise(cons: Tensor, mask: Tensor, dom: Tensor, changed: Tensor, *,
     b, n = _check(cons, mask, None, dom, changed, d)
     if cons.device.type == "cpu":
         return dense_revise_plain(cons, mask, dom, changed, d=d)
-    check_smem("dense_revise", revise_smem(n, d, 0), f"n={n}, d={d}")
+    check_smem("dense_revise", single_revise_smem(n, d), f"n={n}, d={d}")
     out = torch.empty((b, n * d), dtype=torch.uint8, device=cons.device)
     if b:
         launch("dense_revise", "dense_revise_launch", [cons, mask, dom, changed, out], b, n, d)

@@ -121,25 +121,36 @@ def test_single_network_kernels_match_plain_at_full_width(cuda, family, knobs, k
     assert launches == 1
 
 
-#: single-network shapes: the two full widths and W=3 (d_p=72)
+#: single-network shapes: the two full widths, W=3 (d_p=72), and n=30 left
+#: unpadded (n_p=30, not a multiple of 4 or 8: the kernels' narrow loads)
 SINGLE_SHAPES = {
     "main": FULL_WIDTH[0],
     "dense_mask": FULL_WIDTH[1],
     "w3_d72": ("random_binary", dict(n=40, d=72, density=0.5, tightness=0.3)),
+    "n30_unpadded": ("model_rb", dict(n=30, hardness=0.9)),
 }
-#: the rows `mac_solve` gives the single-network kernels (`_single_rows`)
+#: the rows `mac_solve` gives the single-network kernels (`_single_rows`);
+#: 64 one-hot children at the two full widths are
+#: `test_single_network_kernels_match_plain_at_full_width`'s
 SINGLE_ROWS = ["root_b1", "multi_seed_b2", "multi_seed_b4", "one_hot_b64"]
+SINGLE_CASES = [(shape, rows) for shape in SINGLE_SHAPES for rows in SINGLE_ROWS
+                if rows != "one_hot_b64" or shape == "w3_d72"]
 
 
-def _single_rows(csp, rows, device, kind):
+def _single_rows(csp, rows, device, kind, unpadded=False):
     """One network and a `SINGLE_ROWS` case of its children: the root alone
     with every variable seeded; B = 2 or 4 rows, the even ones with a few
     variables assigned and several seeds, each odd one a seedless duplicate
     of the row before it (a frozen row, or the padding up to a power of
-    two); or 64 one-hot children."""
+    two); or 64 one-hot children. ``unpadded``: n not padded to a multiple
+    of 8."""
     if rows == "one_hot_b64":
         return _children(csp, 64, device, kind)
-    network, dims, _ = get_engine(f"hopper_{kind}", device=device).prepare(csp).payload
+    if unpadded:
+        prepare = ops.prepare_packed if kind == "packed" else ops.prepare_dense
+        network, _, dims = prepare(csp, 1, 1, device)
+    else:
+        network, dims, _ = get_engine(f"hopper_{kind}", device=device).prepare(csp).payload
     n_p, d_p = dims[:2]
     n, d = csp.dom.shape
     b = 1 if rows == "root_b1" else int(rows[-1])
@@ -160,13 +171,13 @@ def _single_rows(csp, rows, device, kind):
 
 
 @pytest.mark.parametrize("kind", ["packed", "dense"])
-@pytest.mark.parametrize("rows", SINGLE_ROWS)
-@pytest.mark.parametrize("shape", list(SINGLE_SHAPES))
+@pytest.mark.parametrize("shape,rows", SINGLE_CASES)
 def test_single_network_kernels_match_plain_on_mac_solve_rows(cuda, shape, rows, kind):
     """`packed_revise` and `dense_revise` bit for bit against their plain
     versions on the row mixes `mac_solve` launches them on."""
     family, knobs = SINGLE_SHAPES[shape]
-    args, d_p = _single_rows(generate(family, seed=0, device=cuda, **knobs), rows, cuda, kind)
+    args, d_p = _single_rows(generate(family, seed=0, device=cuda, **knobs), rows, cuda, kind,
+                             unpadded=shape == "n30_unpadded")
     mod, kw = (bs, dict(d=d_p, w=-(-d_p // 32))) if kind == "packed" else (rs, dict(d=d_p))
     kernel = getattr(mod, f"{kind}_revise")
     mod.reset_launches()
@@ -271,8 +282,8 @@ def _dense_operands(n, d, device):
 
 def test_dense_wrappers_raise_on_a_layout_they_cannot_hold(cuda):
     # n=1, d=24584: > 227 KB for the fixpoint's lists; both revises hold it
-    # (49,272 B stacked, 24,688 B single-network) and refuse n=4096, d=8
-    # (2,266,112 B and 2,233,344 B, launch.revise_smem)
+    # (49,272 B stacked, 24,720 B single-network) and refuse n=4096, d=8
+    # (2,266,112 B and 4,330,496 B: launch.revise_smem, single_revise_smem)
     cons, mask, idx, dom, seed = _dense_operands(1, 24584, cuda)
     big = _dense_operands(4096, 8, cuda)
     rs.reset_launches()

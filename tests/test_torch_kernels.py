@@ -418,33 +418,36 @@ def test_revise_smem_pins_the_driven_shapes(kind, n, d):
         assert REVISE_SMEM[kind, n, d] == (832 if kind == "packed" else 4160) + 2624 + 21632
     if kind == "dense":
         assert launch.revise_smem(4096, 8, 4096 * 8) > launch.SMEM_OPT_IN_LIMIT
-        assert launch.revise_smem(4096, 8, 0) > launch.SMEM_OPT_IN_LIMIT  # single network
+        assert launch.single_revise_smem(4096, 8) > launch.SMEM_OPT_IN_LIMIT
         assert launch.fixpoint_smem(1, 24584, 24584) > launch.SMEM_OPT_IN_LIMIT
 
 
 #: the single-network revises' shared memory at the driven shapes, as their
-#: wrappers check it (`launch.revise_smem` with no domain: a CTA that owns
-#: every variable of a row): (n_p, d_p) -> bytes, the same for both kinds
-SINGLE_REVISE_SMEM = {(104, 40): 24256, (160, 16): 55200, (40, 72): 4064}
+#: wrappers check it (`launch.single_revise_smem`: a CTA that owns every
+#: variable of a row): (n_p, d_p) -> bytes, the same for both kinds
+SINGLE_REVISE_SMEM = {(104, 40): 25920, (160, 16): 58400, (40, 72): 4384}
 
 
 @pytest.mark.parametrize("n,d", list(SINGLE_REVISE_SMEM))
 def test_single_revise_smem_pins_the_driven_shapes(n, d):
-    """The single-network revises read the domain in place, so their layout
-    is the stacked one without the domain; it fits the opt-in limit at the
-    driven shapes, and the shape the GPU test expects the wrappers to refuse
-    does not fit."""
-    assert launch.revise_smem(n, d, 0) == SINGLE_REVISE_SMEM[n, d]
+    """The single-network revises read the domain in place and keep their
+    variables' mask rows as bits in its place, so their layout is the
+    stacked one with the mask bits for the domain; it fits the opt-in limit
+    at the driven shapes, and the shape the GPU test expects the wrappers to
+    refuse does not fit."""
+    assert launch.single_revise_smem(n, d) == SINGLE_REVISE_SMEM[n, d]
     assert SINGLE_REVISE_SMEM[n, d] <= launch.SMEM_OPT_IN_LIMIT
     if (n, d) == (104, 40):
-        # by hand: per warp 4 seed words and, for each of its 13 owner lanes,
-        # 4 neighbour-bit words and 2 violation words (8 × 82 × 4 B); per warp
-        # 13 × 104 (variable, neighbour) pairs of 2 B (8 × 2,704 B)
-        assert SINGLE_REVISE_SMEM[n, d] == 2624 + 21632
+        # by hand: the mask bits (104 rows × 4 words × 4 B) in the domain's
+        # place of the stacked layout: per warp 4 seed words and, for each of
+        # its 13 owner lanes, 4 neighbour-bit words and 2 violation words
+        # (8 × 82 × 4 B); per warp 13 × 104 (variable, neighbour) pairs of
+        # 2 B (8 × 2,704 B)
+        assert SINGLE_REVISE_SMEM[n, d] == 1664 + 2624 + 21632
         for kind, dom_bytes in (("packed", 832), ("dense", 4160)):
-            assert launch.revise_smem(n, d, dom_bytes) == REVISE_SMEM[kind, n, d]
-    # the pairs of 32 owner lanes a warp: 8 × 32 × 4,096 × 2 B
-    assert launch.revise_smem(4096, 8, 0) > 8 * 32 * 4096 * 2 > launch.SMEM_OPT_IN_LIMIT
+            assert launch.revise_smem(n, d, dom_bytes) - dom_bytes == 2624 + 21632
+    # the pairs alone of 32 owner lanes a warp: 8 × 32 × 4,096 × 2 B
+    assert launch.single_revise_smem(4096, 8) > 8 * 32 * 4096 * 2 > launch.SMEM_OPT_IN_LIMIT
 
 
 def test_cpu_wrappers_run_plain_and_count_no_launch():
