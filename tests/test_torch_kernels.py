@@ -404,7 +404,7 @@ REVISE_SMEM = {
 @pytest.mark.parametrize("kind,n,d", list(REVISE_SMEM))
 def test_revise_smem_pins_the_driven_shapes(kind, n, d):
     """The stacked revises' shared memory (`launch.revise_smem`, ``Smem`` in
-    csrc/revise_stacked.cuh) at both full-width shapes and the W=3 edge
+    csrc/revise_common.cuh) at both full-width shapes and the W=3 edge
     shape, within the opt-in limit; the shapes the GPU tests expect the
     dense wrappers to refuse still exceed their limits."""
     dom_bytes = 4 * n * -(-d // 32) if kind == "packed" else n * d
