@@ -17,9 +17,9 @@
 // Both kernels are revise_common.cuh's, an entry read as d/8 u64 words.
 // What bounds them now (an H100, PERF.md): the stacked kernel, the rate of
 // scattered 32-byte sectors of its root rows, two a test, from HBM (the
-// tables outgrow L2); the single-network one, latency: 6.8 µs a launch on
-// the calls of one mac_solve (PR 12's body: 12.4), three dependent rounds
-// of loads above a 1.7 µs launch floor. Measured and dropped, single
+// tables outgrow L2); the single-network one, latency: 7.0 µs a launch on
+// the calls of one mac_solve (the first design: 12.6), three dependent rounds
+// of loads above a 1.9 µs launch floor. Measured and dropped, single
 // network: one CTA a row (22.9 µs), d/8 = 5 read at run time (9.7 against
 // 7.9 µs: a round of loads a word), cp.async staging of the seeded mask
 // groups, 8 CTAs an SM; stacked: see revise_common.cuh. The single-network
@@ -28,9 +28,11 @@
 // latency too: serial seed loads, a division and a mask load per pair, and
 // a seedless row paying as much as a seeded one.
 //
-// d/8 = 2 is compiled as a constant, as in dense_fixpoint.cu, and for the
-// single-network kernel d/8 = 5 (the main shape) too; any other d/8 is read
-// at run time.
+// Widths compiled as constants: d/8 = 2 for the stacked kernel, as in
+// dense_fixpoint.cu (where it measured faster), and d/8 = 5 (the main
+// shape) for the single-network one (measured faster, above). Any other
+// d/8, and d/8 = 2 in the single-network kernel (no driven shape, not
+// timed), is read at run time.
 #include "revise_common.cuh"
 
 // R rows, row r against the slot table's network idx[r]: one CTA a row.
@@ -46,8 +48,7 @@ extern "C" int dense_revise_stacked_launch(
 extern "C" int dense_revise_launch(
     const void* cons, const void* mask, const void* dom_in, const void* seed_in,
     void* viol_out, int rows, int n, int d, void* stream) {
-  const auto run = d / 8 == 2   ? &revise::launch_single<revise::u64, 2>
-                   : d / 8 == 5 ? &revise::launch_single<revise::u64, 5>
-                                : &revise::launch_single<revise::u64, 0>;
+  const auto run = d / 8 == 5 ? &revise::launch_single<revise::u64, 5>
+                              : &revise::launch_single<revise::u64, 0>;
   return run(cons, mask, dom_in, seed_in, viol_out, rows, n, d, d / 8, stream);
 }

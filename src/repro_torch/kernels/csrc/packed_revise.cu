@@ -14,8 +14,8 @@
 // Both kernels are revise_common.cuh's, with u32 words (W per entry). What
 // bounds them now (an H100, PERF.md): the stacked kernel, the rate of
 // scattered 32-byte sectors of its root rows; the single-network one,
-// latency: 5.2 µs a launch on the calls of one mac_solve (PR 12's body:
-// 10.8), three dependent rounds of loads above a 1.7 µs launch floor.
+// latency: 5.4 µs a launch on the calls of one mac_solve (the first design:
+// 11.0), three dependent rounds of loads above a 1.9 µs launch floor.
 // Measured and dropped, single network: one CTA a row (11.6 µs), cp.async
 // staging of the seeded mask groups, 8 CTAs an SM; stacked: see
 // revise_common.cuh. The single-network kernel's first design (a block per
@@ -25,8 +25,10 @@
 // one.
 //
 // An entry of W = 2 words is read as one 8-byte word where the table and
-// the domains are 8-byte aligned; W = 1 is a constant too; any other W is
-// read at run time.
+// the domains are 8-byte aligned; the stacked kernel also compiles W = 1 as
+// a constant (8 tests a lane in flight), as packed_fixpoint.cu does. Any
+// other W, and W = 1 in the single-network kernel (no driven shape, not
+// timed), is read at run time.
 #include "revise_common.cuh"
 
 // Whether W = 2 entries go as one 8-byte word: the table and the domains are
@@ -55,7 +57,6 @@ extern "C" int packed_revise_launch(
   if (wide_words(w, cons, dom_in))
     return revise::launch_single<revise::u64, 1>(cons, mask, dom_in, seed_in, viol_out, rows,
                                                  n, d, 1, stream);
-  const auto run = w == 1 ? &revise::launch_single<uint32_t, 1>
-                          : &revise::launch_single<uint32_t, 0>;
-  return run(cons, mask, dom_in, seed_in, viol_out, rows, n, d, w, stream);
+  return revise::launch_single<uint32_t, 0>(cons, mask, dom_in, seed_in, viol_out, rows, n, d,
+                                            w, stream);
 }

@@ -64,8 +64,8 @@
 // 3.5 MB packed and 17.3 MB dense at the main shape, stay in the 50 MB L2).
 // So a launch is three dependent rounds of loads (seed and mask, tests,
 // stores), and no CTA stages the domain. What bounds it: latency, not
-// bytes (measured on an H100, PERF.md): 5.2 µs (packed) and 6.8 µs (dense)
-// a launch on the calls of one mac_solve, against a launch floor of 1.7 µs
+// bytes (measured on an H100, PERF.md): 5.4 µs (packed) and 7.0 µs (dense)
+// a launch on the calls of one mac_solve, against a launch floor of 1.9 µs
 // and byte bounds of 0.013 and 0.049 µs. Measured and dropped: one CTA a
 // row (11.6 and 22.9 µs on those calls, 29 and 108 µs on the root call);
 // 8 CTAs an SM (slower at B = 64, the same below); the mask groups the seed

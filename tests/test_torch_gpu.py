@@ -121,29 +121,38 @@ def test_single_network_kernels_match_plain_at_full_width(cuda, family, knobs, k
     assert launches == 1
 
 
-#: single-network shapes: the two full widths, W=3 (d_p=72), and n=30 left
-#: unpadded (n_p=30, not a multiple of 4 or 8: the kernels' narrow loads)
+#: single-network shapes: the two full widths, W=3 (d_p=72), n=30 left
+#: unpadded (n_p=30, not a multiple of 4 or 8: the kernels' narrow loads),
+#: and n=264 (more variables than a CTA's 256 owner lanes)
 SINGLE_SHAPES = {
     "main": FULL_WIDTH[0],
     "dense_mask": FULL_WIDTH[1],
     "w3_d72": ("random_binary", dict(n=40, d=72, density=0.5, tightness=0.3)),
     "n30_unpadded": ("model_rb", dict(n=30, hardness=0.9)),
+    "n264": ("random_binary", dict(n=264, d=8, density=0.25)),
 }
 #: the rows `mac_solve` gives the single-network kernels (`_single_rows`);
 #: 64 one-hot children at the two full widths are
 #: `test_single_network_kernels_match_plain_at_full_width`'s
 SINGLE_ROWS = ["root_b1", "multi_seed_b2", "multi_seed_b4", "one_hot_b64"]
+#: wider batches (`enforce_batch` with many rows), where a CTA covers more
+#: of a row: on 132 SMs B=128 gives it 24 of the main shape's 104 variables
+#: (3 owner lanes a warp), and B=1024 the whole row, so its 104·13 mask
+#: groups outnumber its threads and n=264 takes two passes of 256 variables
+SINGLE_WIDE = [("main", "multi_seed_b128"), ("main", "multi_seed_b1024"),
+               ("n264", "multi_seed_b1024")]
 SINGLE_CASES = [(shape, rows) for shape in SINGLE_SHAPES for rows in SINGLE_ROWS
-                if rows != "one_hot_b64" or shape == "w3_d72"]
+                if shape != "n264" and (rows != "one_hot_b64" or shape == "w3_d72")
+                ] + SINGLE_WIDE
 
 
 def _single_rows(csp, rows, device, kind, unpadded=False):
-    """One network and a `SINGLE_ROWS` case of its children: the root alone
-    with every variable seeded; B = 2 or 4 rows, the even ones with a few
-    variables assigned and several seeds, each odd one a seedless duplicate
-    of the row before it (a frozen row, or the padding up to a power of
-    two); or 64 one-hot children. ``unpadded``: n not padded to a multiple
-    of 8."""
+    """One network and a `SINGLE_ROWS` or `SINGLE_WIDE` case of its
+    children: the root alone with every variable seeded; B = 2-1024 rows,
+    the even ones with a few variables assigned and several seeds, each odd
+    one a seedless duplicate of the row before it (a frozen row, or the
+    padding up to a power of two); or 64 one-hot children. ``unpadded``: n
+    not padded to a multiple of 8."""
     if rows == "one_hot_b64":
         return _children(csp, 64, device, kind)
     if unpadded:
@@ -153,7 +162,7 @@ def _single_rows(csp, rows, device, kind, unpadded=False):
         network, dims, _ = get_engine(f"hopper_{kind}", device=device).prepare(csp).payload
     n_p, d_p = dims[:2]
     n, d = csp.dom.shape
-    b = 1 if rows == "root_b1" else int(rows[-1])
+    b = int(rows.rsplit("_b", 1)[1])
     dom = csp.dom.expand(b, n, d).clone()
     changed = torch.ones((b, n), dtype=torch.bool, device=device)
     if rows != "root_b1":
