@@ -42,10 +42,29 @@ Phases (any failure exits non-zero):
 (e) mac_solve — a few instances of the (c) shape solved one at a time on
               `hopper_packed`, `hopper_dense` and `einsum` (the single-network
               kernels): identical solutions and statistics, ms per round.
-(p) profile — one fused and one stepped `solve_many` and one phase-e
-              `mac_solve` (instance 1) on each Hopper engine under
-              `torch.profiler`: device busy share and the kernels that take
-              the device's time, each with its share of the wall time.
+(s) service — `SolverService` on the card, three parts. (1) A seeded
+              Poisson trace (8/s over 3 s) of frb100-40-shaped model_rb
+              (bucket 128x64), sudoku with 32 givens (128x16) and 64-queens
+              (64x64), each request capped at ``max_assignments``, replayed
+              on `hopper_packed` and on `hopper_dense` (fused) through a
+              fast-forward clock: every request held against `solve_many`
+              on the same engine (one call a shape) and the two engines
+              against each other; throughput, latency percentiles, rounds,
+              rows a dispatch, slots a bucket and the fused kernel's
+              launches (one a round), with no host routing. (2) The
+              demotion drill: one injected kernel fault with no retries at
+              the trace's default sizes, so the stepped rung runs the
+              stacked revise on the service's slot table; verdicts equal
+              the fault-free replay. (3) The chaos drill: `serve` with every
+              fault site at 5 % on `hopper_packed`, traced; every future
+              resolves, every DONE verdict equals the fault-free run's, and
+              the span and counter names are the fault-free run's plus
+              recovery names only.
+(p) profile — one fused and one stepped `solve_many`, one phase-e
+              `mac_solve` (instance 1) and the phase-s replay on each Hopper
+              engine under `torch.profiler`: device busy share and the
+              kernels that take the device's time, each with its share of
+              the wall time.
 
 Prints a ``{"kernels": [...]}`` JSON line, then the card's name and power
 limit, then ``{"ok": true, "device": {...}}`` as the last line. Exits 2
@@ -86,15 +105,37 @@ PARITY_N = 30
 MAC_INSTANCES = 3
 CHILD_ROWS = 64
 
-#: every kernel: (wrapper, kind, TPU kernel it replaces, the run whose launches count)
+#: every kernel: (wrapper, kind, TPU kernel it replaces, the run whose launches
+#: count, the phase-s run whose launches count or None off the service path)
 KERNELS = [
-    ("packed_fixpoint_stacked", "packed", "bitpack_support.py:295", "packed fused"),
-    ("packed_revise_stacked", "packed", "bitpack_support.py:129", "packed stepped"),
-    ("packed_revise", "packed", "bitpack_support.py:64", "mac_solve hopper_packed"),
-    ("dense_fixpoint_stacked", "dense", "rtac_support.py:310", "dense fused"),
-    ("dense_revise_stacked", "dense", "rtac_support.py:150", "dense stepped"),
-    ("dense_revise", "dense", "rtac_support.py:71", "mac_solve hopper_dense"),
+    ("packed_fixpoint_stacked", "packed", "bitpack_support.py:295", "packed fused",
+     "replay hopper_packed"),
+    ("packed_revise_stacked", "packed", "bitpack_support.py:129", "packed stepped",
+     "drill hopper_packed"),
+    ("packed_revise", "packed", "bitpack_support.py:64", "mac_solve hopper_packed", None),
+    ("dense_fixpoint_stacked", "dense", "rtac_support.py:310", "dense fused",
+     "replay hopper_dense"),
+    ("dense_revise_stacked", "dense", "rtac_support.py:150", "dense stepped",
+     "drill hopper_dense"),
+    ("dense_revise", "dense", "rtac_support.py:71", "mac_solve hopper_dense", None),
 ]
+
+#: phase s: the full-size replay's families at the main path's shapes
+SERVICE_VARIANTS = {
+    "model_rb": [MAIN],  # bucket (128, 64): packed W=2, dense d/8=8
+    "sudoku": [{"givens": 32}],  # 81x9 -> bucket (128, 16): W=1, d/8=2
+    "nqueens": [{"n": 64}],  # bucket (64, 64)
+}
+SERVICE_RATE = 8.0
+SERVICE_DURATION = 3.0
+#: shortened retry backoffs of the fault drills (seconds of trace time)
+FAST_BACKOFF = {"backoff_base_s": 0.01, "backoff_cap_s": 0.05}
+#: what a chaos run may add to the fault-free run's span and counter names
+#: (recovery spans and counters; closures first built on a fallback rung)
+RECOVERY_NAMES = ("faults.", "fallback.", "service.recover", "service.retries",
+                  "service.failed", "service.shed", "kernels.fn_builds")
+#: where phase s writes its traces (an ignored directory of the checkout)
+TRACE_DIR = os.path.join(ROOT, "artifacts", "chip_smoke")
 
 
 class SmokeFailure(Exception):
@@ -606,7 +647,7 @@ def reset_launches() -> None:
 
 
 def launch_counts() -> dict:
-    return {name: getattr(kernel_module(kind), name).launches for name, kind, _, _ in KERNELS}
+    return {name: getattr(kernel_module(kind), name).launches for name, kind, *_ in KERNELS}
 
 
 def run_solve(csps, engine, max_assignments: int, device):
@@ -839,6 +880,24 @@ def profile_mac(device, engine: str, max_assignments: int = 500):
              f"max_assignments={max_assignments})", run)
 
 
+def profile_service(device, engine: str, max_assignments: int = 300):
+    """`profiled` over phase s's full-size replay on ``engine`` (fused; a
+    smaller budget keeps the trace, whose reduction takes most of phase p's
+    time, short)."""
+    from repro_torch.engines import get_engine
+    from repro_torch.service import poisson_trace
+
+    events = poisson_trace(list(SERVICE_VARIANTS), rate=SERVICE_RATE,
+                           duration=SERVICE_DURATION, seed=0, variants=SERVICE_VARIANTS)
+
+    def run():
+        _, snap, seconds, _, _ = run_service(get_engine(engine, device=device), events, device,
+                                             max_assignments)
+        return seconds, snap["rounds"]
+
+    profiled(f"{engine} service replay (phase s1, max_assignments={max_assignments})", run)
+
+
 def parity_einsum(device, max_assignments: int = MAX_ASSIGNMENTS,
                   n_instances: int = N_INSTANCES, n: int = PARITY_N):
     from repro_torch.engines import get_engine
@@ -853,6 +912,199 @@ def parity_einsum(device, max_assignments: int = MAX_ASSIGNMENTS,
     describe("hopper_packed fused", run_h)
     compare_runs("hopper_packed vs einsum", csps, run_h, run_e)
     print("[d] hopper_packed == einsum: solutions and search statistics identical", flush=True)
+
+
+# ---------------------------------------------------------------------------
+# (s) the solver service on the card
+# ---------------------------------------------------------------------------
+
+
+def verdict(req):
+    """A request's result as the fields phase s compares."""
+    st = req.stats
+    return (req.status.value, req.solution, st and (st.n_assignments, st.n_backtracks,
+                                                    st.recurrences, st.revisions, st.exhausted))
+
+
+class HostRouting:
+    """Counts `route_rows_on_host` calls while active (the service on the
+    Hopper engines must make none: every round reads the slot tables)."""
+
+    def __enter__(self):
+        from repro_torch.core import engine as engine_mod
+
+        self.mod, self.real, self.calls = engine_mod, engine_mod.route_rows_on_host, 0
+
+        def counting(*args, **kw):
+            self.calls += 1
+            return self.real(*args, **kw)
+
+        engine_mod.route_rows_on_host = counting
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.route_rows_on_host = self.real
+
+
+def run_service(engine, events, device, max_assignments=None, **service_kwargs):
+    """Replay ``events`` through a fresh `SolverService` on ``engine`` with
+    every launch count set to 0 just before and read just after: (requests,
+    snapshot, wall seconds, launch counts, host-routing calls)."""
+    import torch
+
+    from repro_torch.service import FastForwardClock, SolverService, replay
+
+    clock = FastForwardClock()
+    svc = SolverService(engine=engine, device=device, clock=clock, **service_kwargs)
+    reset_launches()
+    with HostRouting() as routing:
+        t0 = time.perf_counter()
+        reqs = replay(svc, events, clock, max_assignments=max_assignments)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        seconds = time.perf_counter() - t0
+    return reqs, svc.snapshot(), seconds, launch_counts(), routing.calls
+
+
+def describe_service(label, run):
+    reqs, snap, seconds, counts, routing = run
+    slots = {b: (info["capacity"], info["resident_nbytes"]) for b, info in snap["buckets"].items()}
+    print(f"    {label}: {len(reqs)} requests in {seconds:.3f} s wall; completed "
+          f"{snap['completed']}/{snap['submitted']}; throughput {snap['throughput_rps']:.3f} "
+          f"inst/s over {snap['span_s']:.3f} s of service time; latency p50 "
+          f"{snap['p50_ms']:.1f} ms p95 {snap['p95_ms']:.1f} ms p99 {snap['p99_ms']:.1f} ms; "
+          f"rounds={snap['rounds']} ms/round={1e3 * seconds / max(snap['rounds'], 1):.3f} "
+          f"rows/dispatch={snap['mean_rows_per_dispatch']:.2f} "
+          f"demotions={snap['demotions']} host routing calls={routing}; "
+          f"kernel counts={launched(counts)}; buckets (slots, table bytes) {slots}",
+          flush=True)
+
+
+def service_replay(device, max_assignments: int = MAX_ASSIGNMENTS):
+    """(s1): the full-size replay on both Hopper engines, each request held
+    against `solve_many` on the same engine, the engines against each other;
+    returns {engine: run}."""
+    import collections
+
+    from repro_torch.core import check_solution, solve_many
+    from repro_torch.engines import get_engine
+    from repro_torch.service import bucket_for, poisson_trace
+
+    events = poisson_trace(list(SERVICE_VARIANTS), rate=SERVICE_RATE,
+                           duration=SERVICE_DURATION, seed=0, variants=SERVICE_VARIANTS)
+    csps = [ev.build(device) for ev in events]
+    shapes = collections.Counter(tuple(c.dom.shape) for c in csps)
+    print(f"[s] replay: poisson_trace {SERVICE_RATE:g}/s over {SERVICE_DURATION:g} s -> "
+          f"{len(events)} requests, max_assignments={max_assignments}; shapes -> buckets "
+          + ", ".join(f"{n}x{d} ({k}) -> {bucket_for(n, d)}" for (n, d), k in shapes.items()),
+          flush=True)
+    runs = {}
+    for name in ("hopper_packed", "hopper_dense"):
+        run = runs[name] = run_service(get_engine(name, device=device), events, device,
+                                       max_assignments)
+        reqs, snap, _, counts, routing = run
+        describe_service(name, run)
+        kind = name.split("_")[1]
+        check(all(r.done() and r.status.value == "done" for r in reqs),
+              f"{name} service: not every request finished DONE")
+        check(routing == 0, f"{name} service routed {routing} calls on the host")
+        check(launched(counts) == {f"{kind}_fixpoint_stacked": snap["rounds"]},
+              f"{name} service launched {launched(counts)} in {snap['rounds']} rounds")
+        # the oracle: solve_many on the same engine, one call a shape
+        want = {}
+        for shape in shapes:
+            idx = [i for i, c in enumerate(csps) if tuple(c.dom.shape) == shape]
+            sols, stats = solve_many([csps[i] for i in idx], engine=get_engine(name, device=device),
+                                     max_assignments=max_assignments)
+            for i, sol, st in zip(idx, sols, stats):
+                want[i] = ("done", sol, (st.n_assignments, st.n_backtracks, st.recurrences,
+                                         st.revisions, st.exhausted))
+        for i, req in enumerate(reqs):
+            check(verdict(req) == want[i], f"{name} service request {i} differs from solve_many")
+            if req.solution is not None:
+                check(check_solution(csps[i], req.solution), f"{name}: request {i} is wrong")
+    check([verdict(r) for r in runs["hopper_packed"][0]]
+          == [verdict(r) for r in runs["hopper_dense"][0]],
+          "the service on hopper_packed and on hopper_dense differ")
+    print("[s] replay: every request == solve_many on its engine; hopper_packed == "
+          "hopper_dense; one fused launch a round; no host routing", flush=True)
+    return runs
+
+
+def service_drill(device):
+    """(s2): the demotion drill at the trace's default sizes: one injected
+    kernel fault, no retries; the demoted requests run the stacked revise on
+    the stepped rung's slot table. Verdicts equal the fault-free replay."""
+    from repro_torch import faults
+    from repro_torch.engines import get_engine
+    from repro_torch.service import DEFAULT_VARIANTS, poisson_trace
+
+    events = poisson_trace(list(DEFAULT_VARIANTS), rate=SERVICE_RATE,
+                           duration=SERVICE_DURATION, seed=0)
+    print(f"[s] demotion drill: {len(events)} requests at the default sizes, "
+          f"kernel.launch:1.0:oom:1, retry_cap=0", flush=True)
+    runs = {}
+    for name in ("hopper_packed", "hopper_dense"):
+        kind = name.split("_")[1]
+        clean = run_service(get_engine(name, device=device), events, device)
+        with faults.injected("kernel.launch:1.0:oom:1", seed=1):
+            run = runs[name] = run_service(get_engine(name, device=device), events, device,
+                                           retry_cap=0, **FAST_BACKOFF)
+        describe_service(f"{name} fault-free", clean)
+        describe_service(f"{name} drill", run)
+        reqs, snap, _, counts, routing = run
+        check(snap["demotions"] > 0 and snap["failed"] == 0,
+              f"{name} drill: {snap['demotions']} demotions, {snap['failed']} failed")
+        check(counts[f"{kind}_revise_stacked"] > 0,
+              f"{name} drill: the stepped rung launched {launched(counts)}")
+        check(routing == 0 and clean[4] == 0, f"{name} drill routed rows on the host")
+        check([verdict(r) for r in reqs] == [verdict(r) for r in clean[0]],
+              f"{name} drill: verdicts differ from the fault-free replay")
+    print("[s] demotion drill: demoted requests ran the stacked revise on the stepped rung's "
+          "slot table; verdicts == the fault-free replay", flush=True)
+    return runs
+
+
+def service_chaos(device):
+    """(s3): `serve` with every fault site at 5 % on `hopper_packed` at the
+    default sizes, traced, beside the same replay without faults."""
+    from repro_torch import faults, obs
+    from repro_torch.launch.serve import serve
+    from repro_torch.service import DEFAULT_VARIANTS
+
+    kw = dict(families=list(DEFAULT_VARIANTS), rate=SERVICE_RATE, duration=SERVICE_DURATION,
+              engine="hopper_packed", device=str(device),
+              service_kwargs=dict(retry_cap=3, **FAST_BACKOFF))
+    names = {}
+    for label, recipe in (("fault-free", None), ("chaos", "all:0.05")):
+        obs.REGISTRY.reset()
+        run_path = os.path.join(TRACE_DIR, label, "run.json")
+        try:
+            svc, reqs = serve(faults_recipe=recipe, faults_seed=0, trace_out=run_path,
+                              quiet=recipe is None, **kw)
+        finally:
+            faults.clear()
+            obs.disable()
+        run = obs.load_run(run_path)
+        names[label] = ({s["name"] for s in run["spans"]},
+                        set(run["snapshot"]["counters"]), reqs, svc.snapshot())
+    _, _, clean, _ = names["fault-free"]
+    spans, counters, reqs, snap = names["chaos"]
+    check(all(r.done() for r in reqs), "chaos: a future was left unresolved")
+    check(snap["completed"] + snap["failed"] + snap["shed"] == snap["submitted"] == len(reqs),
+          f"chaos: {snap['completed']} + {snap['failed']} + {snap['shed']} != "
+          f"{snap['submitted']}")
+    for r, c in zip(reqs, clean):
+        if r.status.value == "done":
+            check(verdict(r) == verdict(c), f"chaos: request {r.id} differs from fault-free")
+    for kind, got, want in (("span", spans, names["fault-free"][0]),
+                            ("counter", counters, names["fault-free"][1])):
+        extra = {n for n in got - want if not n.startswith(RECOVERY_NAMES)}
+        check(want <= got and not extra,
+              f"chaos: {kind} names missing {sorted(want - got)} or extra {sorted(extra)}")
+    print(f"[s] chaos: {snap['completed']} done, {snap['failed']} failed, {snap['shed']} shed "
+          f"of {snap['submitted']}; every DONE verdict == fault-free; span and counter names "
+          f"== fault-free + recovery names; traces in {TRACE_DIR}", flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -1046,18 +1298,24 @@ def main(argv) -> int:
         run_df, run_ds = dense_path(device, run_f)
         parity_einsum(device)
         macs = mac_path(device)
+        stamp("phase s, the service")
+        service = {"replay": service_replay(device), "drill": service_drill(device)}
+        service_chaos(device)
         for name in ("hopper_packed", "hopper_dense"):
             stamp(f"phase p, {name}")
             for fixpoint in ("fused", "stepped"):
                 profile_main_path(device, name, fixpoint)
             profile_mac(device, name)
+            profile_service(device, name)
 
         counts = {"packed fused": run_f[4], "packed stepped": run_s[4],
                   "dense fused": run_df[4], "dense stepped": run_ds[4],
                   "mac_solve hopper_packed": macs["hopper_packed"][1],
                   "mac_solve hopper_dense": macs["hopper_dense"][1]}
+        service_counts = {f"{part} {name}": run[3]
+                          for part, runs in service.items() for name, run in runs.items()}
         kernels = []
-        for name, kind, line, run in KERNELS:
+        for name, kind, line, run, service_run in KERNELS:
             m = measured[name]
             kernels.append(dict(
                 name=name, route="cuda",
@@ -1066,8 +1324,11 @@ def main(argv) -> int:
                 launches=counts[run][name], max_abs_err=m["max_abs_err"], ms=m["ms"],
                 plain_ms=m["plain_ms"], bound_ms=m["bound"][0], bound_by=m["bound"][1],
                 library_ms=None,
+                service_launches=service_counts[service_run][name] if service_run else 0,
             ))
             check(kernels[-1]["launches"] > 0, f"{name} was not launched on its path ({run})")
+            check(service_run is None or kernels[-1]["service_launches"] > 0,
+                  f"{name} was not launched on the service path ({service_run})")
         print(f"[done] {time.perf_counter() - t_start:.1f} s in all", flush=True)
         print(json.dumps({"kernels": kernels}))
         print(card)

@@ -1,6 +1,18 @@
 """RTAC core in PyTorch — the counterpart of `repro.core`."""
 
-from .csp import CSP, csp_from_numpy, make_csp, random_csp
+from .csp import (
+    CSP,
+    CSPBenchSpec,
+    PAPER_GRID,
+    coloring_csp,
+    csp_from_numpy,
+    make_csp,
+    nqueens_csp,
+    pad_domains,
+    random_csp,
+    sudoku_csp,
+    to_paper_cons,
+)
 from .rtac import (
     EnforceResult,
     assign,
@@ -11,7 +23,8 @@ from .rtac import (
     enforce_full_batch,
 )
 from .ac3 import AC3Result, assign_np, build_neighbours, enforce_ac3
-from .engine import Engine, FrontierTable, PreparedMany, PreparedNetwork
+from .brute import ac_closure_brute, count_solutions, solve_brute
+from .engine import Engine, FrontierTable, PreparedMany, PreparedNetwork, SlotPool
 from .search import (
     LockstepDriver,
     SearchStats,
@@ -23,9 +36,16 @@ from .search import (
 
 __all__ = [
     "CSP",
+    "CSPBenchSpec",
+    "PAPER_GRID",
+    "coloring_csp",
     "csp_from_numpy",
     "make_csp",
+    "nqueens_csp",
+    "pad_domains",
     "random_csp",
+    "sudoku_csp",
+    "to_paper_cons",
     "EnforceResult",
     "assign",
     "einsum_support",
@@ -37,10 +57,14 @@ __all__ = [
     "assign_np",
     "build_neighbours",
     "enforce_ac3",
+    "ac_closure_brute",
+    "count_solutions",
+    "solve_brute",
     "Engine",
     "FrontierTable",
     "PreparedMany",
     "PreparedNetwork",
+    "SlotPool",
     "LockstepDriver",
     "SearchStats",
     "check_solution",

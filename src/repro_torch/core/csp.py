@@ -7,12 +7,15 @@ The PyTorch counterpart of `repro.core.csp` (paper §4 / Alg. 2 `init`):
 
 with an explicit ``mask ∈ {0,1}^{n×n}`` of constrained pairs and zero blocks
 for unconstrained ones (``has_support = (count > 0) | ~mask``). Generators
-draw from ``numpy.random.default_rng`` exactly as the reference does, so the
-same seed gives byte-identical arrays; the tensors then land on ``device``.
+and the structured builders run in numpy exactly as the reference does, so
+the same seed gives byte-identical arrays; the tensors then land on
+``device``. ``to_paper_cons`` recovers the paper's all-ones encoding of
+unconstrained pairs.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import NamedTuple
 
 import numpy as np
@@ -39,6 +42,11 @@ class CSP(NamedTuple):
     @property
     def device(self) -> torch.device:
         return self.cons.device
+
+
+def to_paper_cons(csp: CSP) -> torch.Tensor:
+    """The paper's exact encoding: all-ones d×d blocks for unconstrained pairs."""
+    return torch.where(csp.mask[:, :, None, None], csp.cons, torch.ones_like(csp.cons))
 
 
 def make_csp(cons, mask, dom, device: Device = "cuda") -> CSP:
@@ -82,3 +90,93 @@ def random_csp(
     cons = allowed & mask[:, :, None, None]
     dom = np.ones((n_vars, dom_size), dtype=bool)
     return make_csp(cons, mask, dom, device=device)
+
+
+def nqueens_csp(n: int, device: Device = "cuda") -> CSP:
+    """N-queens as a binary CSP: one variable per column, domain = row index."""
+    a = np.arange(n)
+    ra, rb = np.meshgrid(a, a, indexing="ij")  # (d, d) candidate rows
+    cons = np.zeros((n, n, n, n), dtype=bool)
+    mask = np.zeros((n, n), dtype=bool)
+    for x in range(n):
+        for y in range(n):
+            if x == y:
+                continue
+            cons[x, y] = (ra != rb) & (np.abs(ra - rb) != abs(x - y))
+            mask[x, y] = True
+    dom = np.ones((n, n), dtype=bool)
+    return make_csp(cons, mask, dom, device=device)
+
+
+def coloring_csp(adjacency: np.ndarray, n_colors: int, device: Device = "cuda") -> CSP:
+    """Graph colouring: adjacent vertices take different colours."""
+    n = adjacency.shape[0]
+    neq = ~np.eye(n_colors, dtype=bool)
+    mask = adjacency.astype(bool) & ~np.eye(n, dtype=bool)
+    cons = mask[:, :, None, None] & neq[None, None, :, :]
+    dom = np.ones((n, n_colors), dtype=bool)
+    return make_csp(cons, mask, dom, device=device)
+
+
+def sudoku_csp(givens: np.ndarray, device: Device = "cuda") -> CSP:
+    """9x9 sudoku as a binary CSP: 81 variables, dom=9, all-diff on rows,
+    columns and 3x3 boxes. ``givens``: (9,9) ints, 0 = empty."""
+    n, d = 81, 9
+    neq = ~np.eye(d, dtype=bool)
+    mask = np.zeros((n, n), dtype=bool)
+    for i in range(n):
+        ri, ci = divmod(i, 9)
+        for j in range(n):
+            if i == j:
+                continue
+            rj, cj = divmod(j, 9)
+            same_box = (ri // 3 == rj // 3) and (ci // 3 == cj // 3)
+            if ri == rj or ci == cj or same_box:
+                mask[i, j] = True
+    cons = mask[:, :, None, None] & neq[None, None, :, :]
+    dom = np.ones((n, d), dtype=bool)
+    for i in range(n):
+        ri, ci = divmod(i, 9)
+        g = int(givens[ri, ci])
+        if g:
+            dom[i, :] = False
+            dom[i, g - 1] = True
+    return make_csp(cons, mask, dom, device=device)
+
+
+def pad_domains(csp: CSP, pad_to: int) -> CSP:
+    """Pad the value axis to ``pad_to``. Padding values are absent from every
+    domain and allowed by no constraint, so the closure is unchanged."""
+    n, d = csp.dom.shape
+    if pad_to < d:
+        raise ValueError(f"pad_to={pad_to} < dom_size={d}")
+    if pad_to == d:
+        return csp
+    cons = torch.zeros((n, n, pad_to, pad_to), dtype=torch.bool, device=csp.device)
+    cons[..., :d, :d] = csp.cons
+    dom = torch.zeros((n, pad_to), dtype=torch.bool, device=csp.device)
+    dom[:, :d] = csp.dom
+    return CSP(cons=cons, mask=csp.mask, dom=dom)
+
+
+@dataclasses.dataclass(frozen=True)
+class CSPBenchSpec:
+    """One cell of the paper's §5.2 benchmark grid."""
+
+    n_vars: int
+    density: float
+    dom_size: int = 20
+    tightness: float = 0.3
+    seed: int = 0
+
+    def build(self, device: Device = "cuda") -> CSP:
+        return random_csp(self.n_vars, self.dom_size, self.density, self.tightness,
+                          self.seed, device=device)
+
+
+# The 25-cell grid from paper §5.2 / Table 1.
+PAPER_GRID = [
+    CSPBenchSpec(n_vars=n, density=p)
+    for n in (100, 250, 500, 750, 1000)
+    for p in (0.10, 0.25, 0.50, 0.75, 1.00)
+]

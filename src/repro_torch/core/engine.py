@@ -9,12 +9,16 @@ The PyTorch counterpart of `repro.core.engine`. Every backend satisfies:
     many.enforce_many(doms, ch, idx) -> EnforceResult     (R domains, each
                                                            vs its OWN network)
 
-and device-frontier engines back a `FrontierTable`: the search frontier's
+open-world engines hand out a `SlotPool` (``engine.open_slot_pool``): a table
+of resident network slots that searches join and leave mid-flight, the
+substrate of `repro_torch.service`; and device-frontier engines back a
+`FrontierTable`: the search frontier's
 closures live in one preallocated device buffer, and every lockstep round is
 one `_frontier_step` (gather → assign → fixpoint → scatter → MRV) whose host
 traffic is O(R·d) metadata both ways. Where the reference writes donated
 buffers with ``.at[].set``, this module writes the preallocated buffers in
-place (``index_put_``); ``_PendingFrontierRound.resolve`` is the round's only
+place (``index_put_``, a slot install ``t[slot].copy_(v)``) on the device's
+current stream; ``_PendingFrontierRound.resolve`` is the round's only
 device→host copy.
 
 Padding contract: padded variables are unconstrained with the singleton
@@ -27,7 +31,7 @@ from __future__ import annotations
 
 import abc
 import bisect
-from typing import Any, Callable, ClassVar, Dict, List, NamedTuple, Optional, Sequence, Union
+from typing import Any, Callable, ClassVar, Dict, List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -187,6 +191,184 @@ class PreparedMany:
         """Enforce AC on R domains (R, n, d), row i against the network of
         instance ``instance_idx[i]`` (default ``arange(B)``)."""
         return self.engine.enforce_many(self, doms, changed0, instance_idx)
+
+
+# ---------------------------------------------------------------------------
+# Slot pools — open-world resident networks
+# ---------------------------------------------------------------------------
+
+
+def route_rows_on_host(enforce_row, doms, changed0: Changed, idx) -> EnforceResult:
+    """The generic host-routing dispatch shared by `Engine.enforce_many` and
+    `SlotPool.enforce_rows`: row i goes through ``enforce_row(idx[i], dom_i,
+    changed_i)`` and the per-row results are stacked into one EnforceResult
+    of numpy arrays."""
+    results = [
+        enforce_row(int(j), doms[i], None if changed0 is None else changed0[i])
+        for i, j in enumerate(idx)
+    ]
+    return EnforceResult(
+        dom=np.stack([to_numpy(r.dom) for r in results]),
+        consistent=np.asarray([bool(r.consistent) for r in results]),
+        n_recurrences=np.asarray([int(r.n_recurrences) for r in results]),
+    )
+
+
+class SlotPool:
+    """An *open-world* `PreparedMany`: a fixed-capacity table of resident
+    network slots that searches join and leave mid-flight.
+
+    ``install`` compiles one network into a slot (the only O(n²d²) step,
+    paid once per distinct network), ``enforce_rows`` resolves R domains —
+    row i against slot ``slot_idx[i]`` — and ``release`` frees a slot for
+    reuse. All slots share one (n_vars, dom_size) bucket shape.
+
+    This generic pool keeps one `PreparedNetwork` per slot and routes rows on
+    the host (it works for every engine, AC3 included). Engines that
+    advertise ``slot_table = True`` get a device-resident `StackedSlotPool`
+    instead."""
+
+    stacked: ClassVar[bool] = False
+
+    def __init__(self, engine: "Engine", n_vars: int, dom_size: int, capacity: int):
+        if capacity < 1:
+            raise ValueError("SlotPool needs capacity >= 1")
+        self.engine = engine
+        self.n_vars = n_vars
+        self.dom_size = dom_size
+        self._nets: List[Optional[Any]] = [None] * capacity
+
+    @property
+    def capacity(self) -> int:
+        return len(self._nets)
+
+    def _check(self, slot: int, installing: bool) -> None:
+        if not 0 <= slot < self.capacity:
+            raise ValueError(f"slot {slot} out of range [0, {self.capacity})")
+        if installing and self._nets[slot] is not None:
+            raise ValueError(f"slot {slot} already installed; release it first")
+
+    def install(self, slot: int, csp: CSP) -> None:
+        """Compile ``csp``'s network into ``slot`` (must match the pool shape)."""
+        self._check(slot, installing=True)
+        if tuple(csp.dom.shape) != (self.n_vars, self.dom_size):
+            raise ValueError(
+                f"install: csp shape {tuple(csp.dom.shape)} != pool bucket "
+                f"({self.n_vars}, {self.dom_size})"
+            )
+        faults.inject("slot.install", slot=slot)
+        with obs.span("slot.install", cat="engine", slot=slot,
+                      n=self.n_vars, d=self.dom_size):
+            self._nets[slot] = self._prepare_slot(slot, csp)
+        obs.REGISTRY.counter_add("slots.installed")
+
+    def _prepare_slot(self, slot: int, csp: CSP):
+        """Backend hook: build the slot's resident form. The generic pool keeps
+        a `PreparedNetwork`; stacked pools write the tables and return a
+        truthy sentinel."""
+        return self.engine.prepare(csp)
+
+    def release(self, slot: int) -> None:
+        """Free a slot (its network may be overwritten by a later install)."""
+        self._check(slot, installing=False)
+        self._nets[slot] = None
+
+    def grow(self, capacity: int) -> None:
+        """Enlarge the table (amortized doubling in the service layer)."""
+        if capacity < self.capacity:
+            raise ValueError("SlotPool.grow cannot shrink")
+        self._nets.extend([None] * (capacity - self.capacity))
+
+    def enforce_rows(self, doms, changed0: Changed = None, slot_idx=None):
+        """Enforce R domains (R, n, d), row i against slot ``slot_idx[i]``."""
+        doms = to_numpy(doms)
+        idx = resolve_instance_idx(slot_idx, self.capacity, doms.shape[0])
+
+        def enforce_row(j, dom, ch):
+            net = self._nets[j]
+            if net is None:
+                raise ValueError(f"enforce_rows: slot {j} is empty")
+            return net.enforce(dom, ch)
+
+        return route_rows_on_host(enforce_row, doms, changed0, idx)
+
+    @property
+    def resident_nbytes(self) -> int:
+        """Device bytes this pool's resident networks occupy, in the engine's
+        own representation (`Engine.network_nbytes`)."""
+        occupied = sum(net is not None for net in self._nets)
+        return occupied * self.engine.network_nbytes(self.n_vars, self.dom_size)
+
+
+class StackedSlotPool(SlotPool):
+    """A device-resident `SlotPool`: the networks live in stacked ``(C, ...)``
+    tensors on the engine's device, an install writes one slot row in place
+    (``t[slot].copy_(v)``), and ``enforce_rows`` is one dispatch that reads
+    each row's network from the tables through its slot id.
+
+    The backend supplies its representation as three pieces:
+
+    - ``tables``: the initial (zeroed) slot tables — ``(C, n, n, d, d)`` bool
+      cons for the einsum engines, ``(C, n_p·d_p, n_p·W)`` int32 packed words
+      for `hopper_packed`;
+    - ``encode(csp)``: one network compiled into a matching tuple of slot rows
+      (the only O(n²d²) step, paid once per install);
+    - ``dispatch(tables, doms, changed0, idx)``: the round over the tables.
+
+    Installs and growth are ordered on the device's current stream, like the
+    rounds that read the tables; an empty slot stays all zeros."""
+
+    stacked: ClassVar[bool] = True
+
+    def __init__(self, engine: "Engine", n_vars: int, dom_size: int, capacity: int,
+                 tables: Tuple[Tensor, ...], encode: Callable[[CSP], Tuple[Tensor, ...]],
+                 dispatch):
+        super().__init__(engine, n_vars, dom_size, capacity)
+        self._tables = tuple(tables)
+        self._encode = encode
+        self._dispatch = dispatch
+
+    def _prepare_slot(self, slot: int, csp: CSP):
+        for t, v in zip(self._tables, self._encode(csp)):
+            t[slot].copy_(v)
+        return True  # occupancy sentinel; the network lives in the tables
+
+    def grow(self, capacity: int) -> None:
+        """A larger table, the old slots copied into it; the old tensors are
+        dropped, so every later round reads the new ones (`tables`)."""
+        old = self.capacity
+        super().grow(capacity)
+        if capacity > old:
+            grown = []
+            for t in self._tables:
+                g = torch.zeros((capacity, *t.shape[1:]), dtype=t.dtype, device=t.device)
+                g[:old].copy_(t)
+                grown.append(g)
+            self._tables = tuple(grown)
+
+    def require_installed(self, slot_idx) -> None:
+        """Fail loudly if any routed slot has no resident network (also the
+        `FrontierTable` round's ``check_net`` hook in the service)."""
+        for j in np.unique(to_numpy(slot_idx)):
+            if self._nets[int(j)] is None:
+                raise ValueError(f"enforce_rows: slot {int(j)} is empty")
+
+    def enforce_rows(self, doms, changed0: Changed = None, slot_idx=None):
+        idx = resolve_instance_idx(slot_idx, self.capacity, len(doms))
+        self.require_installed(idx)
+        return self._dispatch(self._tables, doms, changed0, idx)
+
+    @property
+    def tables(self) -> Tuple[Tensor, ...]:
+        """The live slot tables — what a `FrontierTable` round reads its
+        networks from (re-read every round, so installs and growth between
+        rounds are picked up)."""
+        return self._tables
+
+    @property
+    def resident_nbytes(self) -> int:
+        """The tables' whole footprint (allocated whole, occupied or not)."""
+        return sum(t.numel() * t.element_size() for t in self._tables)
 
 
 # ---------------------------------------------------------------------------
@@ -524,6 +706,9 @@ class Engine(abc.ABC):
     supports_batch: ClassVar[bool] = True
     #: whether ``enforce_many`` is one stacked device dispatch
     stacked_many: ClassVar[bool] = False
+    #: whether ``open_slot_pool`` is a device-resident `StackedSlotPool`
+    #: (True requires ``_open_stacked_slot_pool``)
+    slot_table: ClassVar[bool] = False
     #: whether this engine backs a device-resident `FrontierTable`
     device_frontier: ClassVar[bool] = False
     #: whether enforcement runs its whole recurrence inside ONE kernel launch
@@ -550,9 +735,11 @@ class Engine(abc.ABC):
     def enforce(self, prepared: PreparedNetwork, dom, changed0: Changed = None) -> EnforceResult:
         ...
 
-    @abc.abstractmethod
     def enforce_batch(self, prepared: PreparedNetwork, doms, changed0: Changed = None) -> EnforceResult:
-        ...
+        """Generic fallback: loop on the host and stack. Device backends
+        override this with one dispatch."""
+        return route_rows_on_host(lambda _j, dom, ch: self.enforce(prepared, dom, ch),
+                                  doms, changed0, np.zeros(len(doms), np.int32))
 
     # --- multi-instance (one workload, many independent CSPs) ---------------
 
@@ -570,14 +757,21 @@ class Engine(abc.ABC):
                 )
         return PreparedMany(self, csps, self._prepare_many_payload(csps))
 
-    @abc.abstractmethod
     def _prepare_many_payload(self, csps: List[CSP]) -> Any:
-        ...
+        """Generic fallback: per-instance `PreparedNetwork`s. Stacked backends
+        override this with stacked network tensors."""
+        return [self.prepare(c) for c in csps]
 
-    @abc.abstractmethod
     def enforce_many(self, prepared: PreparedMany, doms, changed0: Changed = None,
                      instance_idx=None) -> EnforceResult:
-        """R domains, row i against the network of ``instance_idx[i]``."""
+        """R domains, row i against the network of ``instance_idx[i]``.
+        Generic fallback: route each row to its instance on the host."""
+        doms = to_numpy(doms)
+        idx = resolve_instance_idx(instance_idx, prepared.n_instances, doms.shape[0])
+        nets: List[PreparedNetwork] = prepared.payload
+        return route_rows_on_host(
+            lambda j, dom, ch: self.enforce(nets[j], dom, ch), doms, changed0, idx
+        )
 
     # --- device-resident frontiers -------------------------------------------
 
@@ -600,6 +794,24 @@ class Engine(abc.ABC):
         return FrontierTable(n_vars, dom_size, networks, self.frontier_fix(),
                              capacity=capacity, check_net=check_net,
                              fused_fixpoint=self.fused_fixpoint, device=self.device)
+
+    # --- open-world slots (continuous batching) ------------------------------
+
+    def open_slot_pool(self, n_vars: int, dom_size: int, capacity: int) -> SlotPool:
+        """A `SlotPool` of ``capacity`` resident network slots sharing one
+        (n_vars, dom_size) bucket shape: the device-resident stacked table on
+        ``slot_table`` engines, the generic host-routing pool otherwise."""
+        if self.slot_table:
+            return self._open_stacked_slot_pool(n_vars, dom_size, capacity)
+        return SlotPool(self, n_vars, dom_size, capacity)
+
+    def _open_stacked_slot_pool(self, n_vars: int, dom_size: int,
+                                capacity: int) -> StackedSlotPool:
+        """Backend hook for ``slot_table = True`` engines."""
+        raise NotImplementedError(
+            f"{type(self).__name__} advertises slot_table=True but does not "
+            "implement _open_stacked_slot_pool"
+        )
 
     def __repr__(self) -> str:  # pragma: no cover - cosmetic
         return f"<{type(self).__name__} name={self.name!r} device={self.device}>"

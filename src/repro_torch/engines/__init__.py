@@ -14,6 +14,7 @@ Registered backends:
                    kernels (fused fixpoint / stepped revise; single-network
                    revise for enforce, enforce_batch and mac_solve)
     hopper_packed  the same on bitpacked networks
+    ac3            queue-based host baseline (paper §5.1); counts revisions
 
 ``device`` defaults to ``"cuda"``; without a card, ``get_engine`` raises
 unless ``device="cpu"`` is passed.
@@ -49,11 +50,13 @@ def get_engine(name: str, device="cuda", **opts) -> Engine:
 # Import for side effect: each module registers its engines.
 from . import einsum as _einsum  # noqa: E402
 from . import hopper as _hopper  # noqa: E402
+from . import ac3 as _ac3  # noqa: E402
 
 EinsumEngine = _einsum.EinsumEngine
 FullEngine = _einsum.FullEngine
 HopperDenseEngine = _hopper.HopperDenseEngine
 HopperPackedEngine = _hopper.HopperPackedEngine
+AC3Engine = _ac3.AC3Engine
 
 __all__ = [
     "Engine",
@@ -65,4 +68,5 @@ __all__ = [
     "FullEngine",
     "HopperDenseEngine",
     "HopperPackedEngine",
+    "AC3Engine",
 ]

@@ -18,6 +18,7 @@ from repro_torch.core.engine import (
     Engine,
     PreparedMany,
     PreparedNetwork,
+    StackedSlotPool,
     as_changed,
     as_dom,
     resolve_instance_idx,
@@ -50,9 +51,11 @@ def _full_frontier_fix(support_fn):
 
 class _ContractionEngine(Engine):
     """Shared plumbing: the network is the CSP's own (cons, mask) on the
-    engine's device; the stacked form is (B, n, n, d, d) / (B, n, n)."""
+    engine's device; the stacked form is (B, n, n, d, d) / (B, n, n), and a
+    slot pool's tables are the same (C, n, n, d, d) / (C, n, n) bool."""
 
     stacked_many = True
+    slot_table = True
     device_frontier = True
     speculative_rows_hint = 64
 
@@ -69,13 +72,30 @@ class _ContractionEngine(Engine):
             torch.stack([c.mask.to(self.device) for c in csps]),
         )
 
-    def _rows(self, prepared: PreparedMany, doms, changed0, instance_idx):
-        doms = as_dom(doms, self.device)
-        idx = resolve_instance_idx(instance_idx, prepared.n_instances, doms.shape[0])
-        return doms, as_changed(changed0, self.device), torch.as_tensor(idx, device=self.device)
+    def _rows_dispatch(self, networks, doms, changed0, idx) -> EnforceResult:
+        """R rows, row i against ``networks[idx[i]]`` (a stacked workload or a
+        slot pool's tables)."""
+        return self._stacked_rows(networks, as_dom(doms, self.device),
+                                  as_changed(changed0, self.device),
+                                  torch.as_tensor(idx, device=self.device))
+
+    def enforce_many(self, prepared: PreparedMany, doms, changed0=None,
+                     instance_idx=None) -> EnforceResult:
+        idx = resolve_instance_idx(instance_idx, prepared.n_instances, len(doms))
+        return self._rows_dispatch(prepared.payload, doms, changed0, idx)
 
     def frontier_networks(self, prepared: PreparedMany):
         return prepared.payload
+
+    def _open_stacked_slot_pool(self, n_vars, dom_size, capacity) -> StackedSlotPool:
+        n, d = n_vars, dom_size
+        tables = (
+            torch.zeros((capacity, n, n, d, d), dtype=torch.bool, device=self.device),
+            torch.zeros((capacity, n, n), dtype=torch.bool, device=self.device),
+        )
+        return StackedSlotPool(self, n_vars, dom_size, capacity, tables,
+                               encode=lambda csp: (csp.cons, csp.mask),
+                               dispatch=self._rows_dispatch)
 
 
 @register
@@ -100,10 +120,8 @@ class EinsumEngine(_ContractionEngine):
             revise_fn=self._revise_fn,
         )
 
-    def enforce_many(self, prepared: PreparedMany, doms, changed0=None,
-                     instance_idx=None) -> EnforceResult:
-        doms, ch, idx = self._rows(prepared, doms, changed0, instance_idx)
-        return rtac.enforce_many_generic(prepared.payload, doms, ch, idx,
+    def _stacked_rows(self, networks, doms, changed0, idx) -> EnforceResult:
+        return rtac.enforce_many_generic(networks, doms, changed0, idx,
                                          revise_fn=self._revise_fn)
 
     def frontier_fix(self):
@@ -126,10 +144,9 @@ class FullEngine(_ContractionEngine):
         return rtac.enforce_full_batch(cons, mask, as_dom(doms, self.device),
                                        support_fn=self.support_fn)
 
-    def enforce_many(self, prepared: PreparedMany, doms, changed0=None,
-                     instance_idx=None) -> EnforceResult:
-        doms, _, idx = self._rows(prepared, doms, None, instance_idx)
-        cons, mask = prepared.payload
+    def _stacked_rows(self, networks, doms, changed0, idx) -> EnforceResult:
+        del changed0  # the paper-faithful recurrence re-tests everything
+        cons, mask = networks
         return rtac.enforce_full_many(cons, mask, doms, idx, support_fn=self.support_fn)
 
     def frontier_fix(self):

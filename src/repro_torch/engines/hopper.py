@@ -17,6 +17,9 @@ the O(n·d) domains into kernel coordinates and un-pads the result.
   runs the whole recurrence; ``fixpoint="stepped"`` is a host loop with one
   `*_revise_stacked` launch per recurrence — the fallback rung and the
   parity oracle.
+- ``open_slot_pool`` preallocates the same tables for the service, with
+  zeros, and installs each admitted network into its slot in place; every
+  service round reads the networks through their slot ids, as above.
 
 The env default of ``fixpoint`` reads ``REPRO_TORCH_FIXPOINT``.
 """
@@ -33,6 +36,7 @@ from repro_torch.core.engine import (
     Engine,
     PreparedMany,
     PreparedNetwork,
+    StackedSlotPool,
     as_changed,
     as_dom,
     pad_changed,
@@ -53,10 +57,12 @@ class _HopperEngine(Engine):
     Subclass hooks: ``kind`` (``"dense"`` | ``"packed"``, the key of the
     `kernels.ops` closures), ``_prepare_net(csp)`` (the memoized padded
     network on the engine's device), ``_revise_fn(*dims)`` (the
-    single-network revise closure) and the two frontier entries."""
+    single-network revise closure), ``_empty_tables(dims, capacity)`` (a
+    slot pool's zeroed tables) and the two frontier entries."""
 
     kind: str
     stacked_many = True
+    slot_table = True
     device_frontier = True
     speculative_rows_hint = 64
 
@@ -104,19 +110,42 @@ class _HopperEngine(Engine):
         tables = (torch.stack([t[0] for t in nets]), torch.stack([t[1] for t in nets]))
         return tables, self._dims(*csps[0].dom.shape)
 
-    def enforce_many(self, prepared: PreparedMany, doms, changed0=None,
-                     instance_idx=None) -> EnforceResult:
-        tables, dims = prepared.payload
+    def _rows_dispatch(self, tables, dims, doms, changed0, idx) -> EnforceResult:
+        """R rows in caller coordinates, row i against ``tables[idx[i]]`` (a
+        stacked workload or a slot pool's tables): pad into kernel
+        coordinates, `ops.enforce_rows` (the kernels read each row's network
+        in place through its slot id), un-pad."""
         n_p, d_p = dims[0], dims[1]
-        n, d = prepared.n_vars, prepared.dom_size
         doms = as_dom(doms, self.device)
-        idx = resolve_instance_idx(instance_idx, prepared.n_instances, doms.shape[0])
+        n, d = doms.shape[-2:]
         idx = torch.as_tensor(idx, device=self.device)
         dom_p = pad_dom(doms, n_p, d_p)
         ch_p = pad_changed(as_changed(changed0, self.device), n, n_p,
                            batch=doms.shape[:-2], device=self.device)
         res = ops.enforce_rows(self.kind, self.fused_fixpoint, tables, dom_p, ch_p, idx, dims)
         return EnforceResult(res.dom[:, :n, :d], res.consistent, res.n_recurrences)
+
+    def enforce_many(self, prepared: PreparedMany, doms, changed0=None,
+                     instance_idx=None) -> EnforceResult:
+        tables, dims = prepared.payload
+        idx = resolve_instance_idx(instance_idx, prepared.n_instances, len(doms))
+        return self._rows_dispatch(tables, dims, doms, changed0, idx)
+
+    # --- open-world slot pool (the service) ---------------------------------
+
+    def _open_stacked_slot_pool(self, n_vars, dom_size, capacity) -> StackedSlotPool:
+        """The pool's tables are the stacked workload's layout, preallocated
+        with zeros: (C, n_p·d_p, n_p·d_p) u8 dense or (C, n_p·d_p, n_p·W)
+        int32 packed, and (C, n_p, n_p) u8 masks. An install writes one
+        slot's padded network in place; a round reads it through the slot
+        id."""
+        dims = self._dims(n_vars, dom_size)
+        return StackedSlotPool(
+            self, n_vars, dom_size, capacity, self._empty_tables(dims, capacity),
+            encode=self._prepare_net,
+            dispatch=lambda tables, doms, ch, idx: self._rows_dispatch(tables, dims, doms,
+                                                                       ch, idx),
+        )
 
     # --- device-resident frontiers ------------------------------------------
 
@@ -141,6 +170,12 @@ class HopperDenseEngine(_HopperEngine):
     def _prepare_net(self, csp: CSP):
         return ops.prepare_dense(csp, device=self.device)[0]
 
+    def _empty_tables(self, dims, capacity: int):
+        n_p, d_p = dims
+        return (torch.zeros((capacity, n_p * d_p, n_p * d_p), dtype=torch.uint8,
+                            device=self.device),
+                torch.zeros((capacity, n_p, n_p), dtype=torch.uint8, device=self.device))
+
     def network_nbytes(self, n_vars: int, dom_size: int) -> int:
         n_p, d_p = self._dims(n_vars, dom_size)
         return n_p * d_p * n_p * d_p + n_p * n_p  # u8 cons2 + u8 mask
@@ -158,6 +193,12 @@ class HopperPackedEngine(_HopperEngine):
 
     def _prepare_net(self, csp: CSP):
         return ops.prepare_packed(csp, device=self.device)[0]
+
+    def _empty_tables(self, dims, capacity: int):
+        n_p, d_p, w = dims
+        return (torch.zeros((capacity, n_p * d_p, n_p * w), dtype=torch.int32,
+                            device=self.device),
+                torch.zeros((capacity, n_p, n_p), dtype=torch.uint8, device=self.device))
 
     def network_nbytes(self, n_vars: int, dom_size: int) -> int:
         n_p, d_p, w = self._dims(n_vars, dom_size)

@@ -1,7 +1,6 @@
 """`repro_torch.obs` — spans and the always-on metric registry.
 
-The PyTorch counterpart of `repro.obs` (tracer + registry; the Perfetto
-export and the CLI come with the service slice):
+The PyTorch counterpart of `repro.obs`:
 
 - **tracer** (`obs.span` / `obs.fence`, `obs.tracing`): nested wall-clock
   spans in a bounded ring. OFF by default — zero overhead — enabled by
@@ -11,9 +10,12 @@ export and the CLI come with the service slice):
 - **registry** (`obs.REGISTRY`, `obs.counter_add` / `gauge_set` /
   `observe`): named counters/gauges/histograms every subsystem publishes
   into; `snapshot()` is one ``repro-obs/v1`` dict.
+- **export** (`obs.dump_run` / `write_trace`, ``python -m repro_torch.obs``):
+  run dumps and Chrome-trace/Perfetto timelines.
 """
 
-from . import registry, tracing  # noqa: F401  (submodule access)
+from . import export, registry, tracing  # noqa: F401  (submodule access)
+from .export import child_coverage, chrome_trace, dump_run, load_run, run_payload, write_trace
 from .registry import (
     REGISTRY,
     SCHEMA,
@@ -43,9 +45,11 @@ from .tracing import (
 
 __all__ = [
     "REGISTRY", "SCHEMA", "Registry", "RegistryScope", "Span", "Tracer",
-    "counter_add", "disable", "enable", "enable_from_env", "enabled", "fence",
-    "gauge_set", "get_tracer", "mean", "now", "observe", "percentile",
-    "record_complete", "snapshot", "span", "summarize",
+    "child_coverage", "chrome_trace", "counter_add", "disable", "dump_run",
+    "enable", "enable_from_env", "enabled", "fence", "gauge_set",
+    "get_tracer", "load_run", "mean", "now", "observe", "percentile",
+    "record_complete", "run_payload", "snapshot", "span", "summarize",
+    "write_trace",
 ]
 
 # honour REPRO_TORCH_TRACE=1 at first import, wherever that import happens

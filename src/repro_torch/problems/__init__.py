@@ -1,7 +1,6 @@
 """Problem registry — named, seeded CSP workload generators.
 
-The PyTorch counterpart of `repro.problems` (this slice carries the random
-binary families; coloring and the structured families come later):
+The PyTorch counterpart of `repro.problems`:
 
     from repro_torch.problems import generate, generate_batch
 
@@ -12,6 +11,11 @@ Registered families:
 
     model_rb          Xu–Li Model RB random binary CSPs at the phase transition
     random_binary     classic model-A generator (paper §5.2 grid cells)
+    coloring_random   k-coloring of an Erdős–Rényi G(n, p) graph
+    coloring_kneser   k-coloring of a Kneser graph K(m, j) (χ = m − 2j + 2)
+    pigeonhole        n pigeons into h holes (h = n − 1 ⇒ UNSAT)
+    nqueens           n-queens
+    sudoku            seeded 9×9 puzzles with a givens-count difficulty knob
 
 Every generator draws from ``numpy.random.default_rng`` exactly as the
 reference does, so the same seed yields byte-identical ``cons``/``mask``/
@@ -120,6 +124,8 @@ def generate_batch(name: str, count: int, seed: int = 0, device: Device = "cuda"
 
 # Import for side effect: each module registers its families.
 from . import random_binary as _random_binary  # noqa: E402,F401
+from . import coloring as _coloring  # noqa: E402,F401
+from . import structured as _structured  # noqa: E402,F401
 
 model_rb = _random_binary.model_rb
 model_rb_params = _random_binary.model_rb_params

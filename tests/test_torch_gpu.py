@@ -1,6 +1,7 @@
 """Kernels on the card: each CUDA kernel against its plain version at the
 main path's full width, the fused and stepped engines against each other,
-and `mac_solve` on the Hopper engines against `einsum`.
+`mac_solve` on the Hopper engines against `einsum`, and the service's slot
+tables at its bucket shapes against the same tables on the CPU.
 
 Marked ``gpu``; without a CUDA device every test skips. On the card:
 ``PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py``.
@@ -16,6 +17,7 @@ from repro_torch.core.engine import pad_changed, pad_dom
 from repro_torch.engines import get_engine
 from repro_torch.kernels import bitpack_support as bs, ops, ref, rtac_support as rs
 from repro_torch.problems import generate
+from repro_torch.service import SolverService, bucket_for, pad_csp
 
 pytestmark = pytest.mark.gpu
 
@@ -335,3 +337,94 @@ def test_mac_solve_on_hopper_engines_equals_einsum_on_card(cuda):
         if runs[0][0] is not None:
             assert check_solution(csp, runs[0][0])
     assert bs.packed_revise.launches > 0 and rs.dense_revise.launches > 0
+
+
+#: the service's bucket shapes on the main path: frb100-40 → (128, 64),
+#: sudoku → (128, 16), 64-queens → (64, 64)
+BUCKET_CASES = [
+    ("model_rb", dict(n=100, alpha=0.8, r=0.7, hardness=0.9)),
+    ("sudoku", dict(givens=32)),
+    ("nqueens", dict(n=64)),
+]
+
+
+def _pool_rows(csps, n_rows, seed=0):
+    """Rows as a service round gives them, in bucket coordinates: a root
+    domain with one assignment applied (one-hot seed) for 7 rows in 8, an
+    all-changed root row for the rest, each routed to a random slot."""
+    rng = np.random.default_rng(seed)
+    n, d = csps[0].dom.shape
+    idx = rng.integers(0, len(csps), n_rows)
+    doms = np.stack([c.dom.cpu().numpy() for c in csps])[idx]
+    changed = np.ones((n_rows, n), dtype=bool)
+    for i in range(n_rows):
+        if rng.random() >= 0.125:
+            var = int(rng.integers(0, n))
+            vals = np.nonzero(doms[i, var])[0]
+            doms[i, var] = False
+            doms[i, var, vals[int(rng.integers(0, len(vals)))]] = True
+            changed[i] = False
+            changed[i, var] = True
+    return doms, changed, idx
+
+
+@pytest.mark.parametrize("fixpoint", ["fused", "stepped"])
+@pytest.mark.parametrize("kind", ["packed", "dense"])
+@pytest.mark.parametrize("family,knobs", BUCKET_CASES)
+def test_slot_table_at_bucket_shapes_matches_plain(cuda, family, knobs, kind, fixpoint):
+    """A slot pool on the card, at a bucket shape the kernels meet only in the
+    service, equals the same pool on the CPU (the plain versions), and a
+    round launches only its path's kernel."""
+    csps = [generate(family, seed=i, device="cpu", **knobs) for i in range(3)]
+    bucket = bucket_for(*csps[0].dom.shape)
+    padded = [pad_csp(c, bucket) for c in csps]
+    doms, changed, idx = _pool_rows(padded, 16)
+    results = []
+    for device in ("cpu", cuda):
+        pool = get_engine(f"hopper_{kind}", fixpoint=fixpoint, device=device).open_slot_pool(
+            bucket.n_p, bucket.d_p, 4)
+        for slot, c in zip((0, 2, 3), padded):
+            pool.install(slot, c)
+        bs.reset_launches()
+        rs.reset_launches()
+        res = pool.enforce_rows(doms, changed, np.array((0, 2, 3))[idx])
+        results.append(tuple(t.cpu() for t in res))
+        if device is cuda:
+            mod = bs if kind == "packed" else rs
+            fused = getattr(mod, f"{kind}_fixpoint_stacked").launches
+            stepped = getattr(mod, f"{kind}_revise_stacked").launches
+            assert (fused, stepped > 0) == ((1, False) if fixpoint == "fused" else (0, True))
+    for got, want in zip(*results):
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("name", ["hopper_packed", "hopper_dense"])
+def test_service_on_card_grows_its_table_between_rounds(cuda, name):
+    """One slot to start, requests arriving mid-flight: the table grows
+    between rounds and every request equals the same service on the CPU,
+    with no host routing and the fused kernel on every round."""
+    csps = [generate("model_rb", seed=i, device="cpu", n=24, hardness=0.9) for i in range(5)]
+    out = []
+    for device in ("cpu", cuda):
+        svc = SolverService(engine=name, device=device, initial_slots=1)
+        bs.reset_launches()
+        rs.reset_launches()
+        reqs = [svc.submit(csps[0])]
+        svc.step()
+        reqs += [svc.submit(c) for c in csps[1:3]]
+        svc.step()
+        reqs += [svc.submit(c) for c in csps[3:]]
+        svc.run_until_idle()
+        snap = svc.snapshot()
+        (info,) = snap["buckets"].values()
+        assert info["capacity"] >= 4 and info["device_frontier"]
+        out.append([(r.solution, r.stats.n_assignments, r.stats.n_backtracks,
+                     r.stats.recurrences, r.stats.exhausted) for r in reqs])
+        if device is cuda:
+            launched = (bs.packed_fixpoint_stacked.launches if name == "hopper_packed"
+                        else rs.dense_fixpoint_stacked.launches)
+            assert launched == snap["rounds"] > 0
+    assert out[0] == out[1]
+    for csp, (sol, *_rest) in zip(csps, out[1]):
+        if sol is not None:
+            assert check_solution(csp, sol)

@@ -1,8 +1,10 @@
 """The port's CSP generators and padding contract against the reference.
 
 Same numpy seeds through `repro` and `repro_torch` must give byte-identical
-networks, and the padding helpers must produce the same padded tensors, so
-every later comparison starts from identical inputs.
+networks for every registered family, the CSP helpers and padding helpers
+must produce the same tensors, and the brute-force oracles must agree with
+both packages' `mac_solve`, so every later comparison starts from identical
+inputs.
 """
 
 import numpy as np
@@ -11,11 +13,38 @@ import torch
 
 import jax.numpy as jnp
 
-from repro.core import engine as ref_engine
-from repro.problems import generate as ref_generate, generate_batch as ref_generate_batch
+from repro.core import csp as ref_csp_mod, engine as ref_engine, mac_solve as ref_mac_solve
+from repro.problems import (
+    available_problems as ref_available_problems,
+    generate as ref_generate,
+    generate_batch as ref_generate_batch,
+)
+from repro.problems import get_problem as ref_get_problem
+from repro.problems.coloring import kneser_adjacency as ref_kneser
+from repro.problems.structured import sudoku_solution_grid as ref_sudoku_solution_grid
 
-from repro_torch.core import csp_from_numpy, engine
-from repro_torch.problems import available_problems, generate, generate_batch
+from repro_torch.core import (
+    PAPER_GRID,
+    CSPBenchSpec,
+    ac_closure_brute,
+    check_solution,
+    coloring_csp,
+    count_solutions,
+    csp_from_numpy,
+    engine,
+    enforce_ac3,
+    mac_solve,
+    nqueens_csp,
+    pad_domains,
+    random_csp,
+    solve_brute,
+    sudoku_csp,
+    to_paper_cons,
+)
+from repro_torch.engines import get_engine
+from repro_torch.problems import available_problems, generate, generate_batch, get_problem
+from repro_torch.problems.coloring import kneser_adjacency
+from repro_torch.problems.structured import sudoku_solution_grid
 
 CPU = torch.device("cpu")
 
@@ -24,6 +53,16 @@ FAMILIES = [
     ("model_rb", dict(n=20, alpha=0.7, r=0.6, hardness=1.1)),
     ("random_binary", dict(n=10, d=6, density=0.5)),
     ("random_binary", dict(n=16, d=10, density=1.0, tightness=0.4)),
+    ("coloring_random", dict(n=12, edge_prob=0.25, k=3)),
+    ("coloring_random", dict(n=30)),
+    ("coloring_kneser", dict()),
+    ("coloring_kneser", dict(m=7, j=3, excess=-1)),
+    ("pigeonhole", dict(n=5)),
+    ("pigeonhole", dict(n=6, holes=7)),
+    ("nqueens", dict(n=6)),
+    ("nqueens", dict(n=10)),
+    ("sudoku", dict(givens=40)),
+    ("sudoku", dict(givens=25)),
 ]
 
 
@@ -50,7 +89,9 @@ def test_generate_batch_is_byte_identical(name, knobs):
 
 
 def test_registry_knobs_exclude_seed_and_device():
-    assert available_problems() == ["model_rb", "random_binary"]
+    assert available_problems() == ref_available_problems()
+    for name in available_problems():
+        assert "device" not in get_problem(name).defaults
     with pytest.raises(TypeError):
         generate("model_rb", device=CPU, no_such_knob=1)
 
@@ -115,3 +156,111 @@ def test_round_helpers_match_reference():
                                   ref_engine.resolve_instance_idx(idx, 3, 3))
     with pytest.raises(ValueError):
         engine.resolve_instance_idx(np.array([3]), 3, 1)
+
+
+def test_family_knobs_match_reference():
+    for name in available_problems():
+        fam, ref = get_problem(name), ref_get_problem(name)
+        assert dict(fam.defaults) == dict(ref.defaults), name
+        assert (fam.difficulty_knob, fam.deterministic) == (ref.difficulty_knob,
+                                                            ref.deterministic), name
+
+
+@pytest.mark.parametrize("seed", [0, 5, (3, 1)])
+def test_sudoku_grid_and_kneser_match_reference(seed):
+    np.testing.assert_array_equal(sudoku_solution_grid(seed), ref_sudoku_solution_grid(seed))
+    np.testing.assert_array_equal(kneser_adjacency(5, 2), ref_kneser(5, 2))
+    with pytest.raises(ValueError, match="Kneser"):
+        kneser_adjacency(4, 2)
+
+
+# --- CSP helpers ----------------------------------------------------------------
+
+
+@pytest.mark.parametrize("build,ref_build", [
+    (lambda: nqueens_csp(7, device=CPU), lambda: ref_csp_mod.nqueens_csp(7)),
+    (lambda: coloring_csp(np.eye(6, k=1, dtype=bool) | np.eye(6, k=-1, dtype=bool), 3,
+                          device=CPU),
+     lambda: ref_csp_mod.coloring_csp(np.eye(6, k=1, dtype=bool) | np.eye(6, k=-1, dtype=bool),
+                                      3)),
+    (lambda: sudoku_csp(np.arange(81).reshape(9, 9) % 10, device=CPU),
+     lambda: ref_csp_mod.sudoku_csp(np.arange(81).reshape(9, 9) % 10)),
+    (lambda: random_csp(9, 5, 0.6, 0.4, seed=2, device=CPU),
+     lambda: ref_csp_mod.random_csp(9, 5, 0.6, 0.4, seed=2)),
+])
+def test_csp_builders_and_helpers_match_reference(build, ref_build):
+    csp, ref = build(), ref_build()
+    _assert_same(ref, csp)
+    np.testing.assert_array_equal(to_paper_cons(csp).numpy(),
+                                  np.asarray(ref_csp_mod.to_paper_cons(ref)))
+    d = csp.dom_size
+    for pad_to in (d, d + 3):
+        _assert_same(ref_csp_mod.pad_domains(ref, pad_to), pad_domains(csp, pad_to))
+    with pytest.raises(ValueError):
+        pad_domains(csp, d - 1)
+
+
+def test_bench_grid_matches_reference():
+    assert [(s.n_vars, s.density, s.dom_size, s.tightness, s.seed) for s in PAPER_GRID] == \
+        [(s.n_vars, s.density, s.dom_size, s.tightness, s.seed) for s in ref_csp_mod.PAPER_GRID]
+    spec = CSPBenchSpec(n_vars=12, density=0.5, seed=4)
+    _assert_same(ref_csp_mod.CSPBenchSpec(n_vars=12, density=0.5, seed=4).build(),
+                 spec.build(device=CPU))
+
+
+# --- brute force against both packages' mac_solve -------------------------------
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_random_csp_against_brute_and_both_packages(seed):
+    csp = random_csp(7, 4, density=0.7, tightness=0.5, seed=seed, device=CPU)
+    cons, mask, dom = (t.numpy() for t in (csp.cons, csp.mask, csp.dom))
+    brute = solve_brute(cons, mask, dom)
+    ref_sol, _ = ref_mac_solve(ref_csp_mod.random_csp(7, 4, density=0.7, tightness=0.5,
+                                                       seed=seed), engine="einsum")
+    for name in ("einsum", "ac3", "hopper_packed"):
+        sol, _ = mac_solve(csp, engine=name, device=CPU)
+        assert sol == ref_sol, name
+        assert (sol is None) == (brute is None)
+        if sol is not None:
+            assert check_solution(csp, sol)
+    assert (count_solutions(cons, mask, dom) == 0) == (brute is None)
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_ac_closure_brute_equals_ac3_and_the_engines(seed):
+    csp = random_csp(8, 4, density=0.6, tightness=0.45, seed=seed, device=CPU)
+    cons, mask, dom = (t.numpy() for t in (csp.cons, csp.mask, csp.dom))
+    bd, bc = ac_closure_brute(cons, mask, dom)
+    a3 = enforce_ac3(cons, mask, dom)
+    assert bc == a3.consistent
+    for name in ("einsum", "ac3", "hopper_dense"):
+        res = get_engine(name, device=CPU).prepare(csp).enforce()
+        assert bool(res.consistent) == bc, name
+        if bc:
+            np.testing.assert_array_equal(np.asarray(res.dom), bd)
+
+
+@pytest.mark.parametrize("name,knobs,engine", [
+    ("nqueens", dict(n=6), "hopper_dense"),
+    ("pigeonhole", dict(n=5), "ac3"),
+    ("coloring_kneser", dict(), "hopper_packed"),
+    ("coloring_random", dict(n=10, k=3), "einsum"),
+    ("sudoku", dict(givens=45), "hopper_packed"),
+])
+def test_new_families_solve_like_the_reference(name, knobs, engine):
+    """`mac_solve` on each new family equals the reference's, solutions and
+    statistics; the brute force agrees wherever it is small enough."""
+    ref_name = {"hopper_dense": "pallas_dense", "hopper_packed": "pallas_packed"}.get(engine,
+                                                                                     engine)
+    csp = generate(name, seed=1, device=CPU, **knobs)
+    ref_sol, ref_st = ref_mac_solve(ref_generate(name, seed=1, **knobs), engine=ref_name)
+    sol, st = mac_solve(csp, engine=engine, device=CPU)
+    assert sol == ref_sol
+    assert (st.n_assignments, st.n_backtracks, st.recurrences, st.revisions) == \
+        (ref_st.n_assignments, ref_st.n_backtracks, ref_st.recurrences, ref_st.revisions)
+    if sol is not None:
+        assert check_solution(csp, sol)
+    if csp.dom_size ** csp.n_vars <= 10 ** 6:
+        assert (solve_brute(csp.cons.numpy(), csp.mask.numpy(), csp.dom.numpy()) is None) \
+            == (sol is None)
