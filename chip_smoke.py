@@ -55,7 +55,10 @@ Phases (any failure exits non-zero):
               demotion drill: one injected kernel fault with no retries at
               the trace's default sizes, so the stepped rung runs the
               stacked revise on the service's slot table; verdicts equal
-              the fault-free replay. (3) The chaos drill: `serve` with every
+              the fault-free replay. In (1) and (2) the calls numbered 1, 4,
+              16 and 64 of each stacked kernel at each table shape are
+              recorded (operands copied) and each held bit for bit against
+              its plain version on the card. (3) The chaos drill: `serve` with every
               fault site at 5 % on `hopper_packed`, traced; every future
               resolves, every DONE verdict equals the fault-free run's, and
               the span and counter names are the fault-free run's plus
@@ -83,6 +86,7 @@ turns. It prints no result line.
 
 from __future__ import annotations
 
+import collections
 import hashlib
 import json
 import os
@@ -134,6 +138,9 @@ FAST_BACKOFF = {"backoff_base_s": 0.01, "backoff_cap_s": 0.05}
 #: (recovery spans and counters; closures first built on a fallback rung)
 RECOVERY_NAMES = ("faults.", "fallback.", "service.recover", "service.retries",
                   "service.failed", "service.shed", "kernels.fn_builds")
+#: phase s holds these calls (1-based, per kernel and table shape) of each
+#: service run's stacked kernels against their plain versions
+SERVICE_CHECKED_CALLS = (1, 4, 16, 64)
 #: where phase s writes its traces (an ignored directory of the checkout)
 TRACE_DIR = os.path.join(ROOT, "artifacts", "chip_smoke")
 
@@ -891,8 +898,8 @@ def profile_service(device, engine: str, max_assignments: int = 300):
                            duration=SERVICE_DURATION, seed=0, variants=SERVICE_VARIANTS)
 
     def run():
-        _, snap, seconds, _, _ = run_service(get_engine(engine, device=device), events, device,
-                                             max_assignments)
+        _, snap, seconds, *_ = run_service(get_engine(engine, device=device), events, device,
+                                           max_assignments, record=False)
         return seconds, snap["rounds"]
 
     profiled(f"{engine} service replay (phase s1, max_assignments={max_assignments})", run)
@@ -946,10 +953,47 @@ class HostRouting:
         self.mod.route_rows_on_host = self.real
 
 
-def run_service(engine, events, device, max_assignments=None, **service_kwargs):
+class StackedCalls:
+    """Records the stacked kernels' calls while active, by wrapping each
+    wrapper in its module (the wrapper counts its launches on the module's
+    name, so the recorder carries the count): for each (kernel, table shape,
+    widths), the calls numbered in `SERVICE_CHECKED_CALLS`, their operands
+    copied, since an install rewrites the slot tables in place."""
+
+    NAMES = [(name, kind) for name, kind, *_ in KERNELS if name.endswith("_stacked")]
+
+    def __enter__(self):
+        self.calls, self.seen, self.real = [], collections.Counter(), {}
+        for name, kind in self.NAMES:
+            real = self.real[name] = getattr(kernel_module(kind), name)
+            setattr(kernel_module(kind), name, self._recorder(name, real))
+        return self
+
+    def _recorder(self, name, real):
+        def record(*args, **kw):
+            key = (name, tuple(args[0].shape), tuple(sorted(kw.items())))
+            self.seen[key] += 1
+            if self.seen[key] in SERVICE_CHECKED_CALLS:
+                self.calls.append((key, self.seen[key], tuple(a.clone() for a in args), kw))
+            return real(*args, **kw)
+
+        record.launches = real.launches
+        return record
+
+    def __exit__(self, *exc):
+        for name, kind in self.NAMES:
+            mod = kernel_module(kind)
+            self.real[name].launches = getattr(mod, name).launches
+            setattr(mod, name, self.real[name])
+
+
+def run_service(engine, events, device, max_assignments=None, record=True, **service_kwargs):
     """Replay ``events`` through a fresh `SolverService` on ``engine`` with
     every launch count set to 0 just before and read just after: (requests,
-    snapshot, wall seconds, launch counts, host-routing calls)."""
+    snapshot, wall seconds, launch counts, host-routing calls, the recorded
+    `StackedCalls` or None)."""
+    import contextlib
+
     import torch
 
     from repro_torch.service import FastForwardClock, SolverService, replay
@@ -957,17 +1001,42 @@ def run_service(engine, events, device, max_assignments=None, **service_kwargs):
     clock = FastForwardClock()
     svc = SolverService(engine=engine, device=device, clock=clock, **service_kwargs)
     reset_launches()
-    with HostRouting() as routing:
+    with HostRouting() as routing, StackedCalls() if record else contextlib.nullcontext() as calls:
         t0 = time.perf_counter()
         reqs = replay(svc, events, clock, max_assignments=max_assignments)
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         seconds = time.perf_counter() - t0
-    return reqs, svc.snapshot(), seconds, launch_counts(), routing.calls
+    return reqs, svc.snapshot(), seconds, launch_counts(), routing.calls, calls
+
+
+def check_service_calls(label, run):
+    """Every call ``run`` recorded (`StackedCalls`): the kernel against its
+    plain version on the copied operands, bit for bit; one line per kernel
+    and table shape. Then drops the copies."""
+    from repro_torch.kernels import ops
+
+    recorder = run[5]
+    checked = collections.defaultdict(list)
+    for key, i, args, kw in recorder.calls:
+        name = key[0]
+        mod = kernel_module(name.split("_")[0])
+        err = max_err(getattr(mod, name)(*args, **kw), getattr(mod, f"{name}_plain")(*args, **kw))
+        check(err == 0, f"{label}: {name} call {i} at {key[1:]} differs from its plain version "
+                        f"(max abs err {err})")
+        checked[key].append(f"{i} ({args[3].shape[0]} rows)")
+    for key, calls in checked.items():
+        name, shape, kw = key[0], key[1], dict(key[2])
+        n_p = shape[2] // kw["w"] if "w" in kw else shape[2] // kw["d"]
+        widths = f"W={kw['w']}" if "w" in kw else f"d/8={kw['d'] // ops.D_MULT}"
+        print(f"[s] {label} {name} at n_p={n_p} d_p={kw['d']} ({widths}, table "
+              f"{'x'.join(map(str, shape))}): calls {', '.join(calls)} of {recorder.seen[key]} bit-identical to plain",
+              flush=True)
+    recorder.calls.clear()
 
 
 def describe_service(label, run):
-    reqs, snap, seconds, counts, routing = run
+    reqs, snap, seconds, counts, routing, _ = run
     slots = {b: (info["capacity"], info["resident_nbytes"]) for b, info in snap["buckets"].items()}
     print(f"    {label}: {len(reqs)} requests in {seconds:.3f} s wall; completed "
           f"{snap['completed']}/{snap['submitted']}; throughput {snap['throughput_rps']:.3f} "
@@ -1002,8 +1071,9 @@ def service_replay(device, max_assignments: int = MAX_ASSIGNMENTS):
     for name in ("hopper_packed", "hopper_dense"):
         run = runs[name] = run_service(get_engine(name, device=device), events, device,
                                        max_assignments)
-        reqs, snap, _, counts, routing = run
+        reqs, snap, _, counts, routing, _ = run
         describe_service(name, run)
+        check_service_calls(name, run)
         kind = name.split("_")[1]
         check(all(r.done() and r.status.value == "done" for r in reqs),
               f"{name} service: not every request finished DONE")
@@ -1052,7 +1122,9 @@ def service_drill(device):
                                            retry_cap=0, **FAST_BACKOFF)
         describe_service(f"{name} fault-free", clean)
         describe_service(f"{name} drill", run)
-        reqs, snap, _, counts, routing = run
+        check_service_calls(f"{name} fault-free", clean)
+        check_service_calls(f"{name} drill", run)
+        reqs, snap, _, counts, routing, _ = run
         check(snap["demotions"] > 0 and snap["failed"] == 0,
               f"{name} drill: {snap['demotions']} demotions, {snap['failed']} failed")
         check(counts[f"{kind}_revise_stacked"] > 0,

@@ -55,8 +55,9 @@ class _HopperEngine(Engine):
     """Shared prepare/enforce plumbing; subclasses pick the kernel family.
 
     Subclass hooks: ``kind`` (``"dense"`` | ``"packed"``, the key of the
-    `kernels.ops` closures), ``_prepare_net(csp)`` (the memoized padded
-    network on the engine's device), ``_revise_fn(*dims)`` (the
+    `kernels.ops` closures), ``_prepare_net(csp, memo)`` (the padded
+    network on the engine's device, memoized per CSP unless ``memo`` is
+    False), ``_revise_fn(*dims)`` (the
     single-network revise closure), ``_empty_tables(dims, capacity)`` (a
     slot pool's zeroed tables) and the two frontier entries."""
 
@@ -142,7 +143,7 @@ class _HopperEngine(Engine):
         dims = self._dims(n_vars, dom_size)
         return StackedSlotPool(
             self, n_vars, dom_size, capacity, self._empty_tables(dims, capacity),
-            encode=self._prepare_net,
+            encode=lambda csp: self._prepare_net(csp, memo=False),  # the slot is the copy
             dispatch=lambda tables, doms, ch, idx: self._rows_dispatch(tables, dims, doms,
                                                                        ch, idx),
         )
@@ -167,8 +168,8 @@ class HopperDenseEngine(_HopperEngine):
     _frontier_fn = staticmethod(ops._dense_frontier_fn)
     _frontier_fused_fn = staticmethod(ops._dense_frontier_fused_fn)
 
-    def _prepare_net(self, csp: CSP):
-        return ops.prepare_dense(csp, device=self.device)[0]
+    def _prepare_net(self, csp: CSP, memo: bool = True):
+        return ops.prepare_dense(csp, device=self.device, memo=memo)[0]
 
     def _empty_tables(self, dims, capacity: int):
         n_p, d_p = dims
@@ -191,8 +192,8 @@ class HopperPackedEngine(_HopperEngine):
     _frontier_fn = staticmethod(ops._packed_frontier_fn)
     _frontier_fused_fn = staticmethod(ops._packed_frontier_fused_fn)
 
-    def _prepare_net(self, csp: CSP):
-        return ops.prepare_packed(csp, device=self.device)[0]
+    def _prepare_net(self, csp: CSP, memo: bool = True):
+        return ops.prepare_packed(csp, device=self.device, memo=memo)[0]
 
     def _empty_tables(self, dims, capacity: int):
         n_p, d_p, w = dims

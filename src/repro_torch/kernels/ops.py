@@ -47,7 +47,9 @@ D_MULT = 8
 _NETWORK_CACHE: dict = {}
 
 
-def _cached(kind: str, csp: CSP, n_mult: int, device, build):
+def _cached(kind: str, csp: CSP, n_mult: int, device, build, memo: bool = True):
+    if not memo:
+        return build()
     key = (kind, n_mult, str(device), id(csp.cons), id(csp.mask))
     hit = _NETWORK_CACHE.get(key)
     if hit is not None and hit[0]() is csp.cons and hit[1]() is csp.mask:
@@ -58,9 +60,11 @@ def _cached(kind: str, csp: CSP, n_mult: int, device, build):
     return value
 
 
-def prepare_dense(csp: CSP, block_rx: int = N_MULT, block_ry: int = N_MULT, device=None):
+def prepare_dense(csp: CSP, block_rx: int = N_MULT, block_ry: int = N_MULT, device=None,
+                  memo: bool = True):
     """-> (network, dom_padded, (n_p, d_p)); network = (cons2 u8, mask u8) on
-    ``device`` (default: the CSP's), memoized per CSP. ``cons2[x·d_p + a,
+    ``device`` (default: the CSP's), memoized per CSP unless ``memo`` is
+    False (a slot-pool install, whose slot is the only copy kept). ``cons2[x·d_p + a,
     y·d_p + b]`` is the padded (n_p, n_p, d_p, d_p) tensor transposed to
     (x, a, y, b). n pads as in `prepare_packed`."""
     faults.inject("kernel.launch", kernel="dense")
@@ -73,7 +77,7 @@ def prepare_dense(csp: CSP, block_rx: int = N_MULT, block_ry: int = N_MULT, devi
         return (cons2.to(torch.uint8).contiguous(),
                 mask.to(device=device, dtype=torch.uint8)), (n_p, d_p)
 
-    network, (n_p, d_p) = _cached("dense", csp, n_mult, device, build)
+    network, (n_p, d_p) = _cached("dense", csp, n_mult, device, build, memo)
     return network, pad_dom(csp.dom.to(device), n_p, d_p), (n_p, d_p)
 
 
@@ -84,9 +88,11 @@ def pack_network(cons: Tensor, n_p: int, d_p: int) -> Tuple[Tensor, int]:
     return packed.permute(0, 2, 1, 3).reshape(n_p * d_p, n_p * w).contiguous(), w
 
 
-def prepare_packed(csp: CSP, block_rx: int = N_MULT, block_ry: int = N_MULT, device=None):
+def prepare_packed(csp: CSP, block_rx: int = N_MULT, block_ry: int = N_MULT, device=None,
+                   memo: bool = True):
     """-> (network, dom_padded, (n_p, d_p, w)); network = (cons int32, mask u8)
-    on ``device`` (default: the CSP's), memoized per CSP. n pads to a multiple
+    on ``device`` (default: the CSP's), memoized per CSP unless ``memo`` is
+    False. n pads to a multiple
     of ``max(block_rx, block_ry)``, as the reference's ``prepare_packed`` does
     for its tiles; the engine always uses `N_MULT`."""
     faults.inject("kernel.launch", kernel="packed")
@@ -98,7 +104,7 @@ def prepare_packed(csp: CSP, block_rx: int = N_MULT, block_ry: int = N_MULT, dev
         cons_p2, w = pack_network(cons.to(device), n_p, d_p)
         return (cons_p2, mask.to(device=device, dtype=torch.uint8)), (n_p, d_p, w)
 
-    network, (n_p, d_p, w) = _cached("packed", csp, n_mult, device, build)
+    network, (n_p, d_p, w) = _cached("packed", csp, n_mult, device, build, memo)
     return network, pad_dom(csp.dom.to(device), n_p, d_p), (n_p, d_p, w)
 
 

@@ -276,6 +276,26 @@ def test_slot_pool_grow_preserves_resident_networks(engine):
         pool.enforce_rows(doms[:1], slot_idx=np.array([2]))
 
 
+@pytest.mark.parametrize("engine", ["hopper_packed", "hopper_dense"])
+def test_slot_pool_install_keeps_one_copy_of_the_network(engine):
+    """A slot install writes the padded network into the table and keeps no
+    memoized copy of it; `prepare` of the same CSP still memoizes, and its
+    network equals the slot's."""
+    from repro_torch.kernels import ops
+
+    csp = generate("model_rb", seed=5, n=10, hardness=0.9, device=CPU)
+    eng = get_engine(engine, device=CPU)
+    pool = eng.open_slot_pool(10, csp.dom.shape[1], 2)
+    key = (id(csp.cons), id(csp.mask))
+    memoized = lambda: [k for k in ops._NETWORK_CACHE if k[3:] == key]  # noqa: E731
+    pool.install(1, csp)
+    assert memoized() == []
+    net = eng.prepare(csp).payload[0]
+    assert len(memoized()) == 1
+    for t, v in zip(pool.tables, net):
+        assert torch.equal(t[1], v) and not t[0].any()
+
+
 def test_slot_pool_grows_beyond_initial_capacity():
     specs, csps = _batch("model_rb", 5, 9, n=10, hardness=0.8)
     svc = SolverService(engine="hopper_dense", device=CPU, initial_slots=1)
