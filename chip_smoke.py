@@ -63,6 +63,27 @@ Phases (any failure exits non-zero):
               resolves, every DONE verdict equals the fault-free run's, and
               the span and counter names are the fault-free run's plus
               recovery names only.
+(t) autotune — `repro_torch.kernels.autotune` on the card, its cache under
+              artifacts/chip_smoke/: one run each of phase c's `solve_many`
+              (both Hopper engines, fused) and of phase e's `mac_solve`
+              (instance 1) with ``REPRO_TORCH_AUTOTUNE=1``, so every bucket
+              they dispatch (round widths at n_p=104 d_p=40; B = 1-64 of the
+              single-network revises) is tuned on first dispatch, then the
+              service bucket 128x64; every candidate's µs a launch and the
+              winner, each candidate held bit for bit against the plain
+              version on its tuning workload; then each run untuned and
+              tuned in turns (untuned, tuned, tuned, untuned): identical
+              solutions, search statistics and kernel counts, ms per round.
+(w) sweeps  — `repro_torch.sweeps.run_spec` on the card into
+              artifacts/chip_smoke/sweeps/: `smoke` on einsum and both
+              Hopper engines; `recurrence_density` cut to n 40 and 160 and
+              density 0.25 and 1.0 on einsum, ac3 and both Hopper engines
+              (calls 1, 4, 16 and 64 of each single-network kernel at each
+              shape held bit for bit against the plain version); one
+              `service_capacity` cell on `hopper_packed` at rates 4 and 16
+              over 2 s. The seeded columns are identical across the tensor
+              engines; prints per-assignment ms and counts per engine and
+              the report's verdicts over these records.
 (p) profile — one fused and one stepped `solve_many`, one phase-e
               `mac_solve` (instance 1) and the phase-s replay on each Hopper
               engine under `torch.profiler`: device busy share and the
@@ -87,6 +108,7 @@ turns. It prints no result line.
 from __future__ import annotations
 
 import collections
+import contextlib
 import hashlib
 import json
 import os
@@ -954,17 +976,21 @@ class HostRouting:
 
 
 class StackedCalls:
-    """Records the stacked kernels' calls while active, by wrapping each
-    wrapper in its module (the wrapper counts its launches on the module's
-    name, so the recorder carries the count): for each (kernel, table shape,
-    widths), the calls numbered in `SERVICE_CHECKED_CALLS`, their operands
-    copied, since an install rewrites the slot tables in place."""
+    """Records kernel calls while active, by wrapping each wrapper in its
+    module (the wrapper counts its launches on the module's name, so the
+    recorder carries the count): for each (kernel, table shape, widths), the
+    calls numbered in `SERVICE_CHECKED_CALLS`, their operands copied, since
+    an install rewrites the slot tables in place. ``names`` defaults to the
+    stacked kernels."""
 
     NAMES = [(name, kind) for name, kind, *_ in KERNELS if name.endswith("_stacked")]
 
+    def __init__(self, names=None):
+        self.names = self.NAMES if names is None else names
+
     def __enter__(self):
         self.calls, self.seen, self.real = [], collections.Counter(), {}
-        for name, kind in self.NAMES:
+        for name, kind in self.names:
             real = self.real[name] = getattr(kernel_module(kind), name)
             setattr(kernel_module(kind), name, self._recorder(name, real))
         return self
@@ -981,7 +1007,7 @@ class StackedCalls:
         return record
 
     def __exit__(self, *exc):
-        for name, kind in self.NAMES:
+        for name, kind in self.names:
             mod = kernel_module(kind)
             self.real[name].launches = getattr(mod, name).launches
             setattr(mod, name, self.real[name])
@@ -992,8 +1018,6 @@ def run_service(engine, events, device, max_assignments=None, record=True, **ser
     every launch count set to 0 just before and read just after: (requests,
     snapshot, wall seconds, launch counts, host-routing calls, the recorded
     `StackedCalls` or None)."""
-    import contextlib
-
     import torch
 
     from repro_torch.service import FastForwardClock, SolverService, replay
@@ -1010,13 +1034,12 @@ def run_service(engine, events, device, max_assignments=None, record=True, **ser
     return reqs, svc.snapshot(), seconds, launch_counts(), routing.calls, calls
 
 
-def check_service_calls(label, run):
-    """Every call ``run`` recorded (`StackedCalls`): the kernel against its
-    plain version on the copied operands, bit for bit; one line per kernel
-    and table shape. Then drops the copies."""
+def check_recorded_calls(phase: str, label: str, recorder: "StackedCalls"):
+    """Every call ``recorder`` recorded: the kernel against its plain version
+    on the copied operands, bit for bit; one line per kernel and table
+    shape. Then drops the copies."""
     from repro_torch.kernels import ops
 
-    recorder = run[5]
     checked = collections.defaultdict(list)
     for key, i, args, kw in recorder.calls:
         name = key[0]
@@ -1027,9 +1050,9 @@ def check_service_calls(label, run):
         checked[key].append(f"{i} ({args[3].shape[0]} rows)")
     for key, calls in checked.items():
         name, shape, kw = key[0], key[1], dict(key[2])
-        n_p = shape[2] // kw["w"] if "w" in kw else shape[2] // kw["d"]
+        n_p = shape[-1] // kw["w"] if "w" in kw else shape[-1] // kw["d"]
         widths = f"W={kw['w']}" if "w" in kw else f"d/8={kw['d'] // ops.D_MULT}"
-        print(f"[s] {label} {name} at n_p={n_p} d_p={kw['d']} ({widths}, table "
+        print(f"[{phase}] {label} {name} at n_p={n_p} d_p={kw['d']} ({widths}, table "
               f"{'x'.join(map(str, shape))}): calls {', '.join(calls)} of {recorder.seen[key]} bit-identical to plain",
               flush=True)
     recorder.calls.clear()
@@ -1073,7 +1096,7 @@ def service_replay(device, max_assignments: int = MAX_ASSIGNMENTS):
                                        max_assignments)
         reqs, snap, _, counts, routing, _ = run
         describe_service(name, run)
-        check_service_calls(name, run)
+        check_recorded_calls("s", name, run[5])
         kind = name.split("_")[1]
         check(all(r.done() and r.status.value == "done" for r in reqs),
               f"{name} service: not every request finished DONE")
@@ -1122,8 +1145,8 @@ def service_drill(device):
                                            retry_cap=0, **FAST_BACKOFF)
         describe_service(f"{name} fault-free", clean)
         describe_service(f"{name} drill", run)
-        check_service_calls(f"{name} fault-free", clean)
-        check_service_calls(f"{name} drill", run)
+        check_recorded_calls("s", f"{name} fault-free", clean[5])
+        check_recorded_calls("s", f"{name} drill", run[5])
         reqs, snap, _, counts, routing, _ = run
         check(snap["demotions"] > 0 and snap["failed"] == 0,
               f"{name} drill: {snap['demotions']} demotions, {snap['failed']} failed")
@@ -1177,6 +1200,244 @@ def service_chaos(device):
     print(f"[s] chaos: {snap['completed']} done, {snap['failed']} failed, {snap['shed']} shed "
           f"of {snap['submitted']}; every DONE verdict == fault-free; span and counter names "
           f"== fault-free + recovery names; traces in {TRACE_DIR}", flush=True)
+
+
+# ---------------------------------------------------------------------------
+# (t) autotune: tuned launch schedules, and the driven paths on them
+# ---------------------------------------------------------------------------
+
+#: where phase t keeps its autotune cache (an ignored directory of the checkout)
+AUTOTUNE_CACHE = os.path.join(TRACE_DIR, "autotune.json")
+#: the service bucket phase t tunes besides the driven paths' buckets: the
+#: frb100-40 requests' (128x64), at phase s's rows a dispatch (about 9-12)
+SERVICE_BUCKET = (128, 64, 16)
+
+
+def set_autotune_gate(on: bool) -> None:
+    """``REPRO_TORCH_AUTOTUNE`` on or off, with the in-memory tables dropped:
+    a gated run reloads phase t's cache and activates its buckets on first
+    dispatch; an ungated run launches every kernel with its default."""
+    from repro_torch.kernels import autotune
+
+    autotune.reset()
+    if on:
+        os.environ[autotune.TUNE_ENV] = "1"
+    else:
+        os.environ.pop(autotune.TUNE_ENV, None)
+
+
+def check_searches(device) -> None:
+    """Every search phase t ran: each candidate's µs a launch and the winner
+    beside the default; each candidate held bit for bit against the plain
+    version on the search's workload."""
+    import torch
+
+    from repro_torch.kernels import autotune
+
+    for key, times in sorted(autotune.SEARCHES.items()):
+        kind, n_p, d_p, _, r = key.split("/")
+        n_p, d_p, r = int(n_p[1:]), int(d_p[1:]), int(r[1:])
+        wl = autotune._tune_workload(kind, n_p, d_p, r, device)
+        want = autotune.run_candidate(kind, wl, None)
+        for cfg, _ in times:
+            got = autotune.run_candidate(kind, wl, cfg)
+            pairs = zip(got, want) if isinstance(want, tuple) else [(got, want)]
+            check(all(torch.equal(g, w) for g, w in pairs),
+                  f"[t] {key} {cfg.to_dict()} differs from the plain version")
+        best = min(times, key=lambda ct: ct[1])
+        default = autotune.default_config(kind, n_p, d_p, r)
+        t_default = dict((c, t) for c, t in times).get(default)
+        print(f"[t] {key}: " + ", ".join(f"{c.to_dict()} {1e6 * t:.3f} us" for c, t in times)
+              + f"; winner {best[0].to_dict()} {1e6 * best[1]:.3f} us, default "
+              f"{default.to_dict()}"
+              + (f" {1e6 * t_default:.3f} us ({t_default / best[1]:.3f}x)" if t_default else "")
+              + "; every candidate bit-identical to plain", flush=True)
+
+
+def phase_autotune(device):
+    """(t): tune into `AUTOTUNE_CACHE` the buckets the driven paths dispatch —
+    one gated run each of phase c's `solve_many` on both Hopper engines and
+    of phase e's `mac_solve` (instance `REPLAY_INSTANCE`), each bucket tuned
+    on first dispatch — and the service bucket; check every search; then
+    each run ungated and gated in turns (untuned, tuned, tuned, untuned):
+    identical solutions and search statistics, ms per round each."""
+    import torch
+
+    from repro_torch.engines import get_engine
+    from repro_torch.kernels import autotune
+    from repro_torch.problems import generate
+
+    if os.path.exists(AUTOTUNE_CACHE):
+        os.remove(AUTOTUNE_CACHE)
+    os.makedirs(TRACE_DIR, exist_ok=True)
+    os.environ[autotune.CACHE_ENV] = AUTOTUNE_CACHE
+    csps = [generate("model_rb", seed=i, device=device, **MAIN) for i in range(N_INSTANCES)]
+
+    def solve(engine):
+        sols, stats, tel, seconds, counts = run_solve(
+            csps, get_engine(engine, fixpoint="fused", device=device), MAX_ASSIGNMENTS, device)
+        return sols, stats, counts, seconds, tel["rounds"]
+
+    def mac(engine):
+        res, seconds, rounds, counts = run_mac([csps[REPLAY_INSTANCE]], engine, MAX_ASSIGNMENTS,
+                                               device)
+        return [s for s, _ in res], [st for _, st in res], counts, seconds, rounds
+
+    runs = {f"{engine} {path}": (lambda fn=fn, engine=engine: summary(fn(engine)))
+            for path, fn in (("solve_many", solve), ("mac_solve", mac))
+            for engine in ("hopper_packed", "hopper_dense")}
+    try:
+        set_autotune_gate(True)
+        t0 = time.perf_counter()
+        first = {label: run() for label, run in runs.items()}
+        n_first = len(autotune.SEARCHES)
+        autotune.tune("packed", *SERVICE_BUCKET, device=device)
+        autotune.tune("dense", *SERVICE_BUCKET, device=device)
+        torch.cuda.synchronize(device)
+        print(f"[t] tuned {len(autotune.SEARCHES)} buckets into {AUTOTUNE_CACHE} in "
+              f"{time.perf_counter() - t0:.1f} s ({n_first} on first dispatch of the gated "
+              f"runs, then the service bucket {SERVICE_BUCKET[0]}x{SERVICE_BUCKET[1]} "
+              f"r{SERVICE_BUCKET[2]})", flush=True)
+        check_searches(device)
+        fmt = lambda xs: f"{sum(xs) / len(xs):.3f} ({', '.join(f'{x:.3f}' for x in xs)})"  # noqa: E731
+        for label, run in runs.items():
+            per_round = {"untuned": [], "tuned": []}
+            for side in ("untuned", "tuned", "tuned", "untuned"):
+                set_autotune_gate(side == "tuned")
+                result, ms, rounds = run()
+                check(result == first[label][0],
+                      f"[t] {label}: the {side} run differs from the gated first run")
+                per_round[side].append(ms)
+            print(f"[t] {label} ({rounds} rounds, kernel counts {result[2]}): ms/round "
+                  f"untuned {fmt(per_round['untuned'])}, tuned {fmt(per_round['tuned'])}; "
+                  f"solutions and search statistics identical in every turn", flush=True)
+    finally:
+        set_autotune_gate(False)
+        os.environ.pop(autotune.CACHE_ENV, None)
+
+
+def summary(out):
+    """(solutions, every `SearchStats` field but the timings, kernel counts),
+    ms per round and rounds of one phase-t run."""
+    sols, stats, counts, seconds, rounds = out
+    result = (sols, [(stats_key(st), st.launches) for st in stats], launched(counts))
+    return result, 1e3 * seconds / rounds, rounds
+
+
+# ---------------------------------------------------------------------------
+# (w) the sweep harness on the card
+# ---------------------------------------------------------------------------
+
+#: where phase w writes its sweep artifacts (an ignored directory)
+SWEEP_DIR = os.path.join(TRACE_DIR, "sweeps")
+TENSOR_ENGINES = ("einsum", "hopper_packed", "hopper_dense")
+#: the seeded-deterministic columns of each mode, equal across the tensor engines
+DETERMINISTIC = {
+    "solve_many": ("n_instances", "n_solved", "solve_rate", "exhausted", "median_assignments",
+                   "p90_assignments", "median_rounds", "median_recurrences"),
+    "assignments": ("count_unit", "roots_consistent", "n_assignments", "mean_count",
+                    "max_count"),
+}
+
+
+def sweep_specs():
+    """Phase w's three specs: `smoke` on the tensor engines; a reduced
+    `recurrence_density` (n 40 and 160, density 0.25 and 1.0) on the tensor
+    engines and `ac3`; one `service_capacity` cell on `hopper_packed` at
+    rates 4 and 16 over 2 s with 200 assignments a request."""
+    from repro_torch.sweeps import SweepSpec, load_spec
+
+    smoke = load_spec("smoke").to_doc()
+    smoke["solver"]["engine"] = list(TENSOR_ENGINES)
+    density = load_spec("recurrence_density").to_doc()
+    density["problem"]["knobs"].update(n=[40, 160], density=[0.25, 1.0])
+    density["solver"]["engine"] = ["einsum", "ac3", "hopper_packed", "hopper_dense"]
+    capacity = load_spec("service_capacity").to_doc()
+    capacity["service"].update(rate=[4.0, 16.0], duration=2.0, max_assignments=200)
+    capacity["solver"]["engine"] = "hopper_packed"
+    return [SweepSpec.from_doc(doc) for doc in (smoke, density, capacity)]
+
+
+def same_across_engines(records, columns, engines=TENSOR_ENGINES):
+    """Whether every cell's ``columns`` are equal across ``engines``."""
+    cells = collections.defaultdict(dict)
+    for rec in records:
+        params = {k: v for k, v in rec["params"].items() if k != "engine"}
+        cells[json.dumps(params, sort_keys=True)][rec["params"]["engine"]] = tuple(
+            rec["metrics"][c] for c in columns)
+    return all(len({row[e] for e in engines}) == 1 for row in cells.values()), len(cells)
+
+
+def phase_sweeps(device):
+    """(w): the three `sweep_specs` through `repro_torch.sweeps.run_spec` on
+    the card into `SWEEP_DIR`; the single-network kernels' calls 1, 4, 16
+    and 64 of the assignments cells at each shape held against their plain
+    versions; the deterministic columns equal across the tensor engines;
+    the report's verdicts over these records."""
+    import shutil
+
+    from repro_torch.sweeps import load_cells, report, run_spec
+
+    shutil.rmtree(SWEEP_DIR, ignore_errors=True)
+    singles = [(name, kind) for name, kind, *_ in KERNELS if not name.endswith("_stacked")]
+    records = {}
+    for spec in sweep_specs():
+        t0 = time.perf_counter()
+        recorder = StackedCalls(singles)
+        with recorder if spec.mode == "assignments" else contextlib.nullcontext():
+            d = run_spec(spec, out_root=SWEEP_DIR, progress=None, device=device)
+        records[spec.name] = (spec, load_cells(d / "cells.jsonl"))
+        print(f"[w] {spec.name} ({spec.mode}): {len(spec.cells())} cells on "
+              f"{records[spec.name][1][0]['device']} in {time.perf_counter() - t0:.1f} s -> {d}",
+              flush=True)
+        if spec.mode == "assignments":
+            shapes = {key[:2] for key, *_ in recorder.calls}
+            check(len(shapes) == 4, f"[w] recorded single-network calls at {sorted(shapes)}")
+            check_recorded_calls("w", spec.name, recorder)
+        if spec.mode in DETERMINISTIC:
+            same, cells = same_across_engines(records[spec.name][1], DETERMINISTIC[spec.mode])
+            check(same, f"[w] {spec.name}: a deterministic column differs across "
+                        f"{TENSOR_ENGINES}")
+            print(f"[w] {spec.name}: {', '.join(DETERMINISTIC[spec.mode])} identical across "
+                  f"{', '.join(TENSOR_ENGINES)} in all {cells} cells", flush=True)
+
+    spec, recs = records["smoke"]
+    for rec in recs:
+        if rec["params"]["engine"] != "einsum":
+            check(rec["metrics"]["launches_per_round"] == 1.0,
+                  f"[w] smoke {rec['cell']}: {rec['metrics']['launches_per_round']} "
+                  f"launches a round on a fused Hopper engine")
+    spec, recs = records["recurrence_density"]
+    for rec in sorted(recs, key=lambda r: (r["params"]["n"], r["params"]["density"])):
+        m, p = rec["metrics"], rec["params"]
+        print(f"[w] recurrence_density n={p['n']} density={p['density']} {p['engine']}: "
+              f"mean {m['count_unit']} {m['mean_count']} (max {m['max_count']}), "
+              f"per_assignment_ms {m['per_assignment_ms']}"
+              + (f", batched {m['batched_per_assignment_ms']}"
+                 if "batched_per_assignment_ms" in m else ""), flush=True)
+    ac3 = [r for r in recs if r["params"]["engine"] == "ac3"]
+    for engine in TENSOR_ENGINES:
+        as_einsum = ac3 + [dict(r, params=dict(r["params"], engine="einsum"))
+                           for r in recs if r["params"]["engine"] == engine]
+        for key in ("recurrence-count", "per-assignment-time"):
+            claim = next(c for c in report.CLAIMS if c.key == key)
+            verdict, detail = claim.verdict(as_einsum, spec)
+            print(f"[w] claim {key} on {engine}: {verdict}: {detail}", flush=True)
+    spec, recs = records["service_capacity"]
+    for rec in recs:
+        m = rec["metrics"]
+        check(m["completed"] == m["requests"] and m["unresolved"] == 0 and m["failed"] == 0,
+              f"[w] service_capacity {rec['cell']}: {m['completed']}/{m['requests']} completed")
+        check(m["launches"] == m["rounds"],
+              f"[w] service_capacity: {m['launches']} launches in {m['rounds']} rounds")
+        print(f"[w] service_capacity rate={rec['params']['rate']} hopper_packed: "
+              f"{m['requests']} requests, {m['n_solved']} solved, throughput "
+              f"{m['throughput_rps']} /s, p50 {m['p50_ms']} ms p95 {m['p95_ms']} ms p99 "
+              f"{m['p99_ms']} ms, {m['rounds']} rounds, prepared-network cache "
+              f"{m['cache']['bytes_in_use']} B", flush=True)
+    claim = next(c for c in report.CLAIMS if c.key == "service-capacity")
+    verdict, detail = claim.verdict(recs, spec)
+    print(f"[w] claim service-capacity on hopper_packed: {verdict}: {detail}", flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -1373,6 +1634,10 @@ def main(argv) -> int:
         stamp("phase s, the service")
         service = {"replay": service_replay(device), "drill": service_drill(device)}
         service_chaos(device)
+        stamp("phase t, autotune")
+        phase_autotune(device)
+        stamp("phase w, sweeps")
+        phase_sweeps(device)
         for name in ("hopper_packed", "hopper_dense"):
             stamp(f"phase p, {name}")
             for fixpoint in ("fused", "stepped"):

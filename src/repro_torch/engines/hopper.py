@@ -20,6 +20,9 @@ the O(n·d) domains into kernel coordinates and un-pads the result.
 - ``open_slot_pool`` preallocates the same tables for the service, with
   zeros, and installs each admitted network into its slot in place; every
   service round reads the networks through their slot ids, as above.
+- With ``REPRO_TORCH_AUTOTUNE=1`` each dispatch first tunes its bucket's
+  launch schedule on first use (`kernels.autotune.maybe_tune`: here for the
+  single-network revise, in `ops.enforce_rows` for the stacked kernels).
 
 The env default of ``fixpoint`` reads ``REPRO_TORCH_FIXPOINT``.
 """
@@ -45,7 +48,7 @@ from repro_torch.core.engine import (
     resolve_instance_idx,
 )
 from repro_torch.core.rtac import EnforceResult
-from repro_torch.kernels import ops
+from repro_torch.kernels import autotune, ops
 from . import register
 
 FIXPOINT_ENV = "REPRO_TORCH_FIXPOINT"
@@ -85,10 +88,18 @@ class _HopperEngine(Engine):
         dims = self._dims(*csp.dom.shape)
         return self._prepare_net(csp), dims, self._revise_fn(*dims)
 
+    def _maybe_autotune(self, dims, rows: int) -> None:
+        """Env-gated (``REPRO_TORCH_AUTOTUNE=1``) tune-on-first-use of the
+        single-network revise's bucket before a dispatch of ``rows`` rows,
+        as `ops.enforce_rows` does for the stacked kernels."""
+        autotune.maybe_tune(f"{self.kind}_single", dims[0], dims[1],
+                            autotune.entry_words(self.kind, dims[1]), rows, device=self.device)
+
     def enforce(self, prepared: PreparedNetwork, dom, changed0=None) -> EnforceResult:
         network, dims, revise_fn = prepared.payload
         n_p, d_p = dims[0], dims[1]
         n, d = prepared.n_vars, prepared.dom_size
+        self._maybe_autotune(dims, 1)
         dom_p = pad_dom(as_dom(dom, self.device), n_p, d_p)
         ch_p = pad_changed(changed0, n, n_p, device=self.device)
         res = rtac.enforce_generic(network, dom_p, ch_p, revise_fn=revise_fn)
@@ -99,6 +110,7 @@ class _HopperEngine(Engine):
         n_p, d_p = dims[0], dims[1]
         n, d = prepared.n_vars, prepared.dom_size
         doms = as_dom(doms, self.device)
+        self._maybe_autotune(dims, doms.shape[0])
         dom_p = pad_dom(doms, n_p, d_p)
         ch_p = pad_changed(changed0, n, n_p, batch=doms.shape[:-2], device=self.device)
         res = rtac.enforce_batch_generic(network, dom_p, ch_p, revise_fn=revise_fn)

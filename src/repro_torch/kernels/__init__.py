@@ -9,8 +9,9 @@ ops              padding/packing, prepare_dense/prepare_packed, the
 ref              plain PyTorch oracles (int32 words, OR-packed)
 launch           operand checks, signatures and ctypes launches
 build            nvcc build of csrc/*.cu for sm_90a, ctypes loading
+autotune         tuned launch schedules per shape bucket (env-gated)
 """
 
-from . import bitpack_support, build, launch, ops, ref, rtac_support
+from . import autotune, bitpack_support, build, launch, ops, ref, rtac_support
 
-__all__ = ["bitpack_support", "build", "launch", "ops", "ref", "rtac_support"]
+__all__ = ["autotune", "bitpack_support", "build", "launch", "ops", "ref", "rtac_support"]

@@ -32,6 +32,7 @@ from typing import Optional
 
 import torch
 
+from . import autotune
 from .launch import (check_operands, check_smem, fixpoint_smem, launch, revise_smem,
                      single_revise_smem)
 from .ref import pack_bits_ref, unpack_bits_ref
@@ -85,19 +86,25 @@ def packed_revise_stacked_plain(cons: Tensor, mask: Tensor, idx: Tensor, dom_wor
 
 
 def packed_revise_stacked(cons: Tensor, mask: Tensor, idx: Tensor, dom_words: Tensor,
-                          changed: Tensor, *, d: int, w: int) -> Tensor:
+                          changed: Tensor, *, d: int, w: int,
+                          sched: Optional[int] = None) -> Tensor:
     """R packed revisions, row r against network ``cons[idx[r]]``.
 
     cons (C, n·d, n·W) int32, mask (C, n, n) u8, idx (R,) int32,
-    dom_words (R, n·W) int32, changed (R, n) u8 -> violated (R, n·d) u8."""
+    dom_words (R, n·W) int32, changed (R, n) u8 -> violated (R, n·d) u8.
+    ``sched`` (CUDA only) is a launch schedule: 0 the width compiled as a
+    constant, 1 the run-time width; None takes the tuned one of the shape's
+    bucket, or the default (`autotune.schedule`)."""
     r, n = _check(cons, mask, idx, dom_words, changed, d, w)
     if cons.device.type == "cpu":
         return packed_revise_stacked_plain(cons, mask, idx, dom_words, changed, d=d, w=w)
     check_smem("packed_revise_stacked", revise_smem(n, d, 4 * n * w), f"n={n}, d={d}")
     out = torch.empty((r, n * d), dtype=torch.uint8, device=cons.device)
     if r:
+        if sched is None:
+            sched = autotune.schedule("packed_revise", n, d, w, r)
         launch("packed_revise", "packed_revise_stacked_launch",
-               [cons, mask, idx, dom_words, changed, out], r, n, d, w)
+               [cons, mask, idx, dom_words, changed, out], r, n, d, w, sched=sched)
         packed_revise_stacked.launches += 1
     return out
 
@@ -143,13 +150,14 @@ def packed_fixpoint_stacked_plain(cons: Tensor, mask: Tensor, idx: Tensor, dom_w
 
 
 def packed_fixpoint_stacked(cons: Tensor, mask: Tensor, idx: Tensor, dom_words: Tensor,
-                            changed: Tensor, *, d: int, w: int):
+                            changed: Tensor, *, d: int, w: int,
+                            sched: Optional[int] = None):
     """R packed fixpoints in ONE launch, row r against ``cons[idx[r]]``.
 
     Operands as `packed_revise_stacked` (``changed`` is the Prop. 2 seed,
     assignment already applied to ``dom_words``). Returns (dom (R, n·d) u8
     unpacked, consistent (R,) u8, k (R,) int32) — per row bit-identical to
-    the stepped fixpoint."""
+    the stepped fixpoint. ``sched`` as for `packed_revise_stacked`."""
     r, n = _check(cons, mask, idx, dom_words, changed, d, w)
     if cons.device.type == "cpu":
         return packed_fixpoint_stacked_plain(cons, mask, idx, dom_words, changed, d=d, w=w)
@@ -158,8 +166,11 @@ def packed_fixpoint_stacked(cons: Tensor, mask: Tensor, idx: Tensor, dom_words: 
     consistent = torch.empty((r,), dtype=torch.uint8, device=cons.device)
     k = torch.empty((r,), dtype=torch.int32, device=cons.device)
     if r:
+        if sched is None:
+            sched = autotune.schedule("packed", n, d, w, r)
         launch("packed_fixpoint", "packed_fixpoint_stacked_launch",
-               [cons, mask, idx, dom_words, changed, dom, consistent, k], r, n, d, w)
+               [cons, mask, idx, dom_words, changed, dom, consistent, k], r, n, d, w,
+               sched=sched)
         packed_fixpoint_stacked.launches += 1
     return dom, consistent, k
 
@@ -185,20 +196,25 @@ def packed_revise_plain(cons: Tensor, mask: Tensor, dom_words: Tensor, changed: 
 
 
 def packed_revise(cons: Tensor, mask: Tensor, dom_words: Tensor, changed: Tensor, *,
-                  d: int, w: int) -> Tensor:
+                  d: int, w: int,
+                  sched: Optional[int] = None) -> Tensor:
     """B packed revisions against ONE network (the reference vmaps its
     single-network kernel over B).
 
     cons (n·d, n·W) int32, mask (n, n) u8, dom_words (B, n·W) int32,
-    changed (B, n) u8 -> violated (B, n·d) u8."""
+    changed (B, n) u8 -> violated (B, n·d) u8. ``sched`` (CUDA only) is the
+    variables a CTA revises, a multiple of 8 (0: the default rule); None
+    takes the tuned one of the shape's bucket, or the default."""
     b, n = _check(cons, mask, None, dom_words, changed, d, w)
     if cons.device.type == "cpu":
         return packed_revise_plain(cons, mask, dom_words, changed, d=d, w=w)
     check_smem("packed_revise", single_revise_smem(n, d), f"n={n}, d={d}")
     out = torch.empty((b, n * d), dtype=torch.uint8, device=cons.device)
     if b:
+        if sched is None:
+            sched = autotune.schedule("packed_single", n, d, w, b)
         launch("packed_revise", "packed_revise_launch", [cons, mask, dom_words, changed, out],
-               b, n, d, w)
+               b, n, d, w, sched=sched)
         packed_revise.launches += 1
     return out
 

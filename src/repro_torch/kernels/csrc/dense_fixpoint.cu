@@ -152,16 +152,28 @@ __global__ void __launch_bounds__(kThreads) dense_fixpoint_kernel(
 
 }  // namespace
 
-extern "C" int dense_fixpoint_stacked_launch(
+// `sched`: kCompiledWidth (d/8 = 2 as a constant) or kRuntimeWidth.
+extern "C" int dense_fixpoint_stacked_launch_sched(
     const void* cons, const void* mask, const void* idx, const void* dom_in,
     const void* seed_in, void* dom_out, void* consistent_out, void* k_out,
-    int rows, int n, int d, void* stream) {
+    int rows, int n, int d, int sched, void* stream) {
   if (rows <= 0) return 0;
-  const auto kernel = d / 8 == 2 ? &dense_fixpoint_kernel<2> : &dense_fixpoint_kernel<0>;
+  if (!width_sched(sched)) return static_cast<int>(cudaErrorInvalidValue);
+  const auto kernel = sched == kCompiledWidth && d / 8 == 2 ? &dense_fixpoint_kernel<2>
+                                                            : &dense_fixpoint_kernel<0>;
   return static_cast<int>(launch_rows(
       kernel, rows, Smem(n, d, n * d).total, static_cast<cudaStream_t>(stream),
       static_cast<const uint8_t*>(cons), static_cast<const uint8_t*>(mask),
       static_cast<const int32_t*>(idx), static_cast<const uint8_t*>(dom_in),
       static_cast<const uint8_t*>(seed_in), static_cast<uint8_t*>(dom_out),
       static_cast<uint8_t*>(consistent_out), static_cast<int32_t*>(k_out), n, d));
+}
+
+extern "C" int dense_fixpoint_stacked_launch(
+    const void* cons, const void* mask, const void* idx, const void* dom_in,
+    const void* seed_in, void* dom_out, void* consistent_out, void* k_out,
+    int rows, int n, int d, void* stream) {
+  return dense_fixpoint_stacked_launch_sched(cons, mask, idx, dom_in, seed_in, dom_out,
+                                             consistent_out, k_out, rows, n, d,
+                                             kCompiledWidth, stream);
 }

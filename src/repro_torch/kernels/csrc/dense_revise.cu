@@ -36,19 +36,38 @@
 #include "revise_common.cuh"
 
 // R rows, row r against the slot table's network idx[r]: one CTA a row.
-extern "C" int dense_revise_stacked_launch(
+// `sched`: fixpoint::kCompiledWidth (d/8 = 2 as a constant) or
+// kRuntimeWidth.
+extern "C" int dense_revise_stacked_launch_sched(
     const void* cons, const void* mask, const void* idx, const void* dom_in,
-    const void* seed_in, void* viol_out, int rows, int n, int d, void* stream) {
-  const auto run = d / 8 == 2 ? &revise::launch_stacked<revise::u64, 2>
-                              : &revise::launch_stacked<revise::u64, 0>;
+    const void* seed_in, void* viol_out, int rows, int n, int d, int sched, void* stream) {
+  if (!fixpoint::width_sched(sched)) return static_cast<int>(cudaErrorInvalidValue);
+  const auto run = sched == fixpoint::kCompiledWidth && d / 8 == 2
+                       ? &revise::launch_stacked<revise::u64, 2>
+                       : &revise::launch_stacked<revise::u64, 0>;
   return run(cons, mask, idx, dom_in, seed_in, viol_out, rows, n, d, d / 8, stream);
 }
 
-// B rows against one network: a CTA per (row, span of variables).
+extern "C" int dense_revise_stacked_launch(
+    const void* cons, const void* mask, const void* idx, const void* dom_in,
+    const void* seed_in, void* viol_out, int rows, int n, int d, void* stream) {
+  return dense_revise_stacked_launch_sched(cons, mask, idx, dom_in, seed_in, viol_out, rows, n,
+                                           d, fixpoint::kCompiledWidth, stream);
+}
+
+// B rows against one network: a CTA per (row, span of variables). `span`
+// (a multiple of 8, at most n rounded up to 8) is a tuned schedule; 0 takes
+// revise::single_span's rule, as the unscheduled launcher does.
+extern "C" int dense_revise_launch_sched(
+    const void* cons, const void* mask, const void* dom_in, const void* seed_in,
+    void* viol_out, int rows, int n, int d, int span, void* stream) {
+  const auto run = d / 8 == 5 ? &revise::launch_single<revise::u64, 5>
+                              : &revise::launch_single<revise::u64, 0>;
+  return run(cons, mask, dom_in, seed_in, viol_out, rows, n, d, d / 8, span, stream);
+}
+
 extern "C" int dense_revise_launch(
     const void* cons, const void* mask, const void* dom_in, const void* seed_in,
     void* viol_out, int rows, int n, int d, void* stream) {
-  const auto run = d / 8 == 5 ? &revise::launch_single<revise::u64, 5>
-                              : &revise::launch_single<revise::u64, 0>;
-  return run(cons, mask, dom_in, seed_in, viol_out, rows, n, d, d / 8, stream);
+  return dense_revise_launch_sched(cons, mask, dom_in, seed_in, viol_out, rows, n, d, 0, stream);
 }

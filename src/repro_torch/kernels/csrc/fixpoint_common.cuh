@@ -22,6 +22,14 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kUnroll = 4;     // support tests a lane has in flight (8 for 4-byte entries)
 constexpr unsigned kFull = 0xffffffffu;
 
+// The width schedules of the fused fixpoints' and stacked revises'
+// `*_launch_sched` launchers (kernels/autotune.py picks one per shape
+// bucket): the instantiation compiled for the entry width where there is
+// one, as the unscheduled launchers do, or the one that reads the width at
+// run time.
+constexpr int kCompiledWidth = 0, kRuntimeWidth = 1;
+inline bool width_sched(int sched) { return sched == kCompiledWidth || sched == kRuntimeWidth; }
+
 // Byte offsets into one CTA's dynamic shared memory; `total` is what
 // launch.fixpoint_smem computes. Two domain buffers of `dom_bytes` each (a
 // multiple of 4), then u32: the mask bits (n × ceil(n/32)), per-warp seed bits (ceil(n/32)) and violation words

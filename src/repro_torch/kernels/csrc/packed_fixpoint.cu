@@ -183,12 +183,24 @@ cudaError_t launch(int rows, cudaStream_t stream, const void* cons, const void* 
 
 }  // namespace
 
+// `sched`: kCompiledWidth (W = 1 and 2 as constants) or kRuntimeWidth.
+extern "C" int packed_fixpoint_stacked_launch_sched(
+    const void* cons, const void* mask, const void* idx, const void* dom_in,
+    const void* seed_in, void* dom_out, void* consistent_out, void* k_out,
+    int rows, int n, int d, int w, int sched, void* stream) {
+  if (rows <= 0) return 0;
+  if (!width_sched(sched)) return static_cast<int>(cudaErrorInvalidValue);
+  const int kw = sched == kCompiledWidth ? w : 0;
+  const auto run = kw == 1 ? &launch<1> : kw == 2 ? &launch<2> : &launch<0>;
+  return static_cast<int>(run(rows, static_cast<cudaStream_t>(stream), cons, mask, idx, dom_in,
+                              seed_in, dom_out, consistent_out, k_out, n, d, w));
+}
+
 extern "C" int packed_fixpoint_stacked_launch(
     const void* cons, const void* mask, const void* idx, const void* dom_in,
     const void* seed_in, void* dom_out, void* consistent_out, void* k_out,
     int rows, int n, int d, int w, void* stream) {
-  if (rows <= 0) return 0;
-  const auto run = w == 1 ? &launch<1> : w == 2 ? &launch<2> : &launch<0>;
-  return static_cast<int>(run(rows, static_cast<cudaStream_t>(stream), cons, mask, idx, dom_in,
-                              seed_in, dom_out, consistent_out, k_out, n, d, w));
+  return packed_fixpoint_stacked_launch_sched(cons, mask, idx, dom_in, seed_in, dom_out,
+                                              consistent_out, k_out, rows, n, d, w,
+                                              kCompiledWidth, stream);
 }

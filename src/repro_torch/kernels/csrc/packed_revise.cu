@@ -39,24 +39,45 @@ static bool wide_words(int w, const void* cons, const void* dom_in) {
 }
 
 // R rows, row r against the slot table's network idx[r]: one CTA a row.
-extern "C" int packed_revise_stacked_launch(
+// `sched`: fixpoint::kCompiledWidth (W = 1, and W = 2 as one 8-byte word)
+// or kRuntimeWidth (W u32 words read at run time).
+extern "C" int packed_revise_stacked_launch_sched(
     const void* cons, const void* mask, const void* idx, const void* dom_in,
-    const void* seed_in, void* viol_out, int rows, int n, int d, int w, void* stream) {
-  if (wide_words(w, cons, dom_in))
+    const void* seed_in, void* viol_out, int rows, int n, int d, int w, int sched,
+    void* stream) {
+  if (!fixpoint::width_sched(sched)) return static_cast<int>(cudaErrorInvalidValue);
+  const bool compiled = sched == fixpoint::kCompiledWidth;
+  if (compiled && wide_words(w, cons, dom_in))
     return revise::launch_stacked<revise::u64, 1>(cons, mask, idx, dom_in, seed_in, viol_out,
                                                   rows, n, d, 1, stream);
-  const auto run = w == 1 ? &revise::launch_stacked<uint32_t, 1>
-                          : &revise::launch_stacked<uint32_t, 0>;
+  const auto run = compiled && w == 1 ? &revise::launch_stacked<uint32_t, 1>
+                                      : &revise::launch_stacked<uint32_t, 0>;
   return run(cons, mask, idx, dom_in, seed_in, viol_out, rows, n, d, w, stream);
 }
 
-// B rows against one network: a CTA per (row, span of variables).
+extern "C" int packed_revise_stacked_launch(
+    const void* cons, const void* mask, const void* idx, const void* dom_in,
+    const void* seed_in, void* viol_out, int rows, int n, int d, int w, void* stream) {
+  return packed_revise_stacked_launch_sched(cons, mask, idx, dom_in, seed_in, viol_out, rows, n,
+                                            d, w, fixpoint::kCompiledWidth, stream);
+}
+
+// B rows against one network: a CTA per (row, span of variables). `span`
+// (a multiple of 8, at most n rounded up to 8) is a tuned schedule; 0 takes
+// revise::single_span's rule, as the unscheduled launcher does.
+extern "C" int packed_revise_launch_sched(
+    const void* cons, const void* mask, const void* dom_in, const void* seed_in,
+    void* viol_out, int rows, int n, int d, int w, int span, void* stream) {
+  if (wide_words(w, cons, dom_in))
+    return revise::launch_single<revise::u64, 1>(cons, mask, dom_in, seed_in, viol_out, rows,
+                                                 n, d, 1, span, stream);
+  return revise::launch_single<uint32_t, 0>(cons, mask, dom_in, seed_in, viol_out, rows, n, d,
+                                            w, span, stream);
+}
+
 extern "C" int packed_revise_launch(
     const void* cons, const void* mask, const void* dom_in, const void* seed_in,
     void* viol_out, int rows, int n, int d, int w, void* stream) {
-  if (wide_words(w, cons, dom_in))
-    return revise::launch_single<revise::u64, 1>(cons, mask, dom_in, seed_in, viol_out, rows,
-                                                 n, d, 1, stream);
-  return revise::launch_single<uint32_t, 0>(cons, mask, dom_in, seed_in, viol_out, rows, n, d,
-                                            w, stream);
+  return packed_revise_launch_sched(cons, mask, dom_in, seed_in, viol_out, rows, n, d, w, 0,
+                                    stream);
 }

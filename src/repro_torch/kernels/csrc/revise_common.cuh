@@ -472,9 +472,11 @@ int launch_stacked(const void* cons, const void* mask, const void* idx, const vo
 
 constexpr int kCtasPerSm = 4;  // single-network CTAs a launch aims to give each SM
 
-// Variables a single-network CTA revises (a multiple of 8): the fewest
-// that still give the card kCtasPerSm CTAs an SM over `rows` rows, and at
-// least one a warp, so B = 1-40 rows at n = 104 run 13 CTAs a row.
+// Variables a single-network CTA revises (a multiple of 8) by default: the
+// fewest that still give the card kCtasPerSm CTAs an SM over `rows` rows,
+// and at least one a warp, so B = 1-40 rows at n = 104 run 13 CTAs a row.
+// kernels/autotune.py mirrors this rule and may tune another span per
+// shape bucket.
 inline int single_span(int rows, int n) {
   static const int sms = [] {
     int dev = 0, count = 0;
@@ -488,13 +490,16 @@ inline int single_span(int rows, int n) {
   return kWarps * ((blocks + groups - 1) / groups);
 }
 
-// Launch rows × ceil(n / span) CTAs against one network.
+// Launch rows × ceil(n / span) CTAs against one network. `span` is a tuned
+// schedule (kernels/autotune.py): a multiple of 8, at most n rounded up to
+// 8; 0 takes `single_span`'s rule.
 template <typename T, int KW>
 int launch_single(const void* net, const void* mask, const void* dom_in, const void* seed_in,
-                  void* viol_out, int rows, int n, int d, int k, void* stream) {
+                  void* viol_out, int rows, int n, int d, int k, int span, void* stream) {
   if (rows <= 0) return 0;
-  if (!takes(n, d, k)) return static_cast<int>(cudaErrorInvalidValue);
-  const int span = single_span(rows, n);
+  if (!takes(n, d, k) || span < 0 || span % kWarps != 0 || span > kWarps * ((n + 7) / 8))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (span == 0) span = single_span(rows, n);
   return static_cast<int>(fixpoint::launch_rows(
       revise_single_kernel<T, KW>, dim3(rows, (n + span - 1) / span),
       Smem(n, d, mbits_bytes(n, span), owner_lanes(span)).total,

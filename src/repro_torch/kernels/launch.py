@@ -24,12 +24,19 @@ SMEM_OPT_IN_LIMIT = 227 * 1024
 
 #: library -> {C launcher: (pointer arguments, int arguments)}; the stream
 #: follows. Stacked launchers take (rows, n, d[, w]) after their tensors,
-#: single-network launchers the same without the row→slot map.
+#: single-network launchers the same without the row→slot map. Each
+#: launcher has a ``<launcher>_sched`` variant that takes one more int, a
+#: launch schedule (`autotune`), after them; the plain launcher is that
+#: variant with the default schedule.
 SIGNATURES = {
-    "packed_fixpoint": {"packed_fixpoint_stacked_launch": (8, 4)},
-    "packed_revise": {"packed_revise_stacked_launch": (6, 4), "packed_revise_launch": (5, 4)},
-    "dense_fixpoint": {"dense_fixpoint_stacked_launch": (8, 3)},
-    "dense_revise": {"dense_revise_stacked_launch": (6, 3), "dense_revise_launch": (5, 3)},
+    library: {**launchers,
+              **{f"{name}_sched": (ptrs, ints + 1) for name, (ptrs, ints) in launchers.items()}}
+    for library, launchers in {
+        "packed_fixpoint": {"packed_fixpoint_stacked_launch": (8, 4)},
+        "packed_revise": {"packed_revise_stacked_launch": (6, 4), "packed_revise_launch": (5, 4)},
+        "dense_fixpoint": {"dense_fixpoint_stacked_launch": (8, 3)},
+        "dense_revise": {"dense_revise_stacked_launch": (6, 3), "dense_revise_launch": (5, 3)},
+    }.items()
 }
 
 #: warps of one fused-fixpoint or stacked-revise CTA (``kWarps`` in
@@ -118,9 +125,14 @@ def _function(library: str, launcher: str):
     return fn
 
 
-def launch(library: str, launcher: str, tensors: Sequence[Tensor], *sizes: int) -> None:
+def launch(library: str, launcher: str, tensors: Sequence[Tensor], *sizes: int,
+           sched: Optional[int] = None) -> None:
     """Launch ``launcher`` of ``library`` on the current stream of the
-    tensors' device; raise if the launch is refused."""
+    tensors' device; raise if the launch is refused. A ``sched`` (a tuned
+    launch schedule) goes to the ``<launcher>_sched`` variant; without one
+    the plain launcher runs its default."""
+    if sched is not None:
+        launcher, sizes = f"{launcher}_sched", (*sizes, sched)
     n_ptrs, n_ints = SIGNATURES[library][launcher]
     if len(tensors) != n_ptrs or len(sizes) != n_ints:
         raise ValueError(f"{launcher} takes {n_ptrs} tensors and {n_ints} sizes, "

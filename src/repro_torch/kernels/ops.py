@@ -27,7 +27,7 @@ from repro_torch import faults, obs
 from repro_torch.core import rtac
 from repro_torch.core.csp import CSP
 from repro_torch.core.engine import pad_dom, pad_network, padded_shape
-from . import bitpack_support, ref, rtac_support
+from . import autotune, bitpack_support, ref, rtac_support
 
 Tensor = torch.Tensor
 
@@ -272,8 +272,12 @@ def enforce_rows(kind: str, fused: bool, tables, dom_p: Tensor, ch_p: Tensor, id
                  kdims: tuple) -> rtac.EnforceResult:
     """R fixpoints in kernel coordinates, row i against ``tables[idx[i]]``:
     one fused kernel launch, or the stepped host loop with one stacked revise
-    launch per recurrence."""
+    launch per recurrence. Before it, `autotune.maybe_tune` (gated by
+    ``REPRO_TORCH_AUTOTUNE=1``) tunes the bucket on first use."""
     rows_fn, fixpoint_rows_fn = _ROWS_FNS[kind]
+    autotune.maybe_tune(kind if fused else f"{kind}_revise", kdims[0], kdims[1],
+                        autotune.entry_words(kind, kdims[1]), dom_p.shape[0],
+                        device=dom_p.device)
     if fused:
         return fixpoint_rows_fn(*kdims)(tables, dom_p, ch_p, idx)
     return rtac.enforce_rows_generic(tables, dom_p, ch_p, idx, revise_rows_fn=rows_fn(*kdims))

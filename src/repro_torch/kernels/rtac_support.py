@@ -35,6 +35,7 @@ from typing import Optional
 
 import torch
 
+from . import autotune
 from .launch import (check_operands, check_smem, fixpoint_smem, launch, revise_smem,
                      single_revise_smem)
 
@@ -95,19 +96,25 @@ def dense_revise_stacked_plain(cons: Tensor, mask: Tensor, idx: Tensor, dom: Ten
 
 
 def dense_revise_stacked(cons: Tensor, mask: Tensor, idx: Tensor, dom: Tensor,
-                         changed: Tensor, *, d: int) -> Tensor:
+                         changed: Tensor, *, d: int,
+                         sched: Optional[int] = None) -> Tensor:
     """R dense revisions, row r against network ``cons[idx[r]]``.
 
     cons (C, n·d, n·d) u8, mask (C, n, n) u8, idx (R,) int32,
-    dom (R, n·d) u8, changed (R, n) u8 -> violated (R, n·d) u8."""
+    dom (R, n·d) u8, changed (R, n) u8 -> violated (R, n·d) u8. ``sched``
+    (CUDA only) is a launch schedule: 0 the width compiled as a constant, 1
+    the run-time width; None takes the tuned one of the shape's bucket, or
+    the default (`autotune.schedule`)."""
     r, n = _check(cons, mask, idx, dom, changed, d)
     if cons.device.type == "cpu":
         return dense_revise_stacked_plain(cons, mask, idx, dom, changed, d=d)
     check_smem("dense_revise_stacked", revise_smem(n, d, n * d), f"n={n}, d={d}")
     out = torch.empty((r, n * d), dtype=torch.uint8, device=cons.device)
     if r:
+        if sched is None:
+            sched = autotune.schedule("dense_revise", n, d, 0, r)
         launch("dense_revise", "dense_revise_stacked_launch",
-               [cons, mask, idx, dom, changed, out], r, n, d)
+               [cons, mask, idx, dom, changed, out], r, n, d, sched=sched)
         dense_revise_stacked.launches += 1
     return out
 
@@ -150,13 +157,14 @@ def dense_fixpoint_stacked_plain(cons: Tensor, mask: Tensor, idx: Tensor, dom: T
 
 
 def dense_fixpoint_stacked(cons: Tensor, mask: Tensor, idx: Tensor, dom: Tensor,
-                           changed: Tensor, *, d: int):
+                           changed: Tensor, *, d: int,
+                           sched: Optional[int] = None):
     """R dense fixpoints in ONE launch, row r against ``cons[idx[r]]``.
 
     Operands as `dense_revise_stacked` (``changed`` is the Prop. 2 seed,
     assignment already applied to ``dom``). Returns (dom (R, n·d) u8,
     consistent (R,) u8, k (R,) int32) — per row bit-identical to the stepped
-    fixpoint."""
+    fixpoint. ``sched`` as for `dense_revise_stacked`."""
     r, n = _check(cons, mask, idx, dom, changed, d)
     if cons.device.type == "cpu":
         return dense_fixpoint_stacked_plain(cons, mask, idx, dom, changed, d=d)
@@ -165,8 +173,10 @@ def dense_fixpoint_stacked(cons: Tensor, mask: Tensor, idx: Tensor, dom: Tensor,
     consistent = torch.empty((r,), dtype=torch.uint8, device=cons.device)
     k = torch.empty((r,), dtype=torch.int32, device=cons.device)
     if r:
+        if sched is None:
+            sched = autotune.schedule("dense", n, d, 0, r)
         launch("dense_fixpoint", "dense_fixpoint_stacked_launch",
-               [cons, mask, idx, dom, changed, out, consistent, k], r, n, d)
+               [cons, mask, idx, dom, changed, out, consistent, k], r, n, d, sched=sched)
         dense_fixpoint_stacked.launches += 1
     return out, consistent, k
 
@@ -192,19 +202,25 @@ def dense_revise_plain(cons: Tensor, mask: Tensor, dom: Tensor, changed: Tensor,
 
 
 def dense_revise(cons: Tensor, mask: Tensor, dom: Tensor, changed: Tensor, *,
-                 d: int) -> Tensor:
+                 d: int,
+                 sched: Optional[int] = None) -> Tensor:
     """B dense revisions against ONE network (the reference vmaps its
     single-network kernel over B).
 
     cons (n·d, n·d) u8, mask (n, n) u8, dom (B, n·d) u8, changed (B, n) u8
-    -> violated (B, n·d) u8."""
+    -> violated (B, n·d) u8. ``sched`` (CUDA only) is the variables a CTA
+    revises, a multiple of 8 (0: the default rule); None takes the tuned one
+    of the shape's bucket, or the default."""
     b, n = _check(cons, mask, None, dom, changed, d)
     if cons.device.type == "cpu":
         return dense_revise_plain(cons, mask, dom, changed, d=d)
     check_smem("dense_revise", single_revise_smem(n, d), f"n={n}, d={d}")
     out = torch.empty((b, n * d), dtype=torch.uint8, device=cons.device)
     if b:
-        launch("dense_revise", "dense_revise_launch", [cons, mask, dom, changed, out], b, n, d)
+        if sched is None:
+            sched = autotune.schedule("dense_single", n, d, 0, b)
+        launch("dense_revise", "dense_revise_launch", [cons, mask, dom, changed, out], b, n, d,
+               sched=sched)
         dense_revise.launches += 1
     return out
 

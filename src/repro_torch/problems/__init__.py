@@ -59,6 +59,19 @@ class ProblemFamily:
             )
         return {**self.defaults, **overrides}
 
+    def validate_sweep(self, knobs: Mapping[str, Any]) -> Dict[str, List[Any]]:
+        """Validate a sweep-axis mapping (``knob -> scalar | list of values``)
+        against this family's knob set and return it normalized to lists:
+        `repro_torch.sweeps` runs a spec's ``[problem.knobs]`` through here
+        when the spec is parsed, so an unknown knob fails then."""
+        unknown = set(knobs) - set(self.defaults)
+        if unknown:
+            raise TypeError(
+                f"{self.name}: unknown sweep knob(s) {sorted(unknown)}; "
+                f"available: {sorted(self.defaults)}"
+            )
+        return {k: list(v) if isinstance(v, (list, tuple)) else [v] for k, v in knobs.items()}
+
     def generate(self, seed: Seed = 0, device: Device = "cuda", **overrides) -> CSP:
         return self.generator(seed=seed, device=device, **self.params(**overrides))
 

@@ -11,9 +11,11 @@ import torch
 
 from repro_torch.core import mac_solve, solve_many
 from repro_torch.engines import get_engine
+from repro_torch.kernels import autotune
 from repro_torch.launch.serve import serve
 from repro_torch.problems import generate
 from repro_torch.service import SolverService
+from repro_torch.sweeps import load_spec, run_spec
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -28,6 +30,7 @@ def test_port_and_chip_smoke_import_no_jax_and_no_reference():
         "import repro_torch.engines.ac3, repro_torch.core.brute, repro_torch.service\n"
         "import repro_torch.obs.export, repro_torch.obs.__main__, repro_torch.launch.serve\n"
         "import repro_torch.problems.coloring, repro_torch.problems.structured\n"
+        "import repro_torch.sweeps, repro_torch.sweeps.__main__, repro_torch.kernels.autotune\n"
         f"spec = importlib.util.spec_from_file_location('chip_smoke', {os.path.join(ROOT, 'chip_smoke.py')!r})\n"
         "mod = importlib.util.module_from_spec(spec); spec.loader.exec_module(mod)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
@@ -49,7 +52,9 @@ def test_entry_points_default_to_the_card():
                  lambda: generate("model_rb", n=8), lambda: solve_many([csp]),
                  lambda: mac_solve(csp), lambda: get_engine("ac3"), lambda: SolverService(),
                  lambda: SolverService(engine="hopper_dense"),
-                 lambda: serve(duration=0.5, quiet=True)):
+                 lambda: serve(duration=0.5, quiet=True),
+                 lambda: run_spec(load_spec("smoke"), progress=None),
+                 lambda: autotune.tune("packed", 16, 8)):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             make()
 
