@@ -84,6 +84,24 @@ Phases (any failure exits non-zero):
               over 2 s. The seeded columns are identical across the tensor
               engines; prints per-assignment ms and counts per engine and
               the report's verdicts over these records.
+(x) sharded — the sharded path (`repro_torch.core.sharded`, the
+              ``sharded`` engine) on the card. (x1) In a one-rank NCCL world,
+              `ShardedEngine(impl="bitpacked")` on the reference's production
+              CSP, n=4096, d=32 (a 2 GiB packed network; a seeded model-A
+              network built on the card, `hashed_random_csp`), B=32
+              search-node domains (the single-pod mesh's batch a data shard,
+              512/16): dom, consistent and k bit for bit against the same
+              fixpoint on `packed_revise_block_plain`; calls 1, 2 and 4 of
+              kernel 3's block form against plain; the k histogram, ms a
+              recurrence and the all-gather record. (x2) At n=1024, B=8 the
+              bitpacked, u8 (kernel 6's block form) and bf16 einsum variants
+              agree; kernel 6's calls against plain. (x3) Two processes on
+              the one card in a gloo world (`repro_torch.launch.
+              distributed_ac`, 512 variables a rank, the gather staged
+              through host memory) equal x2's one-rank bitpacked run. (x4)
+              Kernel 3's block call on one rank's share of the production
+              mesh (256 of 4096 variables, B_local 32 and 16), timed with
+              CUDA events beside its bound.
 (p) profile — one fused and one stepped `solve_many`, one phase-e
               `mac_solve` (instance 1) and the phase-s replay on each Hopper
               engine under `torch.profiler`: device busy share and the
@@ -333,15 +351,16 @@ def work_bound(mask, idx, seeds, d: int, entry: int, out_bytes: int, idx_bytes: 
             touched[s] |= seed[slots == s].any(dim=0)
         ands += int((mask_g & seed[:, None, :]).sum()) * d * entry // 4
     col_x = int((mask.bool().sum(dim=1) * touched).sum())
-    nbytes = (col_x * d * entry + int(touched.sum()) * n + r * (n * entry + n + idx_bytes)
+    nbytes = (col_x * d * entry + int(touched.sum()) * mask.shape[-2]
+              + r * (n * entry + n + idx_bytes)
               + out_bytes)
     t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
     t_ops = 1e3 * ands / ALU_OPS_PER_S
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), nbytes, ands
 
 
-def report(label, name, m):
-    print(f"[b] {label} {name}: bit-identical to plain; kernel_ms={m['ms']:.4f} "
+def report(label, name, m, phase: str = "b"):
+    print(f"[{phase}] {label} {name}: bit-identical to plain; kernel_ms={m['ms']:.4f} "
           f"plain_ms={m['plain_ms']:.4f} bound_ms={m['bound'][0]:.4f} "
           f"(by {m['bound'][1]}: {m['bound'][2]} B, {m['bound'][3]} 32-bit ANDs)"
           + (f" sweeps={m['sweeps']} k_max={m['k_max']}" if "sweeps" in m else ""),
@@ -979,14 +998,15 @@ class StackedCalls:
     """Records kernel calls while active, by wrapping each wrapper in its
     module (the wrapper counts its launches on the module's name, so the
     recorder carries the count): for each (kernel, table shape, widths), the
-    calls numbered in `SERVICE_CHECKED_CALLS`, their operands copied, since
-    an install rewrites the slot tables in place. ``names`` defaults to the
-    stacked kernels."""
+    calls numbered in ``numbers`` (default `SERVICE_CHECKED_CALLS`), their
+    operands copied, since an install rewrites the slot tables in place.
+    ``names`` defaults to the stacked kernels."""
 
     NAMES = [(name, kind) for name, kind, *_ in KERNELS if name.endswith("_stacked")]
 
-    def __init__(self, names=None):
+    def __init__(self, names=None, numbers=SERVICE_CHECKED_CALLS):
         self.names = self.NAMES if names is None else names
+        self.numbers = numbers
 
     def __enter__(self):
         self.calls, self.seen, self.real = [], collections.Counter(), {}
@@ -999,7 +1019,7 @@ class StackedCalls:
         def record(*args, **kw):
             key = (name, tuple(args[0].shape), tuple(sorted(kw.items())))
             self.seen[key] += 1
-            if self.seen[key] in SERVICE_CHECKED_CALLS:
+            if self.seen[key] in self.numbers:
                 self.calls.append((key, self.seen[key], tuple(a.clone() for a in args), kw))
             return real(*args, **kw)
 
@@ -1441,6 +1461,288 @@ def phase_sweeps(device):
 
 
 # ---------------------------------------------------------------------------
+# (x) the sharded path
+# ---------------------------------------------------------------------------
+
+#: x1: the reference's production CSP (n=4096, d=32; a 2 GiB packed network)
+#: as a seeded model-A network built on the card (`hashed_random_csp`), 41
+#: constrained neighbours a variable, 0.6 of a constraint's tuples
+#: disallowed, so a search node's propagation runs 3-7 recurrences; B=32
+#: search-node domains, the single-pod mesh's batch a data shard (512/16)
+X_FULL = dict(n=4096, d=32, density=0.01, tightness=0.6, seed=0, batch=32)
+#: x2/x3: the three variants and the two-rank run at n=1024, the same degree
+X_SMALL = dict(n=1024, d=32, density=0.04, tightness=0.6, seed=0, batch=8)
+#: block-kernel calls of a sharded run held against their plain versions
+#: (`StackedCalls` copies their operands)
+X_CHECKED_CALLS = (1, 2, 4)
+#: x4: one rank's share of the production mesh: 256 of 4096 variables (16
+#: model ranks), B_local 32 (single pod, 512/16) or 16 (multi-pod, 512/32)
+X_RANK_ROWS = 256
+X_RANK_BATCH = {"single pod": 32, "multi-pod": 16}
+X_DIR = os.path.join(TRACE_DIR, "sharded")
+
+
+def time_block(kind: str, args, kw, reps: int = 20) -> dict:
+    """A block call against its plain version on the card: the largest
+    difference, kernel and plain ms (CUDA events) and the bound."""
+    mod = kernel_module(kind)
+    fn, plain = getattr(mod, f"{kind}_revise_block"), getattr(mod, f"{kind}_revise_block_plain")
+    err = max_err(fn(*args, **kw), plain(*args, **kw))
+    check(err == 0, f"[x] {fn.__name__} differs from its plain version (max abs err {err})")
+    return dict(max_abs_err=err, ms=timed_ms(lambda: fn(*args, **kw), reps, args[0].device),
+                plain_ms=timed_ms(lambda: plain(*args, **kw), 1, args[0].device),
+                bound=single_bound(kind, [args], kw))
+
+
+def sharded_run(prepared, doms, kind: str):
+    """One engine call with the block wrapper's count at 0 just before and
+    read just after, its calls `X_CHECKED_CALLS` recorded and its
+    collectives logged: (result, seconds, launches, recorder, log)."""
+    import torch
+
+    from repro_torch.parallel import comm_stats
+
+    reset_launches()
+    name = f"{kind}_revise_block"
+    with StackedCalls([(name, kind)], X_CHECKED_CALLS) as rec, comm_stats.recording() as log:
+        t0 = time.perf_counter()
+        res = prepared.enforce_batch(doms)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    return res, seconds, getattr(kernel_module(kind), name).launches, rec, log
+
+
+def check_block_calls(label: str, kind: str, rec) -> dict:
+    """The recorded block calls against plain (`check_recorded_calls`),
+    the first one timed first."""
+    check(rec.calls, f"[x] {label}: no {kind}_revise_block call was made")
+    _key, _i, args, kw = rec.calls[0]
+    first = time_block(kind, args, kw)
+    check_recorded_calls("x", label, rec)
+    return first
+
+
+def describe_gathers(log) -> str:
+    """The collectives of a run, grouped by kind, result bytes and group."""
+    from repro_torch.parallel import comm_stats
+
+    counts = collections.Counter(log)
+    wire = comm_stats.total_wire_bytes(comm_stats.collective_stats(log))
+    return (", ".join(f"{n} {c.kind} of {c.result_bytes} B over {c.group_size} rank(s)"
+                      for c, n in counts.items()) + f"; wire {wire:.0f} B in all")
+
+
+def same_result(a, b) -> bool:
+    import torch
+
+    return all(torch.equal(x.cpu(), y.cpu()) for x, y in zip(a, b))
+
+
+def x_network(spec, device):
+    from repro_torch.core.csp import hashed_random_csp
+    from repro_torch.launch.distributed_ac import search_nodes
+
+    csp = hashed_random_csp(spec["n"], spec["d"], spec["density"], spec["tightness"],
+                            seed=spec["seed"], device=device)
+    return csp, search_nodes(csp.dom.cpu().numpy(), spec["batch"], spec["seed"])
+
+
+def phase_x_full(device):
+    """(x1) `ShardedEngine(impl="bitpacked")` in a one-rank NCCL world on the
+    production CSP; the same fixpoint on the plain block revise as oracle."""
+    import torch
+
+    from repro_torch.core.sharded import enforce_blocks, local_revise
+    from repro_torch.engines import get_engine
+    from repro_torch.launch.mesh import axis_group
+
+    spec = X_FULL
+    t0 = time.perf_counter()
+    csp, doms = x_network(spec, device)
+    torch.cuda.synchronize()
+    built = time.perf_counter() - t0
+    eng = get_engine("sharded", impl="bitpacked", device=device)
+    t0 = time.perf_counter()
+    prepared = eng.prepare(csp)
+    torch.cuda.synchronize()
+    placed = time.perf_counter() - t0
+    cons, mask = prepared.payload
+    print(f"[x1] production CSP n={spec['n']} d={spec['d']} density={spec['density']} "
+          f"tightness={spec['tightness']} seed={spec['seed']}: "
+          f"{int(csp.mask.sum()) // 2} constraints, dense network "
+          f"{csp.cons.numel()} B built on the card in {built:.2f} s; packed x-block "
+          f"{cons.numel() * cons.element_size()} B placed in {placed:.2f} s; mesh "
+          f"{dict(zip(eng.mesh.mesh_dim_names, eng.mesh.mesh.shape))} ("
+          f"{torch.distributed.get_backend()}); B={spec['batch']} search nodes", flush=True)
+    del csp
+    res, seconds, launches, rec, log = sharded_run(prepared, doms, "packed")
+    k = res.n_recurrences.cpu()
+    print(f"[x1] k histogram {dict(sorted(collections.Counter(k.tolist()).items()))}, "
+          f"{int(res.consistent.sum())} of {spec['batch']} consistent; first run "
+          f"{seconds:.3f} s, packed_revise_block launches {launches}; {describe_gathers(log)}",
+          flush=True)
+    check(int(k.max()) >= 3, f"[x1] no domain took 3 recurrences (k max {int(k.max())})")
+    check(launches == int(k.max()), f"[x1] {launches} block launches for {int(k.max())} "
+                                    "recurrences")
+    check(len(log) == int(k.max()) + 3, f"[x1] {len(log)} collectives")
+    t0 = time.perf_counter()
+    again = prepared.enforce_batch(doms)
+    torch.cuda.synchronize()
+    ms_rec = 1e3 * (time.perf_counter() - t0) / int(k.max())
+    check(same_result(again, res), "[x1] a second run differs")
+    group, _size, index = axis_group(eng.mesh, ("model",))
+    dom = torch.as_tensor(doms, device=device)
+    t0 = time.perf_counter()
+    want = enforce_blocks(cons, mask, dom, torch.ones(dom.shape[:2], dtype=torch.bool,
+                                                      device=device),
+                          revise=local_revise("bitpacked", torch.bfloat16, plain=True),
+                          group=group, x_index=index)
+    torch.cuda.synchronize()
+    check(same_result(res, want), "[x1] the sharded run differs from the same fixpoint on "
+                                  "packed_revise_block_plain")
+    print(f"[x1] dom, consistent and k bit-identical to the fixpoint on the plain block "
+          f"revise ({time.perf_counter() - t0:.2f} s); {ms_rec:.3f} ms a recurrence "
+          "(wall, host included)", flush=True)
+    call = rec.calls[0][2]
+    x4 = phase_x_rank_share(cons, mask, call)
+    first = check_block_calls("x1", "packed", rec)
+    report("full width", "packed_revise_block call 1", first, "x1")
+    del prepared, cons, mask, rec, want, call
+    torch.cuda.empty_cache()
+    return dict(launches=launches, ms_per_recurrence=ms_rec, k=k, first=first, x4=x4)
+
+
+def phase_x_rank_share(cons, mask, call):
+    """(x4) kernel 3's block call on one rank's share of the production
+    mesh: the first `X_RANK_ROWS` variables' rows of x1's network against
+    x1's first call's domains and seeds, cut to B_local."""
+    d = X_FULL["d"]
+    nx = X_RANK_ROWS
+    out = {}
+    for label, b in X_RANK_BATCH.items():
+        args = (cons[:nx * d], mask[:nx].contiguous(), call[2][:b].contiguous(),
+                call[3][:b].contiguous())
+        out[label] = m = time_block("packed", args, dict(d=d, w=-(-d // 32)))
+        report(f"one rank of the {label} mesh (nx={nx} of n={X_FULL['n']}, d={d}, "
+               f"B_local={b})", "packed_revise_block", m, "x4")
+    return out
+
+
+def phase_x_variants(device):
+    """(x2) bitpacked, u8 (kernel 6's block form) and bf16 einsum at n=1024
+    on the one-rank world: identical results; kernel 6's calls against
+    plain."""
+    import torch
+
+    from repro_torch.engines import get_engine
+
+    spec = X_SMALL
+    csp, doms = x_network(spec, device)
+    runs = {}
+    for label, impl, dtype, kind in (("bitpacked", "bitpacked", torch.bfloat16, "packed"),
+                                     ("einsum u8", "einsum", torch.uint8, "dense"),
+                                     ("einsum bf16", "einsum", torch.bfloat16, "dense")):
+        prepared = get_engine("sharded", impl=impl, dtype=dtype, device=device).prepare(csp)
+        res, seconds, launches, rec, log = sharded_run(prepared, doms, kind)
+        k_max = int(res.n_recurrences.max())
+        print(f"[x2] {label} n={spec['n']} d={spec['d']} B={spec['batch']}: k "
+              f"{res.n_recurrences.tolist()}, {seconds:.3f} s ({1e3 * seconds / k_max:.3f} ms a "
+              f"recurrence, first run), {kind}_revise_block launches {launches}; "
+              f"{describe_gathers(log)}", flush=True)
+        runs[label] = (res, launches, rec)
+        del prepared
+    check(runs["bitpacked"][1] > 0 and runs["einsum u8"][1] > 0 and runs["einsum bf16"][1] == 0,
+          "[x2] block launches: " + str({k: v[1] for k, v in runs.items()}))
+    for label in ("einsum u8", "einsum bf16"):
+        check(same_result(runs[label][0], runs["bitpacked"][0]),
+              f"[x2] {label} differs from bitpacked")
+    print("[x2] bitpacked == einsum u8 == einsum bf16 (dom, consistent, k)", flush=True)
+    check_recorded_calls("x", "x2 bitpacked", runs["bitpacked"][2])
+    first = check_block_calls("x2 einsum u8", "dense", runs["einsum u8"][2])
+    report(f"n={spec['n']} d={spec['d']} B={spec['batch']}", "dense_revise_block call 1",
+           first, "x2")
+    del csp
+    torch.cuda.empty_cache()
+    return dict(reference=runs["bitpacked"][0], dense_launches=runs["einsum u8"][1],
+                dense_first=first)
+
+
+def phase_x_two_ranks(reference):
+    """(x3) two processes on cuda:0 in a gloo world (a FileStore under
+    `X_DIR`), n=1024 with 512 variables a rank, through
+    `repro_torch.launch.distributed_ac`: results equal x2's one-rank
+    bitpacked run."""
+    import shutil
+
+    import numpy as np
+
+    shutil.rmtree(X_DIR, ignore_errors=True)
+    os.makedirs(X_DIR)
+    spec = X_SMALL
+    out = os.path.join(X_DIR, "two_ranks.npz")
+    args = [sys.executable, "-m", "repro_torch.launch.distributed_ac", "--device", "cuda",
+            "--backend", "gloo", "--mesh", "1,2", "--network", "hashed", "--impl",
+            "bitpacked", "--check", "none", "--store", os.path.join(X_DIR, "store"),
+            "--world", "2", "--out", out, *[f"--{k}={v}" for k, v in spec.items()]]
+    env = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")}
+    procs = [subprocess.Popen([*args, "--rank", str(r)], cwd=ROOT, env=env,
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(2)]
+    try:
+        logs = [p.communicate(timeout=300)[0] for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        check(p.returncode == 0, f"[x3] rank {r} exited {p.returncode}:\n{log[-3000:]}")
+    for line in logs[0].splitlines():
+        if not line.startswith("[W"):
+            print(f"[x3] {line}", flush=True)
+    got = np.load(out)
+    want = [t.cpu().numpy() for t in reference]
+    check(all(np.array_equal(got[name], w) for name, w in zip(("dom", "consistent", "k"), want)),
+          "[x3] the two-rank run differs from x2's one-rank bitpacked run")
+    check(int(got["packed_revise_block"]) > 0, "[x3] the ranks did not launch the block kernel")
+    model = [int(b) for b, g in got["gathers"] if g == 2]  # the model axis' gathers
+    k_max = int(got["k"].max())
+    check(len(model) == k_max, f"[x3] {len(model)} model-axis gathers in {k_max} recurrences")
+    print(f"[x3] two ranks (gloo, cuda:0, 512 variables a rank) == one rank: dom, consistent "
+          f"and k bit-identical; {1e3 * float(got['seconds']) / k_max:.3f} ms a recurrence "
+          f"(wall); {len(model)} model-axis all-gathers of {model[0]} result B over 2 ranks; "
+          f"staged through host memory: {bool(got['staged'])}", flush=True)
+
+
+def phase_x(device):
+    """(x): x1 and x4 at full width, x2, x3 at n=1024, in a one-rank world
+    made for the phase. Returns the block routes' rows of the kernels line."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import init_world
+
+    init_world(device)
+    try:
+        full = phase_x_full(device)
+        small = phase_x_variants(device)
+    finally:
+        dist.destroy_process_group()
+    phase_x_two_ranks(small["reference"])
+    rows = []
+    for name, kind, line, launches, m in (
+            ("packed_revise_block", "packed", "bitpack_support.py:64", full["launches"],
+             full["first"]),
+            ("dense_revise_block", "dense", "rtac_support.py:71", small["dense_launches"],
+             small["dense_first"])):
+        check(launches > 0, f"{name} was not launched on the sharded path")
+        rows.append(dict(
+            name=name, route="cuda", source=f"src/repro_torch/kernels/csrc/{kind}_revise.cu",
+            replaces=f"src/repro/kernels/{line}", launches=launches,
+            max_abs_err=m["max_abs_err"], ms=m["ms"], plain_ms=m["plain_ms"],
+            bound_ms=m["bound"][0], bound_by=m["bound"][1], library_ms=None,
+            service_launches=0))
+    return rows
+
+
+# ---------------------------------------------------------------------------
 # --against: this tree's stacked revises beside another tree's, in one call
 # ---------------------------------------------------------------------------
 
@@ -1638,6 +1940,10 @@ def main(argv) -> int:
         phase_autotune(device)
         stamp("phase w, sweeps")
         phase_sweeps(device)
+        stamp("phase x, the sharded path")
+        t_x = time.perf_counter()
+        sharded_rows = phase_x(device)
+        print(f"[x] phase x took {time.perf_counter() - t_x:.1f} s", flush=True)
         for name in ("hopper_packed", "hopper_dense"):
             stamp(f"phase p, {name}")
             for fixpoint in ("fused", "stepped"):
@@ -1666,6 +1972,7 @@ def main(argv) -> int:
             check(kernels[-1]["launches"] > 0, f"{name} was not launched on its path ({run})")
             check(service_run is None or kernels[-1]["service_launches"] > 0,
                   f"{name} was not launched on the service path ({service_run})")
+        kernels += sharded_rows
         print(f"[done] {time.perf_counter() - t_start:.1f} s in all", flush=True)
         print(json.dumps({"kernels": kernels}))
         print(card)

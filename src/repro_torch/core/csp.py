@@ -92,6 +92,58 @@ def random_csp(
     return make_csp(cons, mask, dom, device=device)
 
 
+_WORD = 0xFFFFFFFF
+
+
+def _mix32(h: torch.Tensor) -> torch.Tensor:
+    """A 32-bit integer hash of int64 tensors holding values in [0, 2^32);
+    multipliers under 2^31 keep every product inside int64."""
+    h = h ^ (h >> 16)
+    h = (h * 0x7FEB352D) & _WORD
+    h = h ^ (h >> 15)
+    h = (h * 0x6A2C5B3F) & _WORD
+    return h ^ (h >> 16)
+
+
+def hashed_random_csp(
+    n_vars: int,
+    dom_size: int,
+    density: float,
+    tightness: float = 0.3,
+    seed: int = 0,
+    device: Device = "cuda",
+) -> CSP:
+    """Model A, as `random_csp`, drawn from a counter-based hash instead of a
+    numpy stream, so it is built on ``device`` block by block: sizes whose
+    numpy draws would not fit the host (n=4096, d=32 takes 137 GB of them)
+    cost device memory for the network only. Pair (x, y) is constrained iff
+    hash(seed, min, max) < density; a tuple is disallowed iff
+    hash(seed, min, max, value of min, value of max) < tightness, which
+    keeps Cons[y,x,b,a] == Cons[x,y,a,b]. Not the same draws as
+    `random_csp`."""
+    dev = resolve_device(device)
+    n, d = n_vars, dom_size
+    cons = torch.zeros((n, n, d, d), dtype=torch.bool, device=dev)
+    mask = torch.zeros((n, n), dtype=torch.bool, device=dev)
+    ys = torch.arange(n, device=dev)[None]
+    a = torch.arange(d, device=dev)[:, None]
+    b = torch.arange(d, device=dev)[None, :]
+    base = _mix32(torch.tensor(seed & _WORD, dtype=torch.int64, device=dev))
+    step = max(1, (1 << 24) // (n * d * d))
+    for x0 in range(0, n, step):
+        xs = torch.arange(x0, min(n, x0 + step), device=dev)[:, None]
+        lo, hi = torch.minimum(xs, ys), torch.maximum(xs, ys)
+        pair = _mix32(_mix32(base ^ lo) ^ hi)  # (xc, n)
+        mask[x0:x0 + xs.shape[0]] = ((_mix32(pair ^ 0x5BD1E995) < density * 2**32)
+                                     & (xs != ys))
+        first = (xs < ys)[:, :, None, None]
+        va, vb = torch.where(first, a, b), torch.where(first, b, a)  # values of lo, hi
+        tup = _mix32(pair[:, :, None, None] ^ (1 + va + (vb << 16)))
+        cons[x0:x0 + xs.shape[0]] = ((tup >= tightness * 2**32)
+                                     & mask[x0:x0 + xs.shape[0], :, None, None])
+    return CSP(cons=cons, mask=mask, dom=torch.ones((n, d), dtype=torch.bool, device=dev))
+
+
 def nqueens_csp(n: int, device: Device = "cuda") -> CSP:
     """N-queens as a binary CSP: one variable per column, domain = row index."""
     a = np.arange(n)

@@ -14,6 +14,9 @@ Registered backends:
                    kernels (fused fixpoint / stepped revise; single-network
                    revise for enforce, enforce_batch and mac_solve)
     hopper_packed  the same on bitpacked networks
+    sharded        incremental RTAC over torch.distributed: network x-rows
+                   on the mesh's 'model' axis, domains on its batch axes
+                   (kernels 3 and 6 on x-blocks, or torch.einsum)
     ac3            queue-based host baseline (paper §5.1); counts revisions
 
 ``device`` defaults to ``"cuda"``; without a card, ``get_engine`` raises
@@ -50,12 +53,14 @@ def get_engine(name: str, device="cuda", **opts) -> Engine:
 # Import for side effect: each module registers its engines.
 from . import einsum as _einsum  # noqa: E402
 from . import hopper as _hopper  # noqa: E402
+from . import sharded as _sharded  # noqa: E402
 from . import ac3 as _ac3  # noqa: E402
 
 EinsumEngine = _einsum.EinsumEngine
 FullEngine = _einsum.FullEngine
 HopperDenseEngine = _hopper.HopperDenseEngine
 HopperPackedEngine = _hopper.HopperPackedEngine
+ShardedEngine = _sharded.ShardedEngine
 AC3Engine = _ac3.AC3Engine
 
 __all__ = [
@@ -68,5 +73,6 @@ __all__ = [
     "FullEngine",
     "HopperDenseEngine",
     "HopperPackedEngine",
+    "ShardedEngine",
     "AC3Engine",
 ]

@@ -19,7 +19,10 @@ each row's network in place — no per-round gathered copy of the networks:
 - :func:`packed_revise` — one revise step of B domains against ONE network,
   a CTA per (row, span of variables) (``csrc/packed_revise.cu`` with
   ``csrc/revise_common.cuh``; the single-network path of
-  ``enforce``/``enforce_batch`` and so of ``mac_solve``).
+  ``enforce``/``enforce_batch`` and so of ``mac_solve``);
+- :func:`packed_revise_block` — the same kernel on an x-block of one
+  network: this rank's rows of a sharded network against all n variables
+  (the local revise of `repro_torch.core.sharded`), up to n = 65535.
 
 Device rule: a wrapper given CPU tensors computes the plain version; given
 CUDA tensors it launches its kernel or raises — it never falls back. Each
@@ -33,37 +36,39 @@ from typing import Optional
 import torch
 
 from . import autotune
-from .launch import (check_operands, check_smem, fixpoint_smem, launch, revise_smem,
-                     single_revise_smem)
+from .launch import (block_span, check_operands, check_smem, fixpoint_smem, launch,
+                     revise_smem, single_revise_smem, single_smem)
 from .ref import pack_bits_ref, unpack_bits_ref
 
 Tensor = torch.Tensor
 
 
 def _check(cons: Tensor, mask: Tensor, idx: Optional[Tensor], dom_words: Tensor,
-           changed: Tensor, d: int, w: int):
-    """Validate the packed kernels' operands (``idx`` None: one network);
-    returns (rows, n)."""
+           changed: Tensor, d: int, w: int, block: bool = False):
+    """Validate the packed kernels' operands (``idx`` None: one network;
+    ``block``: an x-block of one); returns (rows, n), or (rows, nx, n)."""
     if w != -(-d // 32):
         raise ValueError(f"W={w} != ceil({d}/32)")
-    return check_operands(cons, mask, idx, dom_words, changed, d=d, cols=w, word=torch.int32)
+    return check_operands(cons, mask, idx, dom_words, changed, d=d, cols=w, word=torch.int32,
+                          block=block)
 
 
-def _revise_chunk_rows(n: int, d: int, w: int) -> int:
+def _revise_chunk_rows(n: int, d: int, w: int, nx: Optional[int] = None) -> int:
     """Rows per chunk of the plain revise (bounds its gathered working set)."""
-    return max(1, (1 << 28) // (n * d * n * w * 4))
+    return max(1, (1 << 28) // ((n if nx is None else nx) * d * n * w * 4))
 
 
 def _revise_rows_plain(net: Tensor, mask: Tensor, dom_words: Tensor, changed: Tensor,
                        n: int, d: int, w: int) -> Tensor:
-    """violated (rows, n·d) u8 of ``rows`` domains against ``net`` (rows or 1,
-    n·d, n·W) with ``mask`` (rows or 1, n, n)."""
-    rows = dom_words.shape[0]
-    net = net.view(-1, n, d, n, w)  # (rows, x, a, y, w)
+    """violated (rows, nx·d) u8 of ``rows`` domains against ``net`` (rows or
+    1, nx·d, n·W) with ``mask`` (rows or 1, nx, n); nx = n for a whole
+    network."""
+    rows, nx = dom_words.shape[0], mask.shape[-2]
+    net = net.view(-1, nx, d, n, w)  # (rows, x, a, y, w)
     has = ((net & dom_words.view(rows, 1, 1, n, w)) != 0).any(dim=-1)  # (rows, x, a, y)
     has |= mask.bool()[:, :, None, :].logical_not()
     seed = changed.bool()[:, None, None, :]
-    return (seed & ~has).any(dim=-1).view(rows, n * d).to(torch.uint8)
+    return (seed & ~has).any(dim=-1).view(rows, nx * d).to(torch.uint8)
 
 
 # ---------------------------------------------------------------------------
@@ -222,9 +227,63 @@ def packed_revise(cons: Tensor, mask: Tensor, dom_words: Tensor, changed: Tensor
 packed_revise.launches = 0
 
 
+# ---------------------------------------------------------------------------
+# One revise step against an x-block of one network (the sharded path)
+# ---------------------------------------------------------------------------
+
+#: x-rows a chunk of the plain block revise covers at most: 2^28 / (d·n·W)
+#: words of network, so its temporaries stay near a gigabyte at any n
+_BLOCK_CHUNK_WORDS = 1 << 28
+
+
+def packed_revise_block_plain(cons: Tensor, mask: Tensor, dom_words: Tensor, changed: Tensor,
+                              *, d: int, w: int) -> Tensor:
+    """Plain PyTorch version of `packed_revise_block`, in chunks of x-rows
+    and of domains."""
+    b, nx, n = _check(cons, mask, None, dom_words, changed, d, w, block=True)
+    out = torch.empty((b, nx * d), dtype=torch.uint8, device=cons.device)
+    xs = max(1, _BLOCK_CHUNK_WORDS // (d * n * w))
+    for x0 in range(0, nx, xs):
+        x1 = min(nx, x0 + xs)
+        net, m = cons[x0 * d:x1 * d][None], mask[x0:x1][None]
+        step = _revise_chunk_rows(n, d, w, x1 - x0)
+        for s in range(0, b, step):
+            out[s:s + step, x0 * d:x1 * d] = _revise_rows_plain(
+                net, m, dom_words[s:s + step], changed[s:s + step], n, d, w)
+    return out
+
+
+def packed_revise_block(cons: Tensor, mask: Tensor, dom_words: Tensor, changed: Tensor, *,
+                        d: int, w: int) -> Tensor:
+    """B packed revisions against an x-block of ONE network: the rows of
+    nx variables against all n (one rank's share of a network sharded over
+    its variables).
+
+    cons (nx·d, n·W) int32, mask (nx, n) u8, dom_words (B, n·W) int32,
+    changed (B, n) u8 -> violated (B, nx·d) u8. With nx = n it equals
+    `packed_revise`. The span of variables a CTA revises is `block_span`'s
+    (8 from n = 2048 on); a CTA's shared memory is checked for that span."""
+    b, nx, n = _check(cons, mask, None, dom_words, changed, d, w, block=True)
+    if cons.device.type == "cpu":
+        return packed_revise_block_plain(cons, mask, dom_words, changed, d=d, w=w)
+    sms = torch.cuda.get_device_properties(cons.device).multi_processor_count
+    span = block_span(b, nx, n, d, sms)
+    check_smem("packed_revise_block", single_smem(n, d, span), f"n={n}, d={d}, span={span}")
+    out = torch.empty((b, nx * d), dtype=torch.uint8, device=cons.device)
+    if b and nx:
+        launch("packed_revise", "packed_revise_block_launch",
+               [cons, mask, dom_words, changed, out], b, nx, n, d, w, sched=span)
+        packed_revise_block.launches += 1
+    return out
+
+
+packed_revise_block.launches = 0
+
+
 def reset_launches() -> None:
     """Zero every wrapper's launch count."""
     packed_revise_stacked.launches = 0
     packed_fixpoint_stacked.launches = 0
     packed_revise.launches = 0
+    packed_revise_block.launches = 0
 

@@ -8,7 +8,8 @@
 // - dense_revise (body _revise_kernel): B domains against ONE network — the
 //   single-network path of enforce/enforce_batch and so of mac_solve, one
 //   launch a recurrence; the reference vmaps it. A CTA per (row, span of
-//   variables), the network compiled in as one.
+//   variables), the network compiled in as one. On an x-block of a network
+//   (dense_revise_block_launch) it is the sharded path's local revise.
 // violated[r, x·d+a] = ∃y: seed[r,y] ∧ mask[x,y] ∧
 //                      no byte of (cons2[x·d+a, y·d ..] & dom[r, y·d ..]) is nonzero.
 // d is a multiple of 8 (ops.D_MULT), so each (x·a, y) slice is read as d/8
@@ -70,4 +71,23 @@ extern "C" int dense_revise_launch(
     const void* cons, const void* mask, const void* dom_in, const void* seed_in,
     void* viol_out, int rows, int n, int d, void* stream) {
   return dense_revise_launch_sched(cons, mask, dom_in, seed_in, viol_out, rows, n, d, 0, stream);
+}
+
+// B rows against an x-block of one network (this rank's nx variables of a
+// sharded network, core/sharded.py): cons (nx·d, n·d), mask (nx, n), the
+// domains and seeds over all n variables, out (B, nx·d). With nx = n it is
+// the launch above. `span` as there, over nx; 0 takes revise::block_span.
+extern "C" int dense_revise_block_launch_sched(
+    const void* cons, const void* mask, const void* dom_in, const void* seed_in,
+    void* viol_out, int rows, int nx, int n, int d, int span, void* stream) {
+  const auto run = d / 8 == 5 ? &revise::launch_block<revise::u64, 5>
+                              : &revise::launch_block<revise::u64, 0>;
+  return run(cons, mask, dom_in, seed_in, viol_out, rows, nx, n, d, d / 8, span, stream);
+}
+
+extern "C" int dense_revise_block_launch(
+    const void* cons, const void* mask, const void* dom_in, const void* seed_in,
+    void* viol_out, int rows, int nx, int n, int d, void* stream) {
+  return dense_revise_block_launch_sched(cons, mask, dom_in, seed_in, viol_out, rows, nx, n, d, 0,
+                                         stream);
 }

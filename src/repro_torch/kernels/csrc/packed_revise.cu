@@ -8,7 +8,9 @@
 // - packed_revise (body _revise_packed_kernel): B domains against ONE
 //   network — the single-network path of enforce/enforce_batch and so of
 //   mac_solve, one launch a recurrence; the reference vmaps it. A CTA per
-//   (row, span of variables), the network compiled in as one.
+//   (row, span of variables), the network compiled in as one. On an x-block
+//   of a network (packed_revise_block_launch) it is the sharded path's
+//   local revise.
 // violated[r, x·d+a] = ∃y: seed[r,y] ∧ mask[x,y] ∧ (cons[x·d+a, y·W..] & dom[r, y·W..]) == 0.
 //
 // Both kernels are revise_common.cuh's, with u32 words (W per entry). What
@@ -80,4 +82,25 @@ extern "C" int packed_revise_launch(
     void* viol_out, int rows, int n, int d, int w, void* stream) {
   return packed_revise_launch_sched(cons, mask, dom_in, seed_in, viol_out, rows, n, d, w, 0,
                                     stream);
+}
+
+// B rows against an x-block of one network (this rank's nx variables of a
+// sharded network, core/sharded.py): cons (nx·d, n·W), mask (nx, n), the
+// domains and seeds over all n variables, out (B, nx·d). With nx = n it is
+// the launch above. `span` as there, over nx; 0 takes revise::block_span.
+extern "C" int packed_revise_block_launch_sched(
+    const void* cons, const void* mask, const void* dom_in, const void* seed_in,
+    void* viol_out, int rows, int nx, int n, int d, int w, int span, void* stream) {
+  if (wide_words(w, cons, dom_in))
+    return revise::launch_block<revise::u64, 1>(cons, mask, dom_in, seed_in, viol_out, rows,
+                                                nx, n, d, 1, span, stream);
+  return revise::launch_block<uint32_t, 0>(cons, mask, dom_in, seed_in, viol_out, rows, nx, n,
+                                           d, w, span, stream);
+}
+
+extern "C" int packed_revise_block_launch(
+    const void* cons, const void* mask, const void* dom_in, const void* seed_in,
+    void* viol_out, int rows, int nx, int n, int d, int w, void* stream) {
+  return packed_revise_block_launch_sched(cons, mask, dom_in, seed_in, viol_out, rows, nx, n, d,
+                                          w, 0, stream);
 }

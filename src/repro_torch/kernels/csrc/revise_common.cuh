@@ -72,6 +72,14 @@
 // names, staged with cp.async after the seed (0.3-1.2 µs slower than plain
 // loads); dense d/8 = 5 read at run time (a round of loads a word: 9.7
 // against 7.9 µs).
+//
+// The block launcher (`launch_block`) runs the single-network kernel on an
+// x-block, the sharded path's local revise: nx variables' rows against all
+// n neighbours, n up to 65535 (from 2048 on, pairs hold 16 neighbour bits
+// and a warp one owner lane, span 8). At the reference's production shape
+// (n=4096, d=32, B=32 rows, every variable seeded; measured on an H100,
+// PERF.md) a launch takes 2.04 ms: a test's entry sits alone in its
+// 32-byte sector and every row re-reads the 2 GiB network from HBM.
 #pragma once
 
 #include "fixpoint_common.cuh"
@@ -98,8 +106,9 @@ __host__ __device__ inline int owner_lanes(int n) {
 // to distinct banks) and violation words (lanes × ceil(d/32)); u16: the
 // (variable, neighbour) pairs of its owner lanes (lanes × n). A CTA that
 // owns every variable of a row has owner_lanes(n) lanes a warp; its pairs
-// alone outgrow the shared memory for n ≥ 460, and the launchers refuse
-// n ≥ 2^kPairY, so a pair's neighbour always fits its 11 bits.
+// alone outgrow the shared memory for n ≥ 460. The stacked and square
+// single-network launchers refuse n ≥ 2^kPairY, so a pair's neighbour fits
+// its 11 bits; the block launcher takes larger n with kPairYWide.
 struct Smem {
   int seed, nbits, viol, pairs, total;
   __host__ __device__ Smem(int n, int d, int dom_bytes, int lanes) {
@@ -113,6 +122,10 @@ struct Smem {
 };
 
 constexpr int kPairY = 11;  // bits of a pair's neighbour; the lane above them
+// bits of a pair's neighbour for n ≥ 2^kPairY (the block launcher): no lane
+// bits are left, so a warp has one owner lane and a CTA a span of 8
+constexpr int kPairYWide = 16;
+constexpr int kSmemOptIn = 227 * 1024;  // the most dynamic shared memory a block may opt in to
 constexpr int kUnrollRevise = 4;  // support tests a lane has in flight (8: one-word entries)
 
 // Copy `bytes` (a multiple of 4) from global memory to `dst` (shared, 16-byte
@@ -223,7 +236,7 @@ __device__ __forceinline__ int masked_neighbours(const uint32_t* mrow, const uin
 }
 
 // The support tests of a warp's owned variables, all at once: every (value
-// a < d, pair p) of the np `pairs` — (lane l << kPairY) | y, variable
+// a < d, pair p) of the np `pairs` — (lane l << PY) | y, variable
 // x0 + l·kWarps against its seeded neighbour y — pairs fastest, so lanes
 // that share a value read entries of one network row, and with few pairs
 // the lanes run over values. An entry is K words of T at
@@ -235,8 +248,8 @@ __device__ __forceinline__ int masked_neighbours(const uint32_t* mrow, const uin
 // those lanes OR their bits together and one of them stores them. Each lane
 // keeps U tests, K·U loads, in flight: U = 2·kUnrollRevise for one-word
 // entries, kUnrollRevise otherwise; offsets are 32-bit to save registers.
-// KW = 0 reads K at run time.
-template <typename T, int KW>
+// KW = 0 reads K at run time; PY is the bits of a pair's neighbour.
+template <typename T, int KW, int PY>
 __device__ __forceinline__ void test_pairs(const T* __restrict__ net, const T* dom, int x0,
                                            int n, int d, int k_words, const uint16_t* pairs,
                                            int np, uint32_t* viol, int w, int lane) {
@@ -252,7 +265,7 @@ __device__ __forceinline__ void test_pairs(const T* __restrict__ net, const T* d
     for (int u = 0; u < U; ++u) {
       const bool ok = a < d;
       const int e = ok ? pairs[pi] : 0;
-      const int y = e & ((1 << kPairY) - 1), l = e >> kPairY;
+      const int y = e & ((1 << PY) - 1), l = e >> PY;
       dy[u] = static_cast<uint32_t>(y * K);
       src[u] = static_cast<uint32_t>((x0 + l * kWarps) * d + a) * row_stride + dy[u];
       key[u] = ok ? ((l * w + (a >> 5)) << 5) | (a & 31) : -1;
@@ -309,8 +322,9 @@ __device__ __forceinline__ void store_flags(uint8_t* out, const uint32_t* viol, 
 // owner lanes keep their seeded-neighbour bits in `nbits`, their violation
 // words in `viol` and the warp's pairs in `pairs`. With `mbits` (the mask
 // rows of [x_begin, x_end) as bits, ceil(n/32) words a row, in shared
-// memory) the neighbours come from there; without, from `m`.
-template <typename T, int KW>
+// memory) the neighbours come from there; without, from `m`. Network rows,
+// mask rows and `out` are indexed by x; `n` counts the neighbours y.
+template <typename T, int KW, int PY>
 __device__ __forceinline__ void revise_vars(const T* __restrict__ net,
                                             const uint8_t* __restrict__ m,
                                             const uint32_t* mbits, const T* dom,
@@ -333,10 +347,10 @@ __device__ __forceinline__ void revise_vars(const T* __restrict__ net,
     const int np = __shfl_sync(kFull, end, 31);
     for (int j = 0, k = end - c; k < end; ++j)
       for (uint32_t bits = nbits[lanes * j + lane]; bits; bits &= bits - 1)
-        pairs[k++] = static_cast<uint16_t>((lane << kPairY) | (32 * j + __ffs(bits) - 1));
+        pairs[k++] = static_cast<uint16_t>((lane << PY) | (32 * j + __ffs(bits) - 1));
     for (int i = lane; i < lanes * w; i += 32) viol[i] = 0u;
     __syncwarp();
-    if (np) test_pairs<T, KW>(net, dom, x0, n, d, K, pairs, np, viol, w, lane);
+    if (np) test_pairs<T, KW, PY>(net, dom, x0, n, d, K, pairs, np, viol, w, lane);
     __syncwarp();
     for (int l = 0; l < lanes && x0 + l * kWarps < x_end; ++l)
       store_flags(out + static_cast<size_t>(x0 + l * kWarps) * d, viol + l * w, d, lane);
@@ -386,7 +400,7 @@ __global__ void __launch_bounds__(kThreads) revise_stacked_kernel(
   const size_t slot = static_cast<size_t>(slot_r);
   load_row(dom, dom_in + static_cast<size_t>(r) * n * K, dom_bytes);
   __syncthreads();
-  revise_vars<T, KW>(cons + slot * static_cast<size_t>(nd) * n * K, mask + slot * n * n,
+  revise_vars<T, KW, kPairY>(cons + slot * static_cast<size_t>(nd) * n * K, mask + slot * n * n,
                      nullptr, dom, S.seed, S.nbits, S.viol, S.pairs, out, 0, n, n, d, K, lanes,
                      warp, lane);
 }
@@ -396,17 +410,20 @@ __global__ void __launch_bounds__(kThreads) revise_stacked_kernel(
 __host__ __device__ inline int mbits_bytes(int n, int span) { return 4 * ((n + 31) / 32) * span; }
 
 // B rows against one network: CTA (r, s) revises row r's variables
-// [s·span, (s+1)·span); span is a multiple of 8. The CTA's mask rows go to
-// shared memory as bits, each 8 flags one load, and a thread's first load
-// is issued before the seed's, so the two take one round together.
-template <typename T, int KW>  // KW: words per entry, or 0: k_arg at run time
+// [s·span, (s+1)·span); span is a multiple of 8. The network may be an
+// x-block: its nx rows of variables (network and mask rows, outputs) against
+// all n neighbours (seed and domain); nx = n is the whole network. The CTA's
+// mask rows go to shared memory as bits, each 8 flags one load, and a
+// thread's first load is issued before the seed's, so the two take one
+// round together.
+template <typename T, int KW, int PY>  // KW: words per entry, or 0: k_arg at run time
 __global__ void __launch_bounds__(kThreads) revise_single_kernel(
-    const T* __restrict__ net,            // (n*d, n*K) the network
-    const uint8_t* __restrict__ mask,     // (n, n)
+    const T* __restrict__ net,            // (nx*d, n*K) the network's x-block
+    const uint8_t* __restrict__ mask,     // (nx, n)
     const T* __restrict__ dom_in,         // (B, n*K) domains
     const uint8_t* __restrict__ seed_in,  // (B, n) revision seed
-    uint8_t* __restrict__ viol_out,       // (B, n*d)
-    int n, int d, int k_arg, int span) {
+    uint8_t* __restrict__ viol_out,       // (B, nx*d)
+    int nx, int n, int d, int k_arg, int span) {
   const int K = KW > 0 ? KW : k_arg;
   const int lanes = owner_lanes(span);
   const Smem L(n, d, mbits_bytes(n, span), lanes);
@@ -416,7 +433,7 @@ __global__ void __launch_bounds__(kThreads) revise_single_kernel(
   uint8_t* mbits = revise_smem;  // row v - x_begin: 4·ceil(n/32) bytes, flags of y = 8b.. in byte b
 
   const int r = blockIdx.x;
-  const int x_begin = blockIdx.y * span, x_end = min(n, x_begin + span);
+  const int x_begin = blockIdx.y * span, x_end = min(nx, x_begin + span);
   const int groups = (n + 7) / 8, nb = 4 * ((n + 31) / 32);
   const int items = (x_end - x_begin) * groups;  // (variable, 8-flag group) pairs
   // with n a multiple of 8 the span's mask rows are items aligned u64 words
@@ -424,7 +441,7 @@ __global__ void __launch_bounds__(kThreads) revise_single_kernel(
   const uint8_t* mrows = mask + static_cast<size_t>(x_begin) * n;
   const u64* mwords = reinterpret_cast<const u64*>(mrows);
   const u64 first = wide && tid < items ? __ldg(mwords + tid) : 0ull;
-  uint8_t* out = viol_out + static_cast<size_t>(r) * n * d;
+  uint8_t* out = viol_out + static_cast<size_t>(r) * nx * d;
   if (!row_seed_bits(seed_in + static_cast<size_t>(r) * n, S.seed, n, lane)) {
     zero_row(out + static_cast<size_t>(x_begin) * d, (x_end - x_begin) * d);
     return;
@@ -443,9 +460,9 @@ __global__ void __launch_bounds__(kThreads) revise_single_kernel(
     mbits[v * nb + b] = static_cast<uint8_t>(f);  // bytes past `groups` are never written:
   }                                               // the seed's bits there are 0
   __syncthreads();
-  revise_vars<T, KW>(net, mask, reinterpret_cast<const uint32_t*>(mbits),
-                     dom_in + static_cast<size_t>(r) * n * K, S.seed, S.nbits, S.viol, S.pairs,
-                     out, x_begin, x_end, n, d, K, lanes, warp, lane);
+  revise_vars<T, KW, PY>(net, mask, reinterpret_cast<const uint32_t*>(mbits),
+                         dom_in + static_cast<size_t>(r) * n * K, S.seed, S.nbits, S.viol,
+                         S.pairs, out, x_begin, x_end, n, d, K, lanes, warp, lane);
 }
 
 // Whether the kernels take (n, d, K): a pair's neighbour has kPairY bits,
@@ -501,12 +518,55 @@ int launch_single(const void* net, const void* mask, const void* dom_in, const v
     return static_cast<int>(cudaErrorInvalidValue);
   if (span == 0) span = single_span(rows, n);
   return static_cast<int>(fixpoint::launch_rows(
-      revise_single_kernel<T, KW>, dim3(rows, (n + span - 1) / span),
+      revise_single_kernel<T, KW, kPairY>, dim3(rows, (n + span - 1) / span),
       Smem(n, d, mbits_bytes(n, span), owner_lanes(span)).total,
       static_cast<cudaStream_t>(stream),
       static_cast<const T*>(net), static_cast<const uint8_t*>(mask),
       static_cast<const T*>(dom_in), static_cast<const uint8_t*>(seed_in),
-      static_cast<uint8_t*>(viol_out), n, d, k, span));
+      static_cast<uint8_t*>(viol_out), n, n, d, k, span));
+}
+
+// Shared memory of a single-network CTA with `span` variables.
+inline int single_smem(int n, int d, int span) {
+  return Smem(n, d, mbits_bytes(n, span), owner_lanes(span)).total;
+}
+
+// The block launcher's span: 8 where n needs kPairYWide (one owner lane a
+// warp); otherwise `single_span`'s rule over the block's nx variables,
+// narrowed by 8 at a time until the CTA's shared memory fits.
+// kernels/bitpack_support.py mirrors this rule (`block_span`).
+inline int block_span(int rows, int nx, int n, int d) {
+  if (n >= (1 << kPairY)) return kWarps;
+  int span = single_span(rows, nx);
+  while (span > kWarps && single_smem(n, d, span) > kSmemOptIn) span -= kWarps;
+  return span;
+}
+
+// Launch rows × ceil(nx / span) CTAs against an x-block of one network: its
+// nx variables' rows against all n neighbours. Takes n up to 2^kPairYWide - 1
+// (above 2^kPairY - 1 with one owner lane a warp, span 8, entries read at
+// run time); word offsets into the block stay 32-bit, so nx·d·n·K < 2^32.
+// `span` as for launch_single, over nx; 0 takes `block_span`.
+template <typename T, int KW>
+int launch_block(const void* net, const void* mask, const void* dom_in, const void* seed_in,
+                 void* viol_out, int rows, int nx, int n, int d, int k, int span,
+                 void* stream) {
+  if (rows <= 0 || nx <= 0) return 0;
+  const bool wide = n >= (1 << kPairY);
+  if (n >= (1 << kPairYWide) || static_cast<double>(nx) * d * n * k >= 4294967296.0 ||
+      span < 0 || span % kWarps != 0 || span > kWarps * ((nx + 7) / 8) ||
+      (wide && span > kWarps))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (span == 0) span = block_span(rows, nx, n, d);
+  const int smem = single_smem(n, d, span);
+  if (smem > kSmemOptIn) return static_cast<int>(cudaErrorInvalidValue);
+  const auto kernel = wide ? &revise_single_kernel<T, 0, kPairYWide>
+                           : &revise_single_kernel<T, KW, kPairY>;
+  return static_cast<int>(fixpoint::launch_rows(
+      kernel, dim3(rows, (nx + span - 1) / span), smem, static_cast<cudaStream_t>(stream),
+      static_cast<const T*>(net), static_cast<const uint8_t*>(mask),
+      static_cast<const T*>(dom_in), static_cast<const uint8_t*>(seed_in),
+      static_cast<uint8_t*>(viol_out), nx, n, d, k, span));
 }
 
 }  // namespace revise

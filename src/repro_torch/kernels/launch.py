@@ -24,7 +24,8 @@ SMEM_OPT_IN_LIMIT = 227 * 1024
 
 #: library -> {C launcher: (pointer arguments, int arguments)}; the stream
 #: follows. Stacked launchers take (rows, n, d[, w]) after their tensors,
-#: single-network launchers the same without the row→slot map. Each
+#: single-network launchers the same without the row→slot map, block
+#: launchers (an x-block of one network) (rows, nx, n, d[, w]). Each
 #: launcher has a ``<launcher>_sched`` variant that takes one more int, a
 #: launch schedule (`autotune`), after them; the plain launcher is that
 #: variant with the default schedule.
@@ -33,9 +34,11 @@ SIGNATURES = {
               **{f"{name}_sched": (ptrs, ints + 1) for name, (ptrs, ints) in launchers.items()}}
     for library, launchers in {
         "packed_fixpoint": {"packed_fixpoint_stacked_launch": (8, 4)},
-        "packed_revise": {"packed_revise_stacked_launch": (6, 4), "packed_revise_launch": (5, 4)},
+        "packed_revise": {"packed_revise_stacked_launch": (6, 4), "packed_revise_launch": (5, 4),
+                          "packed_revise_block_launch": (5, 5)},
         "dense_fixpoint": {"dense_fixpoint_stacked_launch": (8, 3)},
-        "dense_revise": {"dense_revise_stacked_launch": (6, 3), "dense_revise_launch": (5, 3)},
+        "dense_revise": {"dense_revise_stacked_launch": (6, 3), "dense_revise_launch": (5, 3),
+                         "dense_revise_block_launch": (5, 4)},
     }.items()
 }
 
@@ -75,22 +78,61 @@ def single_revise_smem(n: int, d: int) -> int:
     return revise_smem(n, d, 4 * -(-n // 32) * CTA_WARPS * -(-n // CTA_WARPS))
 
 
+#: the single-network layout's bits of a pair's neighbour (``kPairY`` in
+#: csrc/revise_common.cuh): from n = 2^PAIR_Y on, a block launch has one
+#: owner lane a warp and a span of 8 variables
+PAIR_Y = 11
+
+
+def single_smem(n: int, d: int, span: int) -> int:
+    """Shared memory of one single-network revise CTA revising ``span``
+    variables (``single_smem`` in csrc/revise_common.cuh)."""
+    lanes = min(32, -(-span // CTA_WARPS))
+    nwn, w = -(-n // 32), -(-d // 32)
+    return (4 * nwn * span + 4 * CTA_WARPS * (nwn + lanes * (nwn + w))
+            + 2 * CTA_WARPS * lanes * n)
+
+
+def block_span(rows: int, nx: int, n: int, d: int, sms: int) -> int:
+    """The span of variables a block launch gives a CTA (``block_span`` in
+    csrc/revise_common.cuh): 8 from n = 2^PAIR_Y on, else the
+    single-network rule over the block's nx variables for a card of ``sms``
+    SMs, narrowed by 8 at a time until a CTA's shared memory fits."""
+    from .autotune import single_span
+
+    if n >= 1 << PAIR_Y:
+        return CTA_WARPS
+    span = single_span(rows, nx, sms)
+    while span > CTA_WARPS and single_smem(n, d, span) > SMEM_OPT_IN_LIMIT:
+        span -= CTA_WARPS
+    return span
+
+
 def check_operands(cons: Tensor, mask: Tensor, idx: Optional[Tensor], dom: Tensor,
-                   changed: Tensor, *, d: int, cols: int, word: torch.dtype) -> Tuple[int, int]:
-    """Validate a kernel's operands; returns (rows, n).
+                   changed: Tensor, *, d: int, cols: int, word: torch.dtype,
+                   block: bool = False) -> Tuple[int, ...]:
+    """Validate a kernel's operands; returns (rows, n), with ``block``
+    (rows, nx, n).
 
     ``cons`` holds ``cols`` columns of dtype ``word`` per variable: a slot
     table (C, n·d, n·cols) read through ``idx`` (R,) int32, or, with ``idx``
-    None, one network (n·d, n·cols). ``dom`` is (R, n·cols) ``word``,
-    ``changed`` (R, n) u8, ``mask`` (C, n, n) or (n, n) u8."""
+    None, one network (n·d, n·cols), or with ``block`` an x-block of one:
+    the rows of nx variables against all n, (nx·d, n·cols). ``dom`` is
+    (R, n·cols) ``word``, ``changed`` (R, n) u8, ``mask`` (C, n, n), (n, n)
+    or (nx, n) u8."""
     lead = tuple(cons.shape[:1]) if idx is not None else ()
     if cons.dim() != len(lead) + 2:
         raise ValueError(f"cons: want {len(lead) + 2} dims, got shape {tuple(cons.shape)}")
-    n = cons.shape[-2] // d
+    if block:
+        if idx is not None or mask.dim() != 2:
+            raise ValueError("a block takes one network: no idx, mask (nx, n)")
+        nx, n = mask.shape
+    else:
+        nx = n = cons.shape[-2] // d
     r = (idx if idx is not None else dom).shape[0]
     expect = {
-        "cons": (cons, word, (*lead, n * d, n * cols)),
-        "mask": (mask, torch.uint8, (*lead, n, n)),
+        "cons": (cons, word, (*lead, nx * d, n * cols)),
+        "mask": (mask, torch.uint8, (*lead, nx, n)),
         "dom": (dom, word, (r, n * cols)),
         "changed": (changed, torch.uint8, (r, n)),
     }
@@ -105,7 +147,7 @@ def check_operands(cons: Tensor, mask: Tensor, idx: Optional[Tensor], dom: Tenso
             raise ValueError(f"{name} must be contiguous")
     if cons.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {cons.device}")
-    return r, n
+    return (r, nx, n) if block else (r, n)
 
 
 def check_smem(kernel: str, nbytes: int, layout: str) -> None:

@@ -19,7 +19,10 @@ and read each row's network in place — no per-round gathered copy:
 - :func:`dense_revise` — one revise step of B domains against ONE network,
   a CTA per (row, span of variables) (``csrc/dense_revise.cu`` with
   ``csrc/revise_common.cuh``; the single-network path of
-  ``enforce``/``enforce_batch`` and so of ``mac_solve``).
+  ``enforce``/``enforce_batch`` and so of ``mac_solve``);
+- :func:`dense_revise_block` — the same kernel on an x-block of one network:
+  this rank's rows of a sharded network against all n variables (the u8
+  local revise of `repro_torch.core.sharded`).
 
 The kernels read each (x·a, y) slice as d/8 eight-byte words, so d must be a
 multiple of 8 (`ops.D_MULT`) and cons/dom 8-byte aligned.
@@ -36,8 +39,8 @@ from typing import Optional
 import torch
 
 from . import autotune
-from .launch import (check_operands, check_smem, fixpoint_smem, launch, revise_smem,
-                     single_revise_smem)
+from .launch import (block_span, check_operands, check_smem, fixpoint_smem, launch,
+                     revise_smem, single_revise_smem, single_smem)
 
 Tensor = torch.Tensor
 
@@ -46,34 +49,36 @@ _WORD_BYTES = 8
 
 
 def _check(cons: Tensor, mask: Tensor, idx: Optional[Tensor], dom: Tensor, changed: Tensor,
-           d: int):
-    """Validate the dense kernels' operands (``idx`` None: one network);
-    returns (rows, n)."""
+           d: int, block: bool = False):
+    """Validate the dense kernels' operands (``idx`` None: one network;
+    ``block``: an x-block of one); returns (rows, n), or (rows, nx, n)."""
     if d % _WORD_BYTES:
         raise ValueError(f"d={d} is not a multiple of {_WORD_BYTES}")
-    r, n = check_operands(cons, mask, idx, dom, changed, d=d, cols=d, word=torch.uint8)
+    dims = check_operands(cons, mask, idx, dom, changed, d=d, cols=d, word=torch.uint8,
+                          block=block)
     for name, t in (("cons", cons), ("dom", dom)):
         if t.data_ptr() % _WORD_BYTES:
             raise ValueError(f"{name} must be {_WORD_BYTES}-byte aligned")
-    return r, n
+    return dims
 
 
-def _revise_chunk_rows(n: int, d: int) -> int:
+def _revise_chunk_rows(n: int, d: int, nx: Optional[int] = None) -> int:
     """Rows per chunk of the plain revise (bounds its gathered working set:
     one (n·d, n·d) u8 network is 17.3 MB at n=104, d=40)."""
-    return max(1, (1 << 28) // (n * d * n * d))
+    return max(1, (1 << 28) // ((n if nx is None else nx) * d * n * d))
 
 
 def _revise_rows_plain(net: Tensor, mask: Tensor, dom: Tensor, changed: Tensor,
                        n: int, d: int) -> Tensor:
-    """violated (rows, n·d) u8 of ``rows`` domains against ``net`` (rows or 1,
-    n·d, n·d) with ``mask`` (rows or 1, n, n)."""
-    rows = dom.shape[0]
-    net = net.view(-1, n, d, n, d)  # (rows, x, a, y, b)
+    """violated (rows, nx·d) u8 of ``rows`` domains against ``net`` (rows or
+    1, nx·d, n·d) with ``mask`` (rows or 1, nx, n); nx = n for a whole
+    network."""
+    rows, nx = dom.shape[0], mask.shape[-2]
+    net = net.view(-1, nx, d, n, d)  # (rows, x, a, y, b)
     has = ((net & dom.view(rows, 1, 1, n, d)) != 0).any(dim=-1)  # (rows, x, a, y)
     has |= mask.bool()[:, :, None, :].logical_not()
     seed = changed.bool()[:, None, None, :]
-    return (seed & ~has).any(dim=-1).view(rows, n * d).to(torch.uint8)
+    return (seed & ~has).any(dim=-1).view(rows, nx * d).to(torch.uint8)
 
 
 # ---------------------------------------------------------------------------
@@ -228,8 +233,61 @@ def dense_revise(cons: Tensor, mask: Tensor, dom: Tensor, changed: Tensor, *,
 dense_revise.launches = 0
 
 
+# ---------------------------------------------------------------------------
+# One revise step against an x-block of one network (the sharded path)
+# ---------------------------------------------------------------------------
+
+#: network bytes a chunk of the plain block revise covers at most
+_BLOCK_CHUNK_BYTES = 1 << 28
+
+
+def dense_revise_block_plain(cons: Tensor, mask: Tensor, dom: Tensor, changed: Tensor, *,
+                             d: int) -> Tensor:
+    """Plain PyTorch version of `dense_revise_block`, in chunks of x-rows
+    and of domains."""
+    b, nx, n = _check(cons, mask, None, dom, changed, d, block=True)
+    out = torch.empty((b, nx * d), dtype=torch.uint8, device=cons.device)
+    xs = max(1, _BLOCK_CHUNK_BYTES // (d * n * d))
+    for x0 in range(0, nx, xs):
+        x1 = min(nx, x0 + xs)
+        net, m = cons[x0 * d:x1 * d][None], mask[x0:x1][None]
+        step = _revise_chunk_rows(n, d, x1 - x0)
+        for s in range(0, b, step):
+            out[s:s + step, x0 * d:x1 * d] = _revise_rows_plain(
+                net, m, dom[s:s + step], changed[s:s + step], n, d)
+    return out
+
+
+def dense_revise_block(cons: Tensor, mask: Tensor, dom: Tensor, changed: Tensor, *,
+                       d: int) -> Tensor:
+    """B dense revisions against an x-block of ONE network: the rows of nx
+    variables against all n (one rank's share of a network sharded over its
+    variables).
+
+    cons (nx·d, n·d) u8, mask (nx, n) u8, dom (B, n·d) u8, changed (B, n) u8
+    -> violated (B, nx·d) u8. With nx = n it equals `dense_revise`. The span
+    of variables a CTA revises is `block_span`'s (8 from n = 2048 on); a
+    CTA's shared memory is checked for that span."""
+    b, nx, n = _check(cons, mask, None, dom, changed, d, block=True)
+    if cons.device.type == "cpu":
+        return dense_revise_block_plain(cons, mask, dom, changed, d=d)
+    sms = torch.cuda.get_device_properties(cons.device).multi_processor_count
+    span = block_span(b, nx, n, d, sms)
+    check_smem("dense_revise_block", single_smem(n, d, span), f"n={n}, d={d}, span={span}")
+    out = torch.empty((b, nx * d), dtype=torch.uint8, device=cons.device)
+    if b and nx:
+        launch("dense_revise", "dense_revise_block_launch", [cons, mask, dom, changed, out],
+               b, nx, n, d, sched=span)
+        dense_revise_block.launches += 1
+    return out
+
+
+dense_revise_block.launches = 0
+
+
 def reset_launches() -> None:
     """Zero every wrapper's launch count."""
     dense_revise_stacked.launches = 0
     dense_fixpoint_stacked.launches = 0
     dense_revise.launches = 0
+    dense_revise_block.launches = 0

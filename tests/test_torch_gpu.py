@@ -200,6 +200,90 @@ def test_single_network_kernels_match_plain_on_mac_solve_rows(cuda, shape, rows,
         assert not want[1::2].any() and want[::2].any()
 
 
+#: x-block cases of the block kernels: the single-network shapes' row mixes,
+#: each cut to nx = 8, n/2 and n variables
+BLOCK_CASES = [(shape, rows) for shape, rows in SINGLE_CASES
+               if rows in ("root_b1", "multi_seed_b4", "one_hot_b64", "multi_seed_b1024")]
+
+
+def _x_block(args, d_p, kind, nx, x0):
+    """A single-network case's operands cut to the rows of variables
+    [x0, x0 + nx): (network rows, mask rows, domains, seeds)."""
+    cons, mask, dom, seed = args
+    return (cons[x0 * d_p:(x0 + nx) * d_p].contiguous(), mask[x0:x0 + nx].contiguous(),
+            dom, seed)
+
+
+@pytest.mark.parametrize("kind", ["packed", "dense"])
+@pytest.mark.parametrize("cut", ["nx8", "half", "all"])
+@pytest.mark.parametrize("shape,rows", BLOCK_CASES)
+def test_block_kernels_match_plain_on_x_blocks(cuda, shape, rows, cut, kind):
+    """`packed_revise_block` and `dense_revise_block` bit for bit against
+    their plain versions on x-blocks of 8, n/2 and n variables, and equal to
+    the same rows of the single-network kernel's output."""
+    family, knobs = SINGLE_SHAPES[shape]
+    args, d_p = _single_rows(generate(family, seed=0, device=cuda, **knobs), rows, cuda, kind,
+                             unpadded=shape == "n30_unpadded")
+    n = args[1].shape[0]
+    nx = {"nx8": 8, "half": n // 2, "all": n}[cut]
+    x0 = (n - nx) // 2  # a block inside the network, not at its start
+    mod, kw = (bs, dict(d=d_p, w=-(-d_p // 32))) if kind == "packed" else (rs, dict(d=d_p))
+    block = _x_block(args, d_p, kind, nx, x0)
+    mod.reset_launches()
+    got = getattr(mod, f"{kind}_revise_block")(*block, **kw)
+    want = getattr(mod, f"{kind}_revise_block_plain")(*block, **kw)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    whole = getattr(mod, f"{kind}_revise")(*args, **kw)
+    torch.testing.assert_close(got, whole[:, x0 * d_p:(x0 + nx) * d_p], rtol=0, atol=0)
+    assert getattr(mod, f"{kind}_revise_block").launches == 1
+
+
+@pytest.mark.parametrize("kind", ["packed", "dense"])
+@pytest.mark.parametrize("shape,rows", SINGLE_CASES)
+def test_block_kernels_square_call_equals_single_network_kernel(cuda, shape, rows, kind):
+    """With nx = n the block form is the single-network kernel, bit for bit,
+    on every shape and row mix that kernel is tested on."""
+    family, knobs = SINGLE_SHAPES[shape]
+    args, d_p = _single_rows(generate(family, seed=0, device=cuda, **knobs), rows, cuda, kind,
+                             unpadded=shape == "n30_unpadded")
+    mod, kw = (bs, dict(d=d_p, w=-(-d_p // 32))) if kind == "packed" else (rs, dict(d=d_p))
+    torch.testing.assert_close(getattr(mod, f"{kind}_revise_block")(*args, **kw),
+                               getattr(mod, f"{kind}_revise")(*args, **kw), rtol=0, atol=0)
+
+
+def _production_block(nx, device, b=4, n=4096, d=32, seed=0):
+    """Packed operands at the reference's production shape (n=4096, d=32,
+    W=1) for an x-block of ``nx`` variables: sparse network words (about a
+    quarter of the bits set), 3 % of pairs constrained, domains with about
+    a third of their values live; a root row, a row with 40 seeds, a
+    seedless row and a one-hot row."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    words = lambda *shape: torch.randint(-2**31, 2**31, shape, dtype=torch.int32, device=device,
+                                         generator=g)
+    cons = words(nx * d, n) & words(nx * d, n)
+    mask = (torch.rand((nx, n), device=device, generator=g) < 0.03).to(torch.uint8)
+    dom = words(b, n) & (words(b, n) | words(b, n))
+    seed_rows = torch.zeros((b, n), dtype=torch.uint8, device=device)
+    seed_rows[0] = 1
+    seed_rows[1, torch.randperm(n, device=device, generator=g)[:40]] = 1
+    seed_rows[3, 17] = 1
+    return (cons, mask, dom, seed_rows[:b].contiguous()), dict(d=d, w=1)
+
+
+@pytest.mark.parametrize("nx", [8, 2048, 4096])
+def test_packed_block_kernel_at_production_shape(cuda, nx):
+    """n=4096, d=32 (the reference's production CSP; a 2 GiB packed network
+    at nx = n): pairs need the wide neighbour encoding, and a CTA revises 8
+    variables."""
+    args, kw = _production_block(nx, cuda)
+    bs.reset_launches()
+    got = bs.packed_revise_block(*args, **kw)
+    want = bs.packed_revise_block_plain(*args, **kw)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    assert bs.packed_revise_block.launches == 1
+    assert want[0].any() and not want[2].any()
+
+
 #: stacked-kernel edge cases: case -> (family, knobs); the case also picks
 #: the rows' seeds and domains in `_edge_rows`
 EDGE_CASES = {

@@ -31,6 +31,10 @@ def test_port_and_chip_smoke_import_no_jax_and_no_reference():
         "import repro_torch.obs.export, repro_torch.obs.__main__, repro_torch.launch.serve\n"
         "import repro_torch.problems.coloring, repro_torch.problems.structured\n"
         "import repro_torch.sweeps, repro_torch.sweeps.__main__, repro_torch.kernels.autotune\n"
+        "import repro_torch.launch.mesh, repro_torch.parallel.comm_stats\n"
+        "import repro_torch.parallel.sharding, repro_torch.core.sharded\n"
+        "import repro_torch.engines.sharded, repro_torch.launch.dryrun_rtac\n"
+        "import repro_torch.launch.distributed_ac\n"
         f"spec = importlib.util.spec_from_file_location('chip_smoke', {os.path.join(ROOT, 'chip_smoke.py')!r})\n"
         "mod = importlib.util.module_from_spec(spec); spec.loader.exec_module(mod)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
@@ -54,7 +58,7 @@ def test_entry_points_default_to_the_card():
                  lambda: SolverService(engine="hopper_dense"),
                  lambda: serve(duration=0.5, quiet=True),
                  lambda: run_spec(load_spec("smoke"), progress=None),
-                 lambda: autotune.tune("packed", 16, 8)):
+                 lambda: autotune.tune("packed", 16, 8), lambda: get_engine("sharded")):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             make()
 

@@ -1,0 +1,261 @@
+"""The port's sharded path against the reference's.
+
+- The reference's `shard_map` enforcer on a (data=2, model=4) mesh of 8 host
+  devices (a subprocess with ``XLA_FLAGS``) and the port's 8 gloo processes
+  (`tests/torch_sharded_worker.py`, a `FileStore` under ``tmp_path``, one
+  spawn for every case) on the same numpy inputs: `dom`, `consistent` and
+  per-domain `k` identical for ``einsum`` on bf16 and u8 and for
+  ``bitpacked``; every model rank of a data shard holds the same result;
+  the port's engine on 3 domains (padded to the data extent) equals the
+  reference's first 3.
+- The port's recorded collectives per recurrence equal `collective_stats`
+  of the reference's compiled HLO on that mesh and shape.
+- `mac_solve` and `solve_many` on the port's ``sharded`` engine (a one-rank
+  gloo world) equal the reference's ``sharded`` engine.
+- The block kernels' plain versions against slices of the reference's
+  single-network kernels (interpret mode) and `kernels/ref.py`.
+"""
+
+import json
+import os
+import subprocess
+import sys
+import textwrap
+
+import numpy as np
+import pytest
+import torch
+
+from repro.core import random_csp as ref_random_csp
+from repro.core import mac_solve as ref_mac_solve, solve_many as ref_solve_many
+from repro.kernels import bitpack_support as ref_bs, ref as ref_ref, rtac_support as ref_rs
+from repro.problems import generate as ref_generate
+
+from repro_torch.core import mac_solve, solve_many
+from repro_torch.core.csp import csp_from_numpy
+from repro_torch.kernels import bitpack_support as bs, ref, rtac_support as rs
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SRC = os.path.join(ROOT, "src")
+#: each multi-process run's own limit (seconds)
+SPAWN_TIMEOUT = 120
+WORLD = 8
+SEEDS = (3, 7, 11)
+IMPLS = [("einsum", "bfloat16"), ("einsum", "uint8"), ("bitpacked", "bfloat16")]
+CASES = [f"{seed}-{impl}-{dtype}" for seed in SEEDS for impl, dtype in IMPLS]
+N, D, B = 16, 8, 4
+
+
+def _inputs(seed):
+    """``random_csp(16, 8, 0.7, 0.4, seed)`` and B=4 domains: the root with
+    every variable seeded, then three with one variable assigned (seeded
+    one-hot, plus a few more seeds), one of them also with a value of
+    another variable removed."""
+    csp = ref_random_csp(N, D, 0.7, 0.4, seed=seed)
+    cons, mask, dom = (np.asarray(a) for a in (csp.cons, csp.mask, csp.dom))
+    rng = np.random.default_rng(seed)
+    doms = np.repeat(dom[None], B, axis=0)
+    changed = np.zeros((B, N), dtype=bool)
+    changed[0] = True
+    for i in range(1, B):
+        var, val = rng.integers(N), rng.integers(D)
+        doms[i, var] = False
+        doms[i, var, val] = True
+        changed[i, var] = True
+        changed[i] |= rng.random(N) < 0.15
+    doms[2, (3 + seed) % N, :2] = False
+    return cons, mask, doms, changed
+
+
+REFERENCE = textwrap.dedent(
+    """
+    import os, sys, json
+    os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
+    sys.path.insert(0, {src!r})
+    import jax.numpy as jnp, numpy as np
+    from repro.core.sharded import make_sharded_enforcer, shard_csp_arrays
+    from repro.kernels.ref import pack_bits_ref
+    from repro.launch.mesh import make_mesh
+    from repro.parallel.hlo_stats import collective_stats
+
+    mesh = make_mesh((2, 4), ("data", "model"))
+    data = np.load({inputs!r})
+    out, stats = {{}}, {{}}
+    for case in {cases!r}:
+        _seed, impl, dtype = case.split("-")
+        cons, mask, doms, changed = (data[case + "_" + f] for f in
+                                     ("cons", "mask", "doms", "changed"))
+        cons = pack_bits_ref(jnp.asarray(cons)) if impl == "bitpacked" else jnp.asarray(cons)
+        enf = make_sharded_enforcer(mesh, dtype=getattr(jnp, dtype), impl=impl)
+        cs, ms, ds = shard_csp_arrays(mesh, cons, jnp.asarray(mask), jnp.asarray(doms))
+        ch = jnp.asarray(changed)
+        res = enf(cs, ms, ds, ch)
+        for name, a in zip(("dom", "consistent", "k"), res):
+            out[case + "_" + name] = np.asarray(a)
+        stats[case] = collective_stats(enf.lower(cs, ms, ds, ch).compile().as_text())
+    np.savez({out!r}, **out)
+    open({stats!r}, "w").write(json.dumps(stats))
+    """
+)
+
+
+@pytest.fixture(scope="module")
+def spmd(tmp_path_factory):
+    """Both packages on every case: the reference's 8-device run and the
+    port's 8 ranks, started together."""
+    tmp = tmp_path_factory.mktemp("spmd")
+    inputs = tmp / "inputs.npz"
+    arrays = {}
+    for case in CASES:
+        for field, a in zip(("cons", "mask", "doms", "changed"), _inputs(int(case.split("-")[0]))):
+            arrays[f"{case}_{field}"] = a
+    np.savez(inputs, **arrays)
+    env = {**os.environ, "PYTHONPATH": SRC, "OMP_NUM_THREADS": "1"}
+    ranks = [subprocess.Popen(
+        [sys.executable, os.path.join(ROOT, "tests", "torch_sharded_worker.py"),
+         str(tmp / "store"), str(r), str(WORLD), str(inputs), str(tmp)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env)
+        for r in range(WORLD)]
+    try:
+        code = REFERENCE.format(src=SRC, inputs=str(inputs), cases=CASES,
+                                out=str(tmp / "reference.npz"), stats=str(tmp / "hlo.json"))
+        ref_run = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                                 timeout=SPAWN_TIMEOUT)
+        logs = [p.communicate(timeout=SPAWN_TIMEOUT)[0] for p in ranks]
+    finally:
+        for p in ranks:
+            p.kill()
+    assert ref_run.returncode == 0, ref_run.stderr[-3000:]
+    for r, (p, log) in enumerate(zip(ranks, logs)):
+        assert p.returncode == 0, f"rank {r}:\n{log[-3000:]}"
+    port = [dict(np.load(tmp / f"rank{r}.npz")) for r in range(WORLD)]
+    records = [json.loads((tmp / f"rank{r}.json").read_text()) for r in range(WORLD)]
+    return (arrays, dict(np.load(tmp / "reference.npz")), json.loads((tmp / "hlo.json").read_text()),
+            port, records)
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_eight_gloo_ranks_equal_the_reference_shard_map(spmd, case):
+    arrays, want, _hlo, port, _records = spmd
+    for name in ("dom", "consistent", "k"):
+        # rank r holds data shard r // 4; its 4 model ranks agree
+        shards = []
+        for data_index in range(2):
+            got = [port[r][f"{case}_{name}"] for r in range(4 * data_index, 4 * data_index + 4)]
+            for g in got[1:]:
+                np.testing.assert_array_equal(g, got[0])
+            shards.append(got[0])
+        np.testing.assert_array_equal(np.concatenate(shards), want[f"{case}_{name}"])
+        for r in range(WORLD):  # the engine: 3 domains, padded to 4, gathered on every rank
+            np.testing.assert_array_equal(port[r][f"{case}_engine_{name}"],
+                                          want[f"{case}_{name}"][:3])
+    assert want[f"{case}_k"].max() >= 2
+
+
+@pytest.mark.parametrize("impl", [f"{i}-{d}" for i, d in IMPLS])
+def test_collectives_per_recurrence_equal_the_reference_hlo(spmd, impl):
+    """One all-gather a recurrence, 256 result bytes (2 local domains ·
+    16 · 8 bool) and 192 wire bytes, as the reference's HLO counts it."""
+    from repro_torch.parallel.comm_stats import Collective, collective_stats
+
+    _arrays, want, hlo, port, records = spmd
+    for seed in SEEDS:
+        case = f"{seed}-{impl}"
+        assert hlo[case] == {"all-gather": {"count": 1, "result_bytes": 256.0,
+                                            "wire_bytes": 192.0}}
+        for r in range(WORLD):
+            log = [Collective(*c) for c in records[r][case]]
+            assert len(set(log)) == 1
+            assert len(log) == port[r][f"{case}_k"].max()  # one all-gather a recurrence
+            assert collective_stats(log[:1]) == hlo[case]
+
+
+#: `mac_solve` / `solve_many` instances: model_rb at n = 12-20
+SEARCH = [dict(n=n, hardness=0.9) for n in (12, 14, 17, 20)]
+BUDGET = 200
+
+
+def _stats_key(st):
+    """Every SearchStats field except enforce_seconds."""
+    return (st.n_assignments, st.n_backtracks, st.recurrences, st.revisions, st.exhausted,
+            st.rounds, st.rows, st.members, st.cancelled_members, st.quarantined, st.launches)
+
+
+@pytest.mark.parametrize("i", range(len(SEARCH)))
+def test_mac_solve_on_sharded_equals_the_reference(i):
+    csp = ref_generate("model_rb", seed=i, **SEARCH[i])
+    ref_sol, ref_st = ref_mac_solve(csp, engine="sharded", max_assignments=BUDGET)
+    port_csp = csp_from_numpy(*(np.asarray(a) for a in csp), device="cpu")
+    sol, st = mac_solve(port_csp, engine="sharded", device="cpu", max_assignments=BUDGET)
+    assert sol == ref_sol
+    assert _stats_key(st) == _stats_key(ref_st)
+
+
+@pytest.mark.parametrize("impl", ["einsum", "bitpacked"])
+def test_solve_many_on_sharded_equals_the_reference(impl):
+    from repro.engines import get_engine as ref_get_engine
+    from repro_torch.engines import get_engine
+
+    n = SEARCH[0]["n"]
+    csps = [ref_generate("model_rb", seed=s, n=n, hardness=0.9) for s in range(4)]
+    ref_sols, ref_stats = ref_solve_many(csps, engine=ref_get_engine("sharded", impl=impl),
+                                         max_assignments=BUDGET)
+    port = [csp_from_numpy(*(np.asarray(a) for a in c), device="cpu") for c in csps]
+    sols, stats = solve_many(port, engine=get_engine("sharded", device="cpu", impl=impl),
+                             max_assignments=BUDGET)
+    assert sols == ref_sols
+    assert [_stats_key(s) for s in stats] == [_stats_key(s) for s in ref_stats]
+
+
+def _single_network(n, d, b, seed=0):
+    """A random network at (n, d), b domains and seeds (root, one-hot,
+    several seeds, seedless), numpy."""
+    rng = np.random.default_rng(seed)
+    mask = rng.random((n, n)) < 0.4
+    mask = np.triu(mask, 1)
+    mask |= mask.T
+    cons = (rng.random((n, n, d, d)) < 0.25) & mask[:, :, None, None]
+    dom = rng.random((b, n, d)) < 0.5
+    changed = np.zeros((b, n), dtype=bool)
+    changed[0] = True
+    changed[1, 3] = True
+    changed[2] = rng.random(n) < 0.3
+    return cons, mask, dom, changed
+
+
+@pytest.mark.parametrize("n,d", [(24, 8), (16, 40)])
+@pytest.mark.parametrize("nx", [8, "half", "all"])
+@pytest.mark.parametrize("kind", ["packed", "dense"])
+def test_block_plain_equals_slices_of_the_reference_kernels(kind, nx, n, d):
+    """`packed_revise_block_plain` / `dense_revise_block_plain` on the rows
+    of nx variables equal those rows of the reference's single-network
+    kernels (interpret mode) and of `kernels/ref.py`'s revise."""
+    cons, mask, dom, changed = _single_network(n, d, 4)
+    nx = {"half": n // 2, "all": n}.get(nx, nx)
+    x0 = n - nx
+    w = -(-d // 32)
+    ch_u8 = changed.astype(np.uint8)
+    m_u8 = mask.astype(np.uint8)
+    if kind == "packed":
+        net = np.asarray(ref_ref.pack_bits_ref(cons)).transpose(0, 2, 1, 3).reshape(n * d, n * w)
+        rows = np.asarray(ref_ref.pack_bits_ref(dom)).reshape(4, n * w)
+        want = np.concatenate([np.asarray(ref_bs.packed_revise(
+            net, rows[i:i + 1], ch_u8[i:i + 1], m_u8, d=d, w=w)) for i in range(4)])
+        got = bs.packed_revise_block_plain(
+            torch.from_numpy(net[x0 * d:].view(np.int32).copy()),
+            torch.from_numpy(m_u8[x0:].copy()), torch.from_numpy(rows.view(np.int32).copy()),
+            torch.from_numpy(ch_u8), d=d, w=w)
+    else:
+        net = cons.transpose(0, 2, 1, 3).reshape(n * d, n * d).astype(np.uint8)
+        rows = dom.reshape(4, n * d).astype(np.uint8)
+        want = np.concatenate([np.asarray(ref_rs.dense_revise(
+            net, rows[i:i + 1], ch_u8[i:i + 1], m_u8, d=d)) for i in range(4)])
+        got = rs.dense_revise_block_plain(
+            torch.from_numpy(net[x0 * d:].copy()), torch.from_numpy(m_u8[x0:].copy()),
+            torch.from_numpy(rows), torch.from_numpy(ch_u8), d=d)
+    np.testing.assert_array_equal(got.numpy(), want[:, x0 * d:])
+    oracle = np.stack([ref.revise_ref(*(torch.from_numpy(a) for a in (cons, mask, dom[i],
+                                                                        changed[i])))
+                       .reshape(-1).numpy() for i in range(4)])
+    np.testing.assert_array_equal(got.numpy(), oracle[:, x0 * d:].astype(np.uint8))
+    assert want[0].any() and not want[3].any()
