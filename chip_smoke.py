@@ -93,7 +93,9 @@ Phases (any failure exits non-zero):
               512/16): dom, consistent and k bit for bit against the same
               fixpoint on `packed_revise_block_plain`; calls 1, 2 and 4 of
               kernel 3's block form against plain; the k histogram, ms a
-              recurrence and the all-gather record. (x2) At n=1024, B=8 the
+              recurrence, the all-gather record, and one run under
+              `torch.profiler` (device busy share, each kernel's share of
+              the wall time). (x2) At n=1024, B=8 the
               bitpacked, u8 (kernel 6's block form) and bf16 einsum variants
               agree; kernel 6's calls against plain. (x3) Two processes on
               the one card in a gloo world (`repro_torch.launch.
@@ -999,14 +1001,17 @@ class StackedCalls:
     module (the wrapper counts its launches on the module's name, so the
     recorder carries the count): for each (kernel, table shape, widths), the
     calls numbered in ``numbers`` (default `SERVICE_CHECKED_CALLS`), their
-    operands copied, since an install rewrites the slot tables in place.
-    ``names`` defaults to the stacked kernels."""
+    operands copied, since an install rewrites the slot tables in place,
+    but for the positions in ``shared``, kept as they are (the sharded
+    path's network and mask, placed once and never written). ``names``
+    defaults to the stacked kernels."""
 
     NAMES = [(name, kind) for name, kind, *_ in KERNELS if name.endswith("_stacked")]
 
-    def __init__(self, names=None, numbers=SERVICE_CHECKED_CALLS):
+    def __init__(self, names=None, numbers=SERVICE_CHECKED_CALLS, shared=()):
         self.names = self.NAMES if names is None else names
         self.numbers = numbers
+        self.shared = shared
 
     def __enter__(self):
         self.calls, self.seen, self.real = [], collections.Counter(), {}
@@ -1020,7 +1025,8 @@ class StackedCalls:
             key = (name, tuple(args[0].shape), tuple(sorted(kw.items())))
             self.seen[key] += 1
             if self.seen[key] in self.numbers:
-                self.calls.append((key, self.seen[key], tuple(a.clone() for a in args), kw))
+                self.calls.append((key, self.seen[key], tuple(
+                    a if i in self.shared else a.clone() for i, a in enumerate(args)), kw))
             return real(*args, **kw)
 
         record.launches = real.launches
@@ -1496,15 +1502,17 @@ def time_block(kind: str, args, kw, reps: int = 20) -> dict:
 
 def sharded_run(prepared, doms, kind: str):
     """One engine call with the block wrapper's count at 0 just before and
-    read just after, its calls `X_CHECKED_CALLS` recorded and its
-    collectives logged: (result, seconds, launches, recorder, log)."""
+    read just after, its calls `X_CHECKED_CALLS` recorded (the network
+    and mask not copied) and its collectives logged: (result, seconds,
+    launches, recorder, log)."""
     import torch
 
     from repro_torch.parallel import comm_stats
 
     reset_launches()
     name = f"{kind}_revise_block"
-    with StackedCalls([(name, kind)], X_CHECKED_CALLS) as rec, comm_stats.recording() as log:
+    with StackedCalls([(name, kind)], X_CHECKED_CALLS, shared=(0, 1)) as rec, \
+            comm_stats.recording() as log:
         t0 = time.perf_counter()
         res = prepared.enforce_batch(doms)
         torch.cuda.synchronize()
@@ -1590,6 +1598,15 @@ def phase_x_full(device):
     torch.cuda.synchronize()
     ms_rec = 1e3 * (time.perf_counter() - t0) / int(k.max())
     check(same_result(again, res), "[x1] a second run differs")
+
+    def run():
+        t0 = time.perf_counter()
+        prepared.enforce_batch(doms)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, int(k.max())
+
+    profiled(f"sharded bitpacked enforce_batch (x1, n={spec['n']} d={spec['d']} "
+             f"B={spec['batch']}; a round is a recurrence)", run)
     group, _size, index = axis_group(eng.mesh, ("model",))
     dom = torch.as_tensor(doms, device=device)
     t0 = time.perf_counter()

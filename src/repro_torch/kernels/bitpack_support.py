@@ -272,7 +272,7 @@ def packed_revise_block(cons: Tensor, mask: Tensor, dom_words: Tensor, changed: 
     out = torch.empty((b, nx * d), dtype=torch.uint8, device=cons.device)
     if b and nx:
         launch("packed_revise", "packed_revise_block_launch",
-               [cons, mask, dom_words, changed, out], b, nx, n, d, w, sched=span)
+               [cons, mask, dom_words, changed, out], b, nx, n, d, w, span)
         packed_revise_block.launches += 1
     return out
 

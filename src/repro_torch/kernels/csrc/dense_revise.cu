@@ -75,19 +75,13 @@ extern "C" int dense_revise_launch(
 
 // B rows against an x-block of one network (this rank's nx variables of a
 // sharded network, core/sharded.py): cons (nx·d, n·d), mask (nx, n), the
-// domains and seeds over all n variables, out (B, nx·d). With nx = n it is
-// the launch above. `span` as there, over nx; 0 takes revise::block_span.
-extern "C" int dense_revise_block_launch_sched(
+// domains and seeds over all n variables, out (B, nx·d), `span` variables
+// a CTA (kernels/launch.py's `block_span`). With nx = n and the same span
+// it is the launch above.
+extern "C" int dense_revise_block_launch(
     const void* cons, const void* mask, const void* dom_in, const void* seed_in,
     void* viol_out, int rows, int nx, int n, int d, int span, void* stream) {
   const auto run = d / 8 == 5 ? &revise::launch_block<revise::u64, 5>
                               : &revise::launch_block<revise::u64, 0>;
   return run(cons, mask, dom_in, seed_in, viol_out, rows, nx, n, d, d / 8, span, stream);
-}
-
-extern "C" int dense_revise_block_launch(
-    const void* cons, const void* mask, const void* dom_in, const void* seed_in,
-    void* viol_out, int rows, int nx, int n, int d, void* stream) {
-  return dense_revise_block_launch_sched(cons, mask, dom_in, seed_in, viol_out, rows, nx, n, d, 0,
-                                         stream);
 }

@@ -86,9 +86,10 @@ extern "C" int packed_revise_launch(
 
 // B rows against an x-block of one network (this rank's nx variables of a
 // sharded network, core/sharded.py): cons (nx·d, n·W), mask (nx, n), the
-// domains and seeds over all n variables, out (B, nx·d). With nx = n it is
-// the launch above. `span` as there, over nx; 0 takes revise::block_span.
-extern "C" int packed_revise_block_launch_sched(
+// domains and seeds over all n variables, out (B, nx·d), `span` variables
+// a CTA (kernels/launch.py's `block_span`). With nx = n and the same span
+// it is the launch above.
+extern "C" int packed_revise_block_launch(
     const void* cons, const void* mask, const void* dom_in, const void* seed_in,
     void* viol_out, int rows, int nx, int n, int d, int w, int span, void* stream) {
   if (wide_words(w, cons, dom_in))
@@ -96,11 +97,4 @@ extern "C" int packed_revise_block_launch_sched(
                                                 nx, n, d, 1, span, stream);
   return revise::launch_block<uint32_t, 0>(cons, mask, dom_in, seed_in, viol_out, rows, nx, n,
                                            d, w, span, stream);
-}
-
-extern "C" int packed_revise_block_launch(
-    const void* cons, const void* mask, const void* dom_in, const void* seed_in,
-    void* viol_out, int rows, int nx, int n, int d, int w, void* stream) {
-  return packed_revise_block_launch_sched(cons, mask, dom_in, seed_in, viol_out, rows, nx, n, d,
-                                          w, 0, stream);
 }

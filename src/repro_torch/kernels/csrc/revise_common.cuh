@@ -78,8 +78,7 @@
 // n neighbours, n up to 65535 (from 2048 on, pairs hold 16 neighbour bits
 // and a warp one owner lane, span 8). At the reference's production shape
 // (n=4096, d=32, B=32 rows, every variable seeded; measured on an H100,
-// PERF.md) a launch takes 2.04 ms: a test's entry sits alone in its
-// 32-byte sector and every row re-reads the 2 GiB network from HBM.
+// PERF.md) a launch takes 2.04 ms; what bounds it is not measured.
 #pragma once
 
 #include "fixpoint_common.cuh"
@@ -531,22 +530,12 @@ inline int single_smem(int n, int d, int span) {
   return Smem(n, d, mbits_bytes(n, span), owner_lanes(span)).total;
 }
 
-// The block launcher's span: 8 where n needs kPairYWide (one owner lane a
-// warp); otherwise `single_span`'s rule over the block's nx variables,
-// narrowed by 8 at a time until the CTA's shared memory fits.
-// kernels/bitpack_support.py mirrors this rule (`block_span`).
-inline int block_span(int rows, int nx, int n, int d) {
-  if (n >= (1 << kPairY)) return kWarps;
-  int span = single_span(rows, nx);
-  while (span > kWarps && single_smem(n, d, span) > kSmemOptIn) span -= kWarps;
-  return span;
-}
-
 // Launch rows × ceil(nx / span) CTAs against an x-block of one network: its
 // nx variables' rows against all n neighbours. Takes n up to 2^kPairYWide - 1
 // (above 2^kPairY - 1 with one owner lane a warp, span 8, entries read at
 // run time); word offsets into the block stay 32-bit, so nx·d·n·K < 2^32.
-// `span` as for launch_single, over nx; 0 takes `block_span`.
+// `span` (a multiple of 8, at most nx rounded up to 8; 8 from n = 2^kPairY
+// on) is the caller's: kernels/launch.py's `block_span`.
 template <typename T, int KW>
 int launch_block(const void* net, const void* mask, const void* dom_in, const void* seed_in,
                  void* viol_out, int rows, int nx, int n, int d, int k, int span,
@@ -554,10 +543,9 @@ int launch_block(const void* net, const void* mask, const void* dom_in, const vo
   if (rows <= 0 || nx <= 0) return 0;
   const bool wide = n >= (1 << kPairY);
   if (n >= (1 << kPairYWide) || static_cast<double>(nx) * d * n * k >= 4294967296.0 ||
-      span < 0 || span % kWarps != 0 || span > kWarps * ((nx + 7) / 8) ||
+      span <= 0 || span % kWarps != 0 || span > kWarps * ((nx + 7) / 8) ||
       (wide && span > kWarps))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (span == 0) span = block_span(rows, nx, n, d);
   const int smem = single_smem(n, d, span);
   if (smem > kSmemOptIn) return static_cast<int>(cudaErrorInvalidValue);
   const auto kernel = wide ? &revise_single_kernel<T, 0, kPairYWide>

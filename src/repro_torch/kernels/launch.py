@@ -22,24 +22,34 @@ Tensor = torch.Tensor
 #: more than 48 KB where a layout needs it
 SMEM_OPT_IN_LIMIT = 227 * 1024
 
-#: library -> {C launcher: (pointer arguments, int arguments)}; the stream
-#: follows. Stacked launchers take (rows, n, d[, w]) after their tensors,
-#: single-network launchers the same without the row→slot map, block
-#: launchers (an x-block of one network) (rows, nx, n, d[, w]). Each
-#: launcher has a ``<launcher>_sched`` variant that takes one more int, a
-#: launch schedule (`autotune`), after them; the plain launcher is that
+#: library -> {C launcher: (pointer arguments, int arguments)} of the
+#: launchers that take a launch schedule (`autotune`): stacked launchers take
+#: (rows, n, d[, w]) after their tensors, single-network launchers the same
+#: without the row→slot map. Each has a ``<launcher>_sched`` variant that
+#: takes one more int, the schedule, after them; the plain launcher is that
 #: variant with the default schedule.
+SCHEDULED = {
+    "packed_fixpoint": {"packed_fixpoint_stacked_launch": (8, 4)},
+    "packed_revise": {"packed_revise_stacked_launch": (6, 4), "packed_revise_launch": (5, 4)},
+    "dense_fixpoint": {"dense_fixpoint_stacked_launch": (8, 3)},
+    "dense_revise": {"dense_revise_stacked_launch": (6, 3), "dense_revise_launch": (5, 3)},
+}
+
+#: library -> {block launcher: (pointer arguments, int arguments)}: an
+#: x-block of one network, (rows, nx, n, d[, w], span) after the tensors;
+#: the span is always the caller's (`block_span`)
+BLOCK = {
+    "packed_revise": {"packed_revise_block_launch": (5, 6)},
+    "dense_revise": {"dense_revise_block_launch": (5, 5)},
+}
+
+#: library -> {C launcher: (pointer arguments, int arguments)}; the stream
+#: follows
 SIGNATURES = {
     library: {**launchers,
-              **{f"{name}_sched": (ptrs, ints + 1) for name, (ptrs, ints) in launchers.items()}}
-    for library, launchers in {
-        "packed_fixpoint": {"packed_fixpoint_stacked_launch": (8, 4)},
-        "packed_revise": {"packed_revise_stacked_launch": (6, 4), "packed_revise_launch": (5, 4),
-                          "packed_revise_block_launch": (5, 5)},
-        "dense_fixpoint": {"dense_fixpoint_stacked_launch": (8, 3)},
-        "dense_revise": {"dense_revise_stacked_launch": (6, 3), "dense_revise_launch": (5, 3),
-                         "dense_revise_block_launch": (5, 4)},
-    }.items()
+              **{f"{name}_sched": (ptrs, ints + 1) for name, (ptrs, ints) in launchers.items()},
+              **BLOCK.get(library, {})}
+    for library, launchers in SCHEDULED.items()
 }
 
 #: warps of one fused-fixpoint or stacked-revise CTA (``kWarps`` in
@@ -94,8 +104,8 @@ def single_smem(n: int, d: int, span: int) -> int:
 
 
 def block_span(rows: int, nx: int, n: int, d: int, sms: int) -> int:
-    """The span of variables a block launch gives a CTA (``block_span`` in
-    csrc/revise_common.cuh): 8 from n = 2^PAIR_Y on, else the
+    """The span of variables a block launch gives a CTA, which the block
+    launchers take from their caller: 8 from n = 2^PAIR_Y on, else the
     single-network rule over the block's nx variables for a card of ``sms``
     SMs, narrowed by 8 at a time until a CTA's shared memory fits."""
     from .autotune import single_span

@@ -277,7 +277,7 @@ def dense_revise_block(cons: Tensor, mask: Tensor, dom: Tensor, changed: Tensor,
     out = torch.empty((b, nx * d), dtype=torch.uint8, device=cons.device)
     if b and nx:
         launch("dense_revise", "dense_revise_block_launch", [cons, mask, dom, changed, out],
-               b, nx, n, d, sched=span)
+               b, nx, n, d, span)
         dense_revise_block.launches += 1
     return out
 

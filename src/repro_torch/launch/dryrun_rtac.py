@@ -9,7 +9,8 @@ production CSP (n=4096 vars, d=32 values, a batch of 512 search-node
 domains over (pod ×) data), allocating nothing:
 
 - per-rank argument bytes: this rank's network block in the variant's
-  layout (`core.sharded.block_layout`), its mask rows, and its shard of the
+  layout and its mask rows (`core.sharded.block_layout` and `mask_layout`
+  on "meta" tensors), and its shard of the
   domain batch and seeds (``memory_analysis.argument_size_in_bytes``), and
   its results (``output_size_in_bytes``);
 - per-recurrence collectives: one all-gather over ``model`` of the local
@@ -40,8 +41,7 @@ from typing import Dict, Sequence
 
 import torch
 
-from repro_torch.core.sharded import variant as layout_variant
-from repro_torch.kernels.ops import D_MULT
+from repro_torch.core.sharded import block_layout, mask_layout
 from repro_torch.parallel.comm_stats import Collective, collective_stats, total_wire_bytes
 
 ART_DIR = Path(__file__).resolve().parents[3] / "artifacts" / "dryrun_torch"
@@ -55,15 +55,14 @@ MESHES = {"single": ({"data": 16, "model": 16}, ("data",)),
           "multi": ({"pod": 2, "data": 16, "model": 16}, ("pod", "data"))}
 
 
-def block_nbytes(nx: int, n: int, d: int, impl: str, dtype: torch.dtype) -> int:
-    """Bytes of a rank's network block in `block_layout`'s layout."""
-    kind = layout_variant(impl, dtype)
-    if kind == "bitpacked":
-        return nx * d * n * -(-d // 32) * 4
-    if kind == "u8":
-        d_p = -(-d // D_MULT) * D_MULT
-        return nx * d_p * n * d_p
-    return nx * n * d * d * torch.finfo(dtype).bits // 8
+def layout_nbytes(nx: int, n: int, d: int, impl: str, dtype: torch.dtype) -> Dict[str, int]:
+    """Bytes of a rank's network block and mask rows: `block_layout` and
+    `mask_layout` of ``impl``/``dtype`` run on "meta" tensors, which
+    carry shapes and dtypes and allocate nothing."""
+    meta = torch.device("meta")
+    cons = block_layout(torch.empty((nx, n, d, d), dtype=torch.bool, device=meta), impl, dtype)
+    mask = mask_layout(torch.empty((nx, n), dtype=torch.uint8, device=meta), impl, dtype)
+    return {name: t.numel() * t.element_size() for name, t in (("cons", cons), ("mask", mask))}
 
 
 def recurrence_collectives(b_local: int, n: int, d: int, model: int) -> list:
@@ -84,8 +83,7 @@ def plan(variant: str, mesh_shape: Dict[str, int], batch_axes: Sequence[str],
         raise ValueError(f"n={n} over {model} model ranks, batch={batch} over {extent}")
     nx, b_local = n // model, batch // extent
     args = {
-        "cons": block_nbytes(nx, n, d, impl, dtype),
-        "mask": nx * n,
+        **layout_nbytes(nx, n, d, impl, dtype),
         "dom": b_local * n * d,
         "changed": b_local * n,
     }

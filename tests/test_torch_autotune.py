@@ -67,11 +67,16 @@ def test_launchers_have_scheduled_variants_and_obs_names_are_the_references():
 
     from repro_torch.kernels import launch
 
+    assert set(launch.SIGNATURES) == set(launch.SCHEDULED) >= set(launch.BLOCK)
     for library, launchers in launch.SIGNATURES.items():
-        plain = {k: v for k, v in launchers.items() if not k.endswith("_sched")}
-        assert plain and len(launchers) == 2 * len(plain), library
+        plain = launch.SCHEDULED[library]
+        block = launch.BLOCK.get(library, {})
+        assert plain and len(launchers) == 2 * len(plain) + len(block), library
         for name, (ptrs, ints) in plain.items():
+            assert launchers[name] == (ptrs, ints)
             assert launchers[f"{name}_sched"] == (ptrs, ints + 1)
+        for name, sig in block.items():  # the caller always gives a block launch's span
+            assert launchers[name] == sig and f"{name}_sched" not in launchers
     ref_source, source = inspect.getsource(ref_autotune), inspect.getsource(autotune)
     for name in ('"autotune.search"', '"autotune.tuned_buckets"', '"autotune.search_seconds"'):
         assert name in ref_source and name in source

@@ -132,6 +132,24 @@ def test_dryrun_per_recurrence_bytes_follow_comm_stats(mesh_kind):
         assert ("cost_analysis" in rec) == variant.startswith("einsum")
 
 
+@pytest.mark.parametrize("variant", list(dryrun_rtac.VARIANTS))
+def test_dryrun_argument_bytes_are_the_layouts_bytes(variant):
+    """The dry run's network and mask bytes are those of the blocks the
+    sharded path really builds: `block_layout` and `mask_layout` of a rank's
+    rows of a seeded network (d=10, so the u8 layout pads to 16)."""
+    from repro_torch.core.sharded import block_layout, mask_layout
+
+    n, d, model = 16, 10, 4
+    impl, dtype = dryrun_rtac.VARIANTS[variant]
+    rng = np.random.default_rng(0)
+    cons = torch.as_tensor(rng.random((n // model, n, d, d)) < 0.5)
+    mask = torch.as_tensor(rng.random((n // model, n)) < 0.5)
+    rec = dryrun_rtac.plan(variant, {"data": 2, "model": model}, ("data",), n=n, d=d, batch=4)
+    for name, t in (("cons", block_layout(cons, impl, dtype)),
+                    ("mask", mask_layout(mask, impl, dtype))):
+        assert rec["arguments"][name] == t.numel() * t.element_size(), name
+
+
 def test_dryrun_formula_equals_the_reference_hlo_at_the_test_mesh():
     """At the (2, 4) test mesh, n=16, d=8, B=4 the formula gives the
     reference's compiled HLO counts: one all-gather, 256 B, 192 wire B."""
