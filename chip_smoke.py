@@ -92,18 +92,23 @@ Phases (any failure exits non-zero):
               search-node domains (the single-pod mesh's batch a data shard,
               512/16): dom, consistent and k bit for bit against the same
               fixpoint on `packed_revise_block_plain`; calls 1, 2 and 4 of
-              kernel 3's block form against plain; the k histogram, ms a
-              recurrence, the all-gather record, and one run under
-              `torch.profiler` (device busy share, each kernel's share of
-              the wall time). (x2) At n=1024, B=8 the
-              bitpacked, u8 (kernel 6's block form) and bf16 einsum variants
-              agree; kernel 6's calls against plain. (x3) Two processes on
-              the one card in a gloo world (`repro_torch.launch.
-              distributed_ac`, 512 variables a rank, the gather staged
-              through host memory) equal x2's one-rank bitpacked run. (x4)
-              Kernel 3's block call on one rank's share of the production
-              mesh (256 of 4096 variables, B_local 32 and 16), timed with
-              CUDA events beside its bound.
+              the packed block revise (csrc/block_revise.cuh, the network in
+              the reference's pair-major layout) against plain; the k
+              histogram, ms a recurrence, the all-gather record, and one run
+              under `torch.profiler` (device busy share, each kernel's share
+              of the wall time). (x2) At n=1024, B=8 the bitpacked, u8 (the
+              dense block revise) and bf16 einsum variants agree; the dense
+              block revise's calls against plain. (x3) Two processes on the
+              one card in a gloo world (`repro_torch.launch.distributed_ac`,
+              512 variables a rank, the gather staged through host memory)
+              equal x2's one-rank bitpacked run. (x4) The packed block call
+              on one rank's share of the production mesh (256 of 4096
+              variables, B_local 32 and 16), timed with CUDA events beside
+              its bound. (x5) x1's call 1 with its rows cut to B = 1, 4, 8,
+              16, 32 and x2's dense call 1 to B = 1, 2, 4, 8, the network
+              the same: how the time grows with the rows. At x1, x4 and x2
+              the library call, the bf16 einsum local revise on the same
+              rows, is held against the kernel and timed.
 (p) profile — one fused and one stepped `solve_many`, one phase-e
               `mac_solve` (instance 1) and the phase-s replay on each Hopper
               engine under `torch.profiler`: device busy share and the
@@ -122,7 +127,9 @@ timed in turns (other, this, this, other): the stacked revises on every
 phase-b mix at both shapes; the single-network revises on the B=64 children,
 the replayed `mac_solve` calls and its root calls; then stepped
 `solve_many` and phase e's `mac_solve` on both Hopper engines in the same
-turns. It prints no result line.
+turns; the block revises on x1's call 1, x4's cuts and x2's dense call 1,
+the other tree's value-major launcher (where it has no pair-major one) on
+the same network permuted into its layout. It prints no result line.
 """
 
 from __future__ import annotations
@@ -365,7 +372,8 @@ def report(label, name, m, phase: str = "b"):
     print(f"[{phase}] {label} {name}: bit-identical to plain; kernel_ms={m['ms']:.4f} "
           f"plain_ms={m['plain_ms']:.4f} bound_ms={m['bound'][0]:.4f} "
           f"(by {m['bound'][1]}: {m['bound'][2]} B, {m['bound'][3]} 32-bit ANDs)"
-          + (f" sweeps={m['sweeps']} k_max={m['k_max']}" if "sweeps" in m else ""),
+          + (f" sweeps={m['sweeps']} k_max={m['k_max']}" if "sweeps" in m else "")
+          + (f" library_ms={m['library_ms']:.4f}" if "library_ms" in m else ""),
           flush=True)
 
 
@@ -517,16 +525,18 @@ def child_inputs(csp, device, kind: str):
 
 
 def single_bound(kind: str, calls, kw):
-    """`work_bound` of single-network revise ``calls`` ((network, rows,
-    seed) operands each), summed: (bound_ms, bound_by, bytes, and32)."""
+    """`work_bound` of single-network or block revise ``calls`` ((network,
+    mask, rows, seed) operands each; the mask (nx, n), nx = n for a whole
+    network), summed: (bound_ms, bound_by, bytes, and32). The outputs are
+    B·nx·d bytes whatever the network's layout."""
     import torch
 
     total = [0.0, {}, 0, 0]
-    for cons, mask, _, seed in calls:
+    for _cons, mask, _, seed in calls:
         b = seed.shape[0]
         bound = work_bound(mask[None], torch.zeros(b, dtype=torch.int32, device=mask.device),
                            [seed.bool()], kw["d"], entry_bytes(kind, kw["d"]),
-                           out_bytes=b * cons.shape[0], idx_bytes=0)
+                           out_bytes=b * mask.shape[0] * kw["d"], idx_bytes=0)
         total[0] += bound[0]
         total[1][bound[1]] = total[1].get(bound[1], 0) + 1
         total[2] += bound[2]
@@ -1066,7 +1076,7 @@ def check_recorded_calls(phase: str, label: str, recorder: "StackedCalls"):
     shape. Then drops the copies."""
     from repro_torch.kernels import ops
 
-    checked = collections.defaultdict(list)
+    checked, n_of = collections.defaultdict(list), {}
     for key, i, args, kw in recorder.calls:
         name = key[0]
         mod = kernel_module(name.split("_")[0])
@@ -1074,9 +1084,10 @@ def check_recorded_calls(phase: str, label: str, recorder: "StackedCalls"):
         check(err == 0, f"{label}: {name} call {i} at {key[1:]} differs from its plain version "
                         f"(max abs err {err})")
         checked[key].append(f"{i} ({args[3].shape[0]} rows)")
+        n_of[key] = args[3].shape[-1]  # the seeds' width
     for key, calls in checked.items():
         name, shape, kw = key[0], key[1], dict(key[2])
-        n_p = shape[-1] // kw["w"] if "w" in kw else shape[-1] // kw["d"]
+        n_p = n_of[key]
         widths = f"W={kw['w']}" if "w" in kw else f"d/8={kw['d'] // ops.D_MULT}"
         print(f"[{phase}] {label} {name} at n_p={n_p} d_p={kw['d']} ({widths}, table "
               f"{'x'.join(map(str, shape))}): calls {', '.join(calls)} of {recorder.seen[key]} bit-identical to plain",
@@ -1485,6 +1496,9 @@ X_CHECKED_CALLS = (1, 2, 4)
 #: model ranks), B_local 32 (single pod, 512/16) or 16 (multi-pod, 512/32)
 X_RANK_ROWS = 256
 X_RANK_BATCH = {"single pod": 32, "multi-pod": 16}
+#: x5: a block call's rows cut to these counts, its network the same (x1's
+#: call 1 for the packed block revise, x2's for the dense one)
+X_ROW_COUNTS = {"packed": (1, 4, 8, 16, 32), "dense": (1, 2, 4, 8)}
 X_DIR = os.path.join(TRACE_DIR, "sharded")
 
 
@@ -1560,8 +1574,9 @@ def phase_x_full(device):
     production CSP; the same fixpoint on the plain block revise as oracle."""
     import torch
 
-    from repro_torch.core.sharded import enforce_blocks, local_revise
+    from repro_torch.core.sharded import block_layout, enforce_blocks, local_revise, mask_layout
     from repro_torch.engines import get_engine
+    from repro_torch.kernels import ref
     from repro_torch.launch.mesh import axis_group
 
     spec = X_FULL
@@ -1582,6 +1597,10 @@ def phase_x_full(device):
           f"{cons.numel() * cons.element_size()} B placed in {placed:.2f} s; mesh "
           f"{dict(zip(eng.mesh.mesh_dim_names, eng.mesh.mesh.shape))} ("
           f"{torch.distributed.get_backend()}); B={spec['batch']} search nodes", flush=True)
+    # the library call's operands: the float einsum variant's block (bf16,
+    # 32 GiB at x1) and mask
+    library = (block_layout(csp.cons, "einsum", torch.bfloat16),
+               mask_layout(csp.mask, "einsum", torch.bfloat16))
     del csp
     res, seconds, launches, rec, log = sharded_run(prepared, doms, "packed")
     k = res.n_recurrences.cpu()
@@ -1620,28 +1639,78 @@ def phase_x_full(device):
     print(f"[x1] dom, consistent and k bit-identical to the fixpoint on the plain block "
           f"revise ({time.perf_counter() - t0:.2f} s); {ms_rec:.3f} ms a recurrence "
           "(wall, host included)", flush=True)
-    call = rec.calls[0][2]
-    x4 = phase_x_rank_share(cons, mask, call)
+    _key, _i, call, call_kw = rec.calls[0]
+    x4 = phase_x_rank_share(cons, mask, call, tuple(t[:X_RANK_ROWS] for t in library))
+    phase_x_rows("x1 call 1 (n=4096, d=32)", "packed", call, call_kw)
     first = check_block_calls("x1", "packed", rec)
+    dom = ref.unpack_bits_ref(call[2].view(spec["batch"], spec["n"], call_kw["w"]), spec["d"])
+    first["library_ms"] = check_library(
+        "[x1]", library, dom, call[3].bool(),
+        kernel_module("packed").packed_revise_block(*call, **call_kw))
     report("full width", "packed_revise_block call 1", first, "x1")
-    del prepared, cons, mask, rec, want, call
+    del prepared, cons, mask, rec, want, call, library
     torch.cuda.empty_cache()
     return dict(launches=launches, ms_per_recurrence=ms_rec, k=k, first=first, x4=x4)
 
 
-def phase_x_rank_share(cons, mask, call):
+def check_library(label: str, library, dom, seed, want) -> float:
+    """ms of the library call for a block revise (CUDA events): the float
+    einsum variant's local revise (`core.sharded`'s ``_revise_einsum``, the
+    reference's ``_local_revise``: bf16 support counts ``> 0``) on
+    ``library`` (its bf16 block and bool mask), bool domains (B, n, d) and
+    seeds (B, n), after holding its result against the block kernel's
+    ``want`` (B, nx·d). Used nowhere on the kernel's path."""
+    import torch
+
+    from repro_torch.core.sharded import local_revise
+
+    revise = local_revise("einsum", torch.bfloat16)
+    got = revise(*library, dom, seed)
+    check(torch.equal(got.reshape(want.shape), want.bool()),
+          f"{label}: the einsum local revise differs from the block kernel")
+    return timed_ms(lambda: revise(*library, dom, seed), 1, dom.device)
+
+
+def phase_x_rank_share(cons, mask, call, library):
     """(x4) kernel 3's block call on one rank's share of the production
     mesh: the first `X_RANK_ROWS` variables' rows of x1's network against
-    x1's first call's domains and seeds, cut to B_local."""
+    x1's first call's domains and seeds, cut to B_local; beside it the
+    library call (the bf16 einsum local revise on the same rows)."""
+    from repro_torch.kernels import ref
+
     d = X_FULL["d"]
     nx = X_RANK_ROWS
     out = {}
     for label, b in X_RANK_BATCH.items():
-        args = (cons[:nx * d], mask[:nx].contiguous(), call[2][:b].contiguous(),
+        args = (cons[:nx], mask[:nx].contiguous(), call[2][:b].contiguous(),
                 call[3][:b].contiguous())
-        out[label] = m = time_block("packed", args, dict(d=d, w=-(-d // 32)))
+        kw = dict(d=d, w=-(-d // 32))
+        out[label] = m = time_block("packed", args, kw)
+        dom = ref.unpack_bits_ref(args[2].view(b, X_FULL["n"], kw["w"]), d)
+        m["library_ms"] = check_library(f"[x4] {label}", library, dom, args[3].bool(),
+                                        kernel_module("packed").packed_revise_block(*args, **kw))
         report(f"one rank of the {label} mesh (nx={nx} of n={X_FULL['n']}, d={d}, "
                f"B_local={b})", "packed_revise_block", m, "x4")
+    return out
+
+
+def phase_x_rows(label: str, kind: str, args, kw) -> dict:
+    """(x5) One block call with its rows cut to each of `X_ROW_COUNTS`
+    and the network the same, each against plain and timed: time that grows
+    in proportion to B means each row pays for its own tests (the rows do
+    not share the network entries they read); time that stays flat, that
+    latency and the count of requests set it. Returns {B: ms}."""
+    out = {}
+    for b in X_ROW_COUNTS[kind]:
+        cut = (*args[:2], args[2][:b].contiguous(), args[3][:b].contiguous())
+        m = time_block(kind, cut, kw)
+        out[b] = m["ms"]
+        print(f"[x5] {label} {kind}_revise_block B={b}: kernel_ms={m['ms']:.4f} "
+              f"({m['ms'] / b:.4f} a row) bound_ms={m['bound'][0]:.4f}; bit-identical to plain",
+              flush=True)
+    lo, hi = min(out), max(out)
+    print(f"[x5] {label} {kind}_revise_block: B {lo} -> {hi} ({hi // lo}x the rows) takes "
+          f"{out[hi] / out[lo]:.2f}x the time", flush=True)
     return out
 
 
@@ -1655,11 +1724,12 @@ def phase_x_variants(device):
 
     spec = X_SMALL
     csp, doms = x_network(spec, device)
-    runs = {}
+    runs, payloads = {}, {}
     for label, impl, dtype, kind in (("bitpacked", "bitpacked", torch.bfloat16, "packed"),
                                      ("einsum u8", "einsum", torch.uint8, "dense"),
                                      ("einsum bf16", "einsum", torch.bfloat16, "dense")):
         prepared = get_engine("sharded", impl=impl, dtype=dtype, device=device).prepare(csp)
+        payloads[label] = prepared.payload
         res, seconds, launches, rec, log = sharded_run(prepared, doms, kind)
         k_max = int(res.n_recurrences.max())
         print(f"[x2] {label} n={spec['n']} d={spec['d']} B={spec['batch']}: k "
@@ -1675,10 +1745,18 @@ def phase_x_variants(device):
               f"[x2] {label} differs from bitpacked")
     print("[x2] bitpacked == einsum u8 == einsum bf16 (dom, consistent, k)", flush=True)
     check_recorded_calls("x", "x2 bitpacked", runs["bitpacked"][2])
+    _key, _i, call, call_kw = runs["einsum u8"][2].calls[0]
+    phase_x_rows(f"x2 call 1 (n={spec['n']}, d={spec['d']})", "dense", call, call_kw)
+    b, n, d = len(call[3]), spec["n"], spec["d"]
+    dom = call[2].view(b, n, call_kw["d"])[..., :d].bool()
+    want = kernel_module("dense").dense_revise_block(*call, **call_kw).view(b, n, -1)[..., :d]
+    lib_ms = check_library("[x2]", payloads["einsum bf16"], dom, call[3].bool(),
+                           want.reshape(b, -1))
     first = check_block_calls("x2 einsum u8", "dense", runs["einsum u8"][2])
+    first["library_ms"] = lib_ms
     report(f"n={spec['n']} d={spec['d']} B={spec['batch']}", "dense_revise_block call 1",
            first, "x2")
-    del csp
+    del csp, payloads
     torch.cuda.empty_cache()
     return dict(reference=runs["bitpacked"][0], dense_launches=runs["einsum u8"][1],
                 dense_first=first)
@@ -1751,10 +1829,10 @@ def phase_x(device):
              small["dense_first"])):
         check(launches > 0, f"{name} was not launched on the sharded path")
         rows.append(dict(
-            name=name, route="cuda", source=f"src/repro_torch/kernels/csrc/{kind}_revise.cu",
+            name=name, route="cuda", source="src/repro_torch/kernels/csrc/block_revise.cuh",
             replaces=f"src/repro/kernels/{line}", launches=launches,
             max_abs_err=m["max_abs_err"], ms=m["ms"], plain_ms=m["plain_ms"],
-            bound_ms=m["bound"][0], bound_by=m["bound"][1], library_ms=None,
+            bound_ms=m["bound"][0], bound_by=m["bound"][1], library_ms=m["library_ms"],
             service_launches=0))
     return rows
 
@@ -1794,13 +1872,130 @@ def build_other(csrc: str) -> dict:
     return libs
 
 
+def previous_block_span(rows: int, nx: int, n: int, d: int, sms: int) -> int:
+    """The span the value-major block launchers (``{kind}_revise_block_launch``,
+    which take it from their caller) were given: 8 from n = 2048 on, else
+    the single-network rule over nx variables narrowed by 8 until a CTA's
+    shared memory fits."""
+    from repro_torch.kernels.autotune import single_span
+    from repro_torch.kernels.launch import CTA_WARPS, SMEM_OPT_IN_LIMIT
+
+    def smem(span):
+        lanes, nwn, w = min(32, -(-span // CTA_WARPS)), -(-n // 32), -(-d // 32)
+        return (4 * nwn * span + 4 * CTA_WARPS * (nwn + lanes * (nwn + w))
+                + 2 * CTA_WARPS * lanes * n)
+
+    if n >= 2048:
+        return CTA_WARPS
+    span = single_span(rows, nx, sms)
+    while span > CTA_WARPS and smem(span) > SMEM_OPT_IN_LIMIT:
+        span -= CTA_WARPS
+    return span
+
+
+def other_block_call(lib, kind: str, args, kw):
+    """A function that runs another tree's block revise (library ``lib``) on
+    ``args``, this tree's pair-major operands: through this tree's wrapper
+    where ``lib`` exports this tree's block launcher (the caller routes the
+    wrappers to ``lib``); else through the value-major launcher
+    (``{kind}_revise_block_launch``) on the network permuted into its
+    (nx·d, n·K) layout, with `previous_block_span`'s span."""
+    import ctypes
+
+    import torch
+
+    from repro_torch.kernels import launch
+
+    wrapper = getattr(kernel_module(kind), f"{kind}_revise_block")
+    if hasattr(lib, next(iter(launch.BLOCK[f"{kind}_revise"]))):
+        return lambda: wrapper(*args, **kw)
+    cons, mask, dom, seed = args
+    (nx, n), d, b = mask.shape, kw["d"], dom.shape[0]
+    value_major = cons.permute(0, 2, 1, 3).reshape(nx * d, -1).contiguous()
+    sms = torch.cuda.get_device_properties(dom.device).multi_processor_count
+    ints = [b, nx, n, d, *([kw["w"]] if kind == "packed" else []),
+            previous_block_span(b, nx, n, d, sms)]
+    fn = getattr(lib, f"{kind}_revise_block_launch")
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * len(ints) + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = torch.empty((b, nx * d), dtype=torch.uint8, device=dom.device)
+
+    def call():
+        rc = fn(value_major.data_ptr(), mask.data_ptr(), dom.data_ptr(), seed.data_ptr(),
+                out.data_ptr(), *ints, torch.cuda.current_stream(dom.device).cuda_stream)
+        check(rc == 0, f"the other tree's {kind} block launcher failed: cudaError {rc}")
+        return out
+
+    return call
+
+
+def block_cases(device):
+    """The block calls `compare_against` times: x1's call 1 (its network in
+    the pair-major layout, its search nodes, every variable seeded), x4's
+    cuts of it, and x2's dense call 1: (label, kind, args, kw) each."""
+    import torch
+
+    from repro_torch.core.sharded import block_layout, mask_layout
+    from repro_torch.kernels import ref
+
+    cases = []
+    for spec, kind, impl, dtype in ((X_FULL, "packed", "bitpacked", torch.bfloat16),
+                                    (X_SMALL, "dense", "einsum", torch.uint8)):
+        csp, doms = x_network(spec, device)
+        cons, mask = block_layout(csp.cons, impl, dtype), mask_layout(csp.mask, impl, dtype)
+        del csp
+        dom = torch.as_tensor(doms, device=device)
+        b, n, d = dom.shape
+        seed = torch.ones((b, n), dtype=torch.uint8, device=device)
+        if kind == "packed":
+            rows, kw = ref.pack_bits_ref(dom).reshape(b, -1).contiguous(), dict(d=d, w=-(-d // 32))
+        else:
+            d_p = cons.shape[-1]
+            padded = torch.zeros((b, n, d_p), dtype=torch.uint8, device=device)
+            padded[..., :d] = dom
+            rows, kw = padded.view(b, -1), dict(d=d_p)
+        label = "x1" if spec is X_FULL else "x2"
+        cases.append((f"{label} call 1 (n={n}, d={d}, B={b})", kind, (cons, mask, rows, seed), kw))
+        if spec is X_FULL:
+            nx = X_RANK_ROWS
+            for mesh, bl in X_RANK_BATCH.items():
+                cases.append((f"x4 {mesh} (nx={nx}, B_local={bl})", kind,
+                              (cons[:nx], mask[:nx].contiguous(), rows[:bl].contiguous(),
+                               seed[:bl].contiguous()), kw))
+    return cases
+
+
+def compare_blocks(libs, use, fmt, device):
+    """This tree's block revises beside ``libs``' (the other tree's
+    libraries) on `block_cases`, bit for bit, in `TURNS`."""
+    import torch
+
+    for label, kind, args, kw in block_cases(device):
+        this = lambda: getattr(kernel_module(kind), f"{kind}_revise_block")(*args, **kw)  # noqa: E731
+        other = other_block_call(libs[f"{kind}_revise"], kind, args, kw)
+        got, ms = {}, {"other": [], "this": []}
+        for side in TURNS:
+            use(side)
+            fn = this if side == "this" else other
+            got[side] = fn().clone()
+            ms[side].append(timed_ms(fn, 20, device))
+        check(torch.equal(got["this"], got["other"]), f"[vs] {label} {kind}_revise_block: the "
+                                                      "two trees differ")
+        ratio = sum(ms["other"]) / sum(ms["this"])
+        print(f"[vs] {label} {kind}_revise_block: other {fmt(ms['other'])} -> this "
+              f"{fmt(ms['this'])}; {ratio:.2f}x; bit-identical", flush=True)
+    use("this")
+    torch.cuda.empty_cache()
+
+
 def compare_against(csrc: str, shapes, device, max_assignments: int = 500):
     """This tree's revise kernels against those built from ``csrc``, on one
     card in one process, the wrappers routed to either side's library, bit
     for bit and timed in `TURNS`: the stacked revises on every row mix of
     phase b at each of ``shapes`` ((label, csps)); the single-network
     revises on phase b's B=64 one-hot children, on the recorded calls of one
-    phase-e `mac_solve` and on its root calls. Then, in the same turns,
+    phase-e `mac_solve` and on its root calls; the block revises on
+    `block_cases` (`compare_blocks`). Then, in the same turns,
     stepped `solve_many` and phase e's `mac_solve` on both Hopper engines
     (identical solutions and statistics)."""
     import torch
@@ -1849,6 +2044,7 @@ def compare_against(csrc: str, shapes, device, max_assignments: int = 500):
             ratio = sum(ms["other"]) / sum(ms["this"])
             print(f"[vs] {fn.__name__} {case}: us/launch other {fmt(ms['other'])} -> this "
                   f"{fmt(ms['this'])}; {ratio:.2f}x; bit-identical", flush=True)
+    compare_blocks(sides["other"], use, fmt, device)
     for engine in ("hopper_packed", "hopper_dense"):
         runs, per_round = {}, {"other": [], "this": []}
         for side in TURNS:

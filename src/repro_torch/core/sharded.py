@@ -22,9 +22,9 @@ through `parallel.comm_stats`.
 
 Local revise by variant (``impl``, ``dtype``):
 
-- ``"bitpacked"``: kernel 3's block form (`packed_revise_block`) — the
+- ``"bitpacked"``: the packed block revise (`packed_revise_block`) — the
   reference's ``_local_revise_bitpacked``; on CPU tensors its plain version;
-- ``"einsum"`` with ``torch.uint8``: kernel 6's block form
+- ``"einsum"`` with ``torch.uint8``: the dense block revise
   (`dense_revise_block`), the reference's dense u8 support test (PyTorch has
   no integer einsum on CUDA); d is padded to a multiple of 8 with values no
   domain holds;
@@ -72,28 +72,25 @@ def variant(impl: str, dtype: torch.dtype) -> str:
 
 def block_layout(cons_rows: Tensor, impl: str, dtype: torch.dtype) -> Tensor:
     """This rank's network rows ``cons_rows`` (nx, n, d, d) bool in its
-    variant's layout, built in chunks of x-rows: bitpacked (nx·d, n·W)
-    int32; u8 (nx·d_p, n·d_p) with d_p = d rounded up to 8; float
-    (nx, n, d, d) in ``dtype``."""
+    variant's layout, the reference's pair-major order in all three (the d
+    entries of one (x, y) pair contiguous), built in chunks of x-rows:
+    bitpacked (nx, n, d, W) int32, the reference's ``cons_blk_pk``; u8
+    (nx, n, d_p, d_p) with d_p = d rounded up to 8; float (nx, n, d, d) in
+    ``dtype``."""
     kind = variant(impl, dtype)
     nx, n, d, _ = cons_rows.shape
     if kind == "float":
         return cons_rows.to(dtype)
     step = max(1, _CHUNK // (n * d * d))
     if kind == "bitpacked":
-        w = -(-d // 32)
-        out = torch.empty((nx * d, n * w), dtype=torch.int32, device=cons_rows.device)
+        out = torch.empty((nx, n, d, -(-d // 32)), dtype=torch.int32, device=cons_rows.device)
         for x0 in range(0, nx, step):
-            x1 = min(nx, x0 + step)
-            out[x0 * d:x1 * d] = pack_bits_ref(cons_rows[x0:x1]).permute(0, 2, 1, 3).reshape(
-                -1, n * w)
+            out[x0:x0 + step] = pack_bits_ref(cons_rows[x0:x0 + step])
         return out
     d_p = -(-d // D_MULT) * D_MULT
-    out = torch.zeros((nx * d_p, n * d_p), dtype=torch.uint8, device=cons_rows.device)
-    view = out.view(nx, d_p, n, d_p)
+    out = torch.zeros((nx, n, d_p, d_p), dtype=torch.uint8, device=cons_rows.device)
     for x0 in range(0, nx, step):
-        x1 = min(nx, x0 + step)
-        view[x0:x1, :d, :, :d] = cons_rows[x0:x1].permute(0, 2, 1, 3)
+        out[x0:x0 + step, :, :d, :d] = cons_rows[x0:x0 + step]
     return out
 
 
@@ -118,7 +115,7 @@ def _revise_bitpacked(cons_blk: Tensor, mask_blk: Tensor, dom: Tensor, seed: Ten
 def _revise_u8(cons_blk: Tensor, mask_blk: Tensor, dom: Tensor, seed: Tensor, *,
                plain: bool = False) -> Tensor:
     b, n, d = dom.shape
-    d_p = cons_blk.shape[1] // n
+    d_p = cons_blk.shape[-1]
     dom_p = torch.zeros((b, n, d_p), dtype=torch.uint8, device=dom.device)
     dom_p[..., :d] = dom
     block = rtac_support.dense_revise_block_plain if plain else rtac_support.dense_revise_block

@@ -3,7 +3,8 @@ behind the Engine protocol; the counterpart of `repro.engines.sharded`.
 
 Every rank of the mesh builds the engine and calls it with the same
 arguments (SPMD). ``prepare`` places this rank's x-block of the network
-once — packed for ``impl="bitpacked"``, (nx·d, n·d) u8 for the u8 einsum,
+once, pair-major as the reference's — (nx, n, d, W) packed for
+``impl="bitpacked"``, (nx, n, d_p, d_p) u8 for the u8 einsum, (nx, n, d, d)
 ``dtype`` for the float einsum — in chunks of rows, so a network far larger
 than its packed block never needs a second full-size copy. The hot path
 splits only the O(B·n·d) domain batch: ``enforce_batch`` pads B up to a

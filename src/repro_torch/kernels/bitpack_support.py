@@ -20,9 +20,12 @@ each row's network in place — no per-round gathered copy of the networks:
   a CTA per (row, span of variables) (``csrc/packed_revise.cu`` with
   ``csrc/revise_common.cuh``; the single-network path of
   ``enforce``/``enforce_batch`` and so of ``mac_solve``);
-- :func:`packed_revise_block` — the same kernel on an x-block of one
-  network: this rank's rows of a sharded network against all n variables
-  (the local revise of `repro_torch.core.sharded`), up to n = 65535.
+- :func:`packed_revise_block` — one revise step of B domains against an
+  x-block of one network in the reference's pair-major layout
+  ``(nx, n, d, W)``: this rank's rows of a sharded network against all n
+  variables (the local revise of `repro_torch.core.sharded`), up to
+  n = 65535 (``csrc/block_revise.cuh``, a CTA per (span of variables, group
+  of 32 rows)).
 
 Device rule: a wrapper given CPU tensors computes the plain version; given
 CUDA tensors it launches its kernel or raises — it never falls back. Each
@@ -36,8 +39,8 @@ from typing import Optional
 import torch
 
 from . import autotune
-from .launch import (block_span, check_operands, check_smem, fixpoint_smem, launch,
-                     revise_smem, single_revise_smem, single_smem)
+from .launch import (block_scratch_bytes, check_block, check_operands, check_smem,
+                     fixpoint_smem, launch, revise_smem, single_revise_smem)
 from .ref import pack_bits_ref, unpack_bits_ref
 
 Tensor = torch.Tensor
@@ -231,8 +234,8 @@ packed_revise.launches = 0
 # One revise step against an x-block of one network (the sharded path)
 # ---------------------------------------------------------------------------
 
-#: x-rows a chunk of the plain block revise covers at most: 2^28 / (d·n·W)
-#: words of network, so its temporaries stay near a gigabyte at any n
+#: words of network a chunk of the plain block revise covers at most, so its
+#: temporaries stay near a gigabyte at any n
 _BLOCK_CHUNK_WORDS = 1 << 28
 
 
@@ -241,38 +244,38 @@ def packed_revise_block_plain(cons: Tensor, mask: Tensor, dom_words: Tensor, cha
     """Plain PyTorch version of `packed_revise_block`, in chunks of x-rows
     and of domains."""
     b, nx, n = _check(cons, mask, None, dom_words, changed, d, w, block=True)
-    out = torch.empty((b, nx * d), dtype=torch.uint8, device=cons.device)
+    out = torch.empty((b, nx, d), dtype=torch.uint8, device=cons.device)
     xs = max(1, _BLOCK_CHUNK_WORDS // (d * n * w))
+    dom = dom_words.view(b, 1, n, 1, w)
+    seed = changed.bool().view(b, 1, n, 1)
     for x0 in range(0, nx, xs):
-        x1 = min(nx, x0 + xs)
-        net, m = cons[x0 * d:x1 * d][None], mask[x0:x1][None]
-        step = _revise_chunk_rows(n, d, w, x1 - x0)
+        net, m = cons[x0:x0 + xs], mask[x0:x0 + xs].bool()[None, :, :, None]
+        step = _revise_chunk_rows(n, d, w, net.shape[0])
         for s in range(0, b, step):
-            out[s:s + step, x0 * d:x1 * d] = _revise_rows_plain(
-                net, m, dom_words[s:s + step], changed[s:s + step], n, d, w)
-    return out
+            has = ((net & dom[s:s + step]) != 0).any(dim=-1) | ~m  # (rows, x, y, a)
+            out[s:s + step, x0:x0 + xs] = (seed[s:s + step] & ~has).any(dim=2)
+    return out.view(b, nx * d)
 
 
 def packed_revise_block(cons: Tensor, mask: Tensor, dom_words: Tensor, changed: Tensor, *,
                         d: int, w: int) -> Tensor:
     """B packed revisions against an x-block of ONE network: the rows of
     nx variables against all n (one rank's share of a network sharded over
-    its variables).
+    its variables), in the reference's pair-major layout.
 
-    cons (nx·d, n·W) int32, mask (nx, n) u8, dom_words (B, n·W) int32,
-    changed (B, n) u8 -> violated (B, nx·d) u8. With nx = n it equals
-    `packed_revise`. The span of variables a CTA revises is `block_span`'s
-    (8 from n = 2048 on); a CTA's shared memory is checked for that span."""
+    cons (nx, n, d, W) int32, mask (nx, n) u8, dom_words (B, n·W) int32,
+    changed (B, n) u8 -> violated (B, nx·d) u8. Two launches: a seed pass
+    into a scratch tensor of ``block_scratch_bytes``, then the revise."""
     b, nx, n = _check(cons, mask, None, dom_words, changed, d, w, block=True)
     if cons.device.type == "cpu":
         return packed_revise_block_plain(cons, mask, dom_words, changed, d=d, w=w)
-    sms = torch.cuda.get_device_properties(cons.device).multi_processor_count
-    span = block_span(b, nx, n, d, sms)
-    check_smem("packed_revise_block", single_smem(n, d, span), f"n={n}, d={d}, span={span}")
+    check_block("packed_revise_block", b, n)
     out = torch.empty((b, nx * d), dtype=torch.uint8, device=cons.device)
     if b and nx:
-        launch("packed_revise", "packed_revise_block_launch",
-               [cons, mask, dom_words, changed, out], b, nx, n, d, w, span)
+        scratch = torch.empty(block_scratch_bytes(b, n, 4 * w), dtype=torch.uint8,
+                              device=cons.device)
+        launch("packed_revise", "packed_block_revise_launch",
+               [cons, mask, dom_words, changed, scratch, out], b, nx, n, d, w)
         packed_revise_block.launches += 1
     return out
 

@@ -8,8 +8,9 @@
 // - dense_revise (body _revise_kernel): B domains against ONE network — the
 //   single-network path of enforce/enforce_batch and so of mac_solve, one
 //   launch a recurrence; the reference vmaps it. A CTA per (row, span of
-//   variables), the network compiled in as one. On an x-block of a network
-//   (dense_revise_block_launch) it is the sharded path's local revise.
+//   variables), the network compiled in as one. On an x-block of a network,
+//   in the reference's pair-major block layout, the sharded path's local
+//   revise is block_revise.cuh's kernel (dense_block_revise_launch).
 // violated[r, x·d+a] = ∃y: seed[r,y] ∧ mask[x,y] ∧
 //                      no byte of (cons2[x·d+a, y·d ..] & dom[r, y·d ..]) is nonzero.
 // d is a multiple of 8 (ops.D_MULT), so each (x·a, y) slice is read as d/8
@@ -34,6 +35,7 @@
 // shape) for the single-network one (measured faster, above). Any other
 // d/8, and d/8 = 2 in the single-network kernel (no driven shape, not
 // timed), is read at run time.
+#include "block_revise.cuh"
 #include "revise_common.cuh"
 
 // R rows, row r against the slot table's network idx[r]: one CTA a row.
@@ -74,14 +76,15 @@ extern "C" int dense_revise_launch(
 }
 
 // B rows against an x-block of one network (this rank's nx variables of a
-// sharded network, core/sharded.py): cons (nx·d, n·d), mask (nx, n), the
-// domains and seeds over all n variables, out (B, nx·d), `span` variables
-// a CTA (kernels/launch.py's `block_span`). With nx = n and the same span
-// it is the launch above.
-extern "C" int dense_revise_block_launch(
-    const void* cons, const void* mask, const void* dom_in, const void* seed_in,
-    void* viol_out, int rows, int nx, int n, int d, int span, void* stream) {
-  const auto run = d / 8 == 5 ? &revise::launch_block<revise::u64, 5>
-                              : &revise::launch_block<revise::u64, 0>;
-  return run(cons, mask, dom_in, seed_in, viol_out, rows, nx, n, d, d / 8, span, stream);
+// sharded network, core/sharded.py), block_revise.cuh's kernel: cons
+// (nx, n, d, d) pair-major, mask (nx, n), the domains (B, n·d) and seeds
+// (B, n) over all n variables, `scratch` block::Scratch's bytes for the
+// seed pass, out (B, nx·d). d/8 = 4 (d = 32, the sharded
+// path's shapes) is compiled as a constant; any other d/8 is read at run
+// time.
+extern "C" int dense_block_revise_launch(
+    const void* cons, const void* mask, const void* dom_in, const void* seed_in, void* scratch,
+    void* viol_out, int rows, int nx, int n, int d, void* stream) {
+  const auto run = d / 8 == 4 ? &block::launch<block::u64, 4> : &block::launch<block::u64, 0>;
+  return run(cons, mask, dom_in, seed_in, scratch, viol_out, rows, nx, n, d, d / 8, stream);
 }

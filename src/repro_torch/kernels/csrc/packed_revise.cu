@@ -9,8 +9,9 @@
 //   network — the single-network path of enforce/enforce_batch and so of
 //   mac_solve, one launch a recurrence; the reference vmaps it. A CTA per
 //   (row, span of variables), the network compiled in as one. On an x-block
-//   of a network (packed_revise_block_launch) it is the sharded path's
-//   local revise.
+//   of a network, in the reference's pair-major block layout, the sharded
+//   path's local revise is block_revise.cuh's kernel
+//   (packed_block_revise_launch).
 // violated[r, x·d+a] = ∃y: seed[r,y] ∧ mask[x,y] ∧ (cons[x·d+a, y·W..] & dom[r, y·W..]) == 0.
 //
 // Both kernels are revise_common.cuh's, with u32 words (W per entry). What
@@ -31,6 +32,7 @@
 // a constant (8 tests a lane in flight), as packed_fixpoint.cu does. Any
 // other W, and W = 1 in the single-network kernel (no driven shape, not
 // timed), is read at run time.
+#include "block_revise.cuh"
 #include "revise_common.cuh"
 
 // Whether W = 2 entries go as one 8-byte word: the table and the domains are
@@ -85,16 +87,18 @@ extern "C" int packed_revise_launch(
 }
 
 // B rows against an x-block of one network (this rank's nx variables of a
-// sharded network, core/sharded.py): cons (nx·d, n·W), mask (nx, n), the
-// domains and seeds over all n variables, out (B, nx·d), `span` variables
-// a CTA (kernels/launch.py's `block_span`). With nx = n and the same span
-// it is the launch above.
-extern "C" int packed_revise_block_launch(
-    const void* cons, const void* mask, const void* dom_in, const void* seed_in,
-    void* viol_out, int rows, int nx, int n, int d, int w, int span, void* stream) {
+// sharded network, core/sharded.py), block_revise.cuh's kernel: cons
+// (nx, n, d, W) pair-major, mask (nx, n), the domains (B, n·W) and seeds
+// (B, n) over all n variables, `scratch` block::Scratch's bytes for the
+// seed pass, out (B, nx·d). W = 2 entries go as one 8-byte
+// word where the block and the domains are 8-byte aligned, W = 1 as a
+// constant; any other W is read at run time.
+extern "C" int packed_block_revise_launch(
+    const void* cons, const void* mask, const void* dom_in, const void* seed_in, void* scratch,
+    void* viol_out, int rows, int nx, int n, int d, int w, void* stream) {
   if (wide_words(w, cons, dom_in))
-    return revise::launch_block<revise::u64, 1>(cons, mask, dom_in, seed_in, viol_out, rows,
-                                                nx, n, d, 1, span, stream);
-  return revise::launch_block<uint32_t, 0>(cons, mask, dom_in, seed_in, viol_out, rows, nx, n,
-                                           d, w, span, stream);
+    return block::launch<block::u64, 1>(cons, mask, dom_in, seed_in, scratch, viol_out, rows,
+                                        nx, n, d, 1, stream);
+  const auto run = w == 1 ? &block::launch<uint32_t, 1> : &block::launch<uint32_t, 0>;
+  return run(cons, mask, dom_in, seed_in, scratch, viol_out, rows, nx, n, d, w, stream);
 }

@@ -73,12 +73,10 @@
 // loads); dense d/8 = 5 read at run time (a round of loads a word: 9.7
 // against 7.9 µs).
 //
-// The block launcher (`launch_block`) runs the single-network kernel on an
-// x-block, the sharded path's local revise: nx variables' rows against all
-// n neighbours, n up to 65535 (from 2048 on, pairs hold 16 neighbour bits
-// and a warp one owner lane, span 8). At the reference's production shape
-// (n=4096, d=32, B=32 rows, every variable seeded; measured on an H100,
-// PERF.md) a launch takes 2.04 ms; what bounds it is not measured.
+// The sharded path's local revise, on an x-block of a network in the
+// reference's pair-major layout, is block_revise.cuh's kernel: this one,
+// run there on a value-major x-block, took time in proportion to the rows
+// (measured on an H100, PERF.md).
 #pragma once
 
 #include "fixpoint_common.cuh"
@@ -105,9 +103,8 @@ __host__ __device__ inline int owner_lanes(int n) {
 // to distinct banks) and violation words (lanes × ceil(d/32)); u16: the
 // (variable, neighbour) pairs of its owner lanes (lanes × n). A CTA that
 // owns every variable of a row has owner_lanes(n) lanes a warp; its pairs
-// alone outgrow the shared memory for n ≥ 460. The stacked and square
-// single-network launchers refuse n ≥ 2^kPairY, so a pair's neighbour fits
-// its 11 bits; the block launcher takes larger n with kPairYWide.
+// alone outgrow the shared memory for n ≥ 460. The launchers refuse
+// n ≥ 2^kPairY, so a pair's neighbour fits its 11 bits.
 struct Smem {
   int seed, nbits, viol, pairs, total;
   __host__ __device__ Smem(int n, int d, int dom_bytes, int lanes) {
@@ -121,10 +118,6 @@ struct Smem {
 };
 
 constexpr int kPairY = 11;  // bits of a pair's neighbour; the lane above them
-// bits of a pair's neighbour for n ≥ 2^kPairY (the block launcher): no lane
-// bits are left, so a warp has one owner lane and a CTA a span of 8
-constexpr int kPairYWide = 16;
-constexpr int kSmemOptIn = 227 * 1024;  // the most dynamic shared memory a block may opt in to
 constexpr int kUnrollRevise = 4;  // support tests a lane has in flight (8: one-word entries)
 
 // Copy `bytes` (a multiple of 4) from global memory to `dst` (shared, 16-byte
@@ -523,38 +516,6 @@ int launch_single(const void* net, const void* mask, const void* dom_in, const v
       static_cast<const T*>(net), static_cast<const uint8_t*>(mask),
       static_cast<const T*>(dom_in), static_cast<const uint8_t*>(seed_in),
       static_cast<uint8_t*>(viol_out), n, n, d, k, span));
-}
-
-// Shared memory of a single-network CTA with `span` variables.
-inline int single_smem(int n, int d, int span) {
-  return Smem(n, d, mbits_bytes(n, span), owner_lanes(span)).total;
-}
-
-// Launch rows × ceil(nx / span) CTAs against an x-block of one network: its
-// nx variables' rows against all n neighbours. Takes n up to 2^kPairYWide - 1
-// (above 2^kPairY - 1 with one owner lane a warp, span 8, entries read at
-// run time); word offsets into the block stay 32-bit, so nx·d·n·K < 2^32.
-// `span` (a multiple of 8, at most nx rounded up to 8; 8 from n = 2^kPairY
-// on) is the caller's: kernels/launch.py's `block_span`.
-template <typename T, int KW>
-int launch_block(const void* net, const void* mask, const void* dom_in, const void* seed_in,
-                 void* viol_out, int rows, int nx, int n, int d, int k, int span,
-                 void* stream) {
-  if (rows <= 0 || nx <= 0) return 0;
-  const bool wide = n >= (1 << kPairY);
-  if (n >= (1 << kPairYWide) || static_cast<double>(nx) * d * n * k >= 4294967296.0 ||
-      span <= 0 || span % kWarps != 0 || span > kWarps * ((nx + 7) / 8) ||
-      (wide && span > kWarps))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int smem = single_smem(n, d, span);
-  if (smem > kSmemOptIn) return static_cast<int>(cudaErrorInvalidValue);
-  const auto kernel = wide ? &revise_single_kernel<T, 0, kPairYWide>
-                           : &revise_single_kernel<T, KW, kPairY>;
-  return static_cast<int>(fixpoint::launch_rows(
-      kernel, dim3(rows, (nx + span - 1) / span), smem, static_cast<cudaStream_t>(stream),
-      static_cast<const T*>(net), static_cast<const uint8_t*>(mask),
-      static_cast<const T*>(dom_in), static_cast<const uint8_t*>(seed_in),
-      static_cast<uint8_t*>(viol_out), nx, n, d, k, span));
 }
 
 }  // namespace revise

@@ -36,11 +36,12 @@ SCHEDULED = {
 }
 
 #: library -> {block launcher: (pointer arguments, int arguments)}: an
-#: x-block of one network, (rows, nx, n, d[, w], span) after the tensors;
-#: the span is always the caller's (`block_span`)
+#: x-block of one network in the pair-major layout (csrc/block_revise.cuh),
+#: its tensors (network, mask, domains, seeds, the seed pass's scratch,
+#: out), then (rows, nx, n, d[, w]); the launcher picks its own span
 BLOCK = {
-    "packed_revise": {"packed_revise_block_launch": (5, 6)},
-    "dense_revise": {"dense_revise_block_launch": (5, 5)},
+    "packed_revise": {"packed_block_revise_launch": (6, 5)},
+    "dense_revise": {"dense_block_revise_launch": (6, 4)},
 }
 
 #: library -> {C launcher: (pointer arguments, int arguments)}; the stream
@@ -88,34 +89,38 @@ def single_revise_smem(n: int, d: int) -> int:
     return revise_smem(n, d, 4 * -(-n // 32) * CTA_WARPS * -(-n // CTA_WARPS))
 
 
-#: the single-network layout's bits of a pair's neighbour (``kPairY`` in
-#: csrc/revise_common.cuh): from n = 2^PAIR_Y on, a block launch has one
-#: owner lane a warp and a span of 8 variables
-PAIR_Y = 11
+#: rows a block-revise CTA revises together, the neighbours a warp lists
+#: at once, and the largest n (``kGroup``, ``kWindow``, ``kMaxN`` in
+#: csrc/block_revise.cuh)
+BLOCK_GROUP, BLOCK_WINDOW, BLOCK_MAX_N = 32, 1024, 65535
 
 
-def single_smem(n: int, d: int, span: int) -> int:
-    """Shared memory of one single-network revise CTA revising ``span``
-    variables (``single_smem`` in csrc/revise_common.cuh)."""
-    lanes = min(32, -(-span // CTA_WARPS))
-    nwn, w = -(-n // 32), -(-d // 32)
-    return (4 * nwn * span + 4 * CTA_WARPS * (nwn + lanes * (nwn + w))
-            + 2 * CTA_WARPS * lanes * n)
+#: bytes of a block-revise warp's stage (``kStageBytes``)
+BLOCK_STAGE = 2048
 
 
-def block_span(rows: int, nx: int, n: int, d: int, sms: int) -> int:
-    """The span of variables a block launch gives a CTA, which the block
-    launchers take from their caller: 8 from n = 2^PAIR_Y on, else the
-    single-network rule over the block's nx variables for a card of ``sms``
-    SMs, narrowed by 8 at a time until a CTA's shared memory fits."""
-    from .autotune import single_span
+def _align16(nbytes: int) -> int:
+    return -(-nbytes // 16) * 16
 
-    if n >= 1 << PAIR_Y:
-        return CTA_WARPS
-    span = single_span(rows, nx, sms)
-    while span > CTA_WARPS and single_smem(n, d, span) > SMEM_OPT_IN_LIMIT:
-        span -= CTA_WARPS
-    return span
+
+def block_smem(n: int) -> int:
+    """Shared memory of one block-revise CTA (``Smem`` in
+    csrc/block_revise.cuh): the row group's union bits (``ceil(n/32)``
+    u32), per warp a list of `BLOCK_WINDOW` u16 neighbours, a row-mask
+    slot of 32 u32 and (16-byte aligned) a stage of `BLOCK_STAGE` bytes."""
+    slots = 4 * -(-n // 32) + 2 * CTA_WARPS * BLOCK_WINDOW
+    return _align16(slots + 4 * CTA_WARPS * 32) + CTA_WARPS * BLOCK_STAGE
+
+
+def block_scratch_bytes(rows: int, n: int, entry: int) -> int:
+    """Bytes of the block revise's seed pass output (``Scratch`` in
+    csrc/block_revise.cuh) for ``rows`` domains of ``entry`` bytes a
+    variable: per group of `BLOCK_GROUP` rows, n row masks (u32), the
+    groups' ``ceil(n/32)`` union words, then (16-byte aligned) the
+    transposed domains, `BLOCK_GROUP` rows' entries a variable."""
+    groups = -(-rows // BLOCK_GROUP)
+    return (_align16(4 * groups * (n + -(-n // 32)))
+            + groups * n * BLOCK_GROUP * entry)
 
 
 def check_operands(cons: Tensor, mask: Tensor, idx: Optional[Tensor], dom: Tensor,
@@ -126,22 +131,24 @@ def check_operands(cons: Tensor, mask: Tensor, idx: Optional[Tensor], dom: Tenso
 
     ``cons`` holds ``cols`` columns of dtype ``word`` per variable: a slot
     table (C, n·d, n·cols) read through ``idx`` (R,) int32, or, with ``idx``
-    None, one network (n·d, n·cols), or with ``block`` an x-block of one:
-    the rows of nx variables against all n, (nx·d, n·cols). ``dom`` is
-    (R, n·cols) ``word``, ``changed`` (R, n) u8, ``mask`` (C, n, n), (n, n)
-    or (nx, n) u8."""
+    None, one network (n·d, n·cols), or with ``block`` an x-block of one in
+    the reference's pair-major layout: the rows of nx variables against all
+    n, (nx, n, d, cols). ``dom`` is (R, n·cols) ``word``, ``changed`` (R, n)
+    u8, ``mask`` (C, n, n), (n, n) or (nx, n) u8."""
     lead = tuple(cons.shape[:1]) if idx is not None else ()
-    if cons.dim() != len(lead) + 2:
-        raise ValueError(f"cons: want {len(lead) + 2} dims, got shape {tuple(cons.shape)}")
     if block:
         if idx is not None or mask.dim() != 2:
             raise ValueError("a block takes one network: no idx, mask (nx, n)")
         nx, n = mask.shape
+        cons_shape = (nx, n, d, cols)
     else:
+        if cons.dim() != len(lead) + 2:
+            raise ValueError(f"cons: want {len(lead) + 2} dims, got shape {tuple(cons.shape)}")
         nx = n = cons.shape[-2] // d
+        cons_shape = (*lead, n * d, n * cols)
     r = (idx if idx is not None else dom).shape[0]
     expect = {
-        "cons": (cons, word, (*lead, nx * d, n * cols)),
+        "cons": (cons, word, cons_shape),
         "mask": (mask, torch.uint8, (*lead, nx, n)),
         "dom": (dom, word, (r, n * cols)),
         "changed": (changed, torch.uint8, (r, n)),
@@ -158,6 +165,17 @@ def check_operands(cons: Tensor, mask: Tensor, idx: Optional[Tensor], dom: Tenso
     if cons.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {cons.device}")
     return (r, nx, n) if block else (r, n)
+
+
+def check_block(kernel: str, rows: int, n: int) -> None:
+    """Raise where a block revise's launcher would refuse its shape: n above
+    `BLOCK_MAX_N`, more than 65535 groups of `BLOCK_GROUP` rows, or a CTA's
+    shared memory (`block_smem`) over the limit."""
+    if n > BLOCK_MAX_N:
+        raise ValueError(f"{kernel}: n={n} is above {BLOCK_MAX_N}")
+    if -(-rows // BLOCK_GROUP) > 65535:
+        raise ValueError(f"{kernel}: {rows} rows make more than 65535 groups of {BLOCK_GROUP}")
+    check_smem(kernel, block_smem(n), f"n={n}")
 
 
 def check_smem(kernel: str, nbytes: int, layout: str) -> None:

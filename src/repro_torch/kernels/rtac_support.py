@@ -20,9 +20,11 @@ and read each row's network in place — no per-round gathered copy:
   a CTA per (row, span of variables) (``csrc/dense_revise.cu`` with
   ``csrc/revise_common.cuh``; the single-network path of
   ``enforce``/``enforce_batch`` and so of ``mac_solve``);
-- :func:`dense_revise_block` — the same kernel on an x-block of one network:
-  this rank's rows of a sharded network against all n variables (the u8
-  local revise of `repro_torch.core.sharded`).
+- :func:`dense_revise_block` — one revise step of B domains against an
+  x-block of one network in the reference's pair-major layout
+  ``(nx, n, d, d)``: this rank's rows of a sharded network against all n
+  variables (the u8 local revise of `repro_torch.core.sharded`;
+  ``csrc/block_revise.cuh``).
 
 The kernels read each (x·a, y) slice as d/8 eight-byte words, so d must be a
 multiple of 8 (`ops.D_MULT`) and cons/dom 8-byte aligned.
@@ -39,8 +41,8 @@ from typing import Optional
 import torch
 
 from . import autotune
-from .launch import (block_span, check_operands, check_smem, fixpoint_smem, launch,
-                     revise_smem, single_revise_smem, single_smem)
+from .launch import (block_scratch_bytes, check_block, check_operands, check_smem,
+                     fixpoint_smem, launch, revise_smem, single_revise_smem)
 
 Tensor = torch.Tensor
 
@@ -246,38 +248,37 @@ def dense_revise_block_plain(cons: Tensor, mask: Tensor, dom: Tensor, changed: T
     """Plain PyTorch version of `dense_revise_block`, in chunks of x-rows
     and of domains."""
     b, nx, n = _check(cons, mask, None, dom, changed, d, block=True)
-    out = torch.empty((b, nx * d), dtype=torch.uint8, device=cons.device)
+    out = torch.empty((b, nx, d), dtype=torch.uint8, device=cons.device)
     xs = max(1, _BLOCK_CHUNK_BYTES // (d * n * d))
+    dom = dom.view(b, 1, n, 1, d)
+    seed = changed.bool().view(b, 1, n, 1)
     for x0 in range(0, nx, xs):
-        x1 = min(nx, x0 + xs)
-        net, m = cons[x0 * d:x1 * d][None], mask[x0:x1][None]
-        step = _revise_chunk_rows(n, d, x1 - x0)
+        net, m = cons[x0:x0 + xs], mask[x0:x0 + xs].bool()[None, :, :, None]
+        step = _revise_chunk_rows(n, d, net.shape[0])
         for s in range(0, b, step):
-            out[s:s + step, x0 * d:x1 * d] = _revise_rows_plain(
-                net, m, dom[s:s + step], changed[s:s + step], n, d)
-    return out
+            has = ((net & dom[s:s + step]) != 0).any(dim=-1) | ~m  # (rows, x, y, a)
+            out[s:s + step, x0:x0 + xs] = (seed[s:s + step] & ~has).any(dim=2)
+    return out.view(b, nx * d)
 
 
 def dense_revise_block(cons: Tensor, mask: Tensor, dom: Tensor, changed: Tensor, *,
                        d: int) -> Tensor:
     """B dense revisions against an x-block of ONE network: the rows of nx
     variables against all n (one rank's share of a network sharded over its
-    variables).
+    variables), in the reference's pair-major layout.
 
-    cons (nx·d, n·d) u8, mask (nx, n) u8, dom (B, n·d) u8, changed (B, n) u8
-    -> violated (B, nx·d) u8. With nx = n it equals `dense_revise`. The span
-    of variables a CTA revises is `block_span`'s (8 from n = 2048 on); a
-    CTA's shared memory is checked for that span."""
+    cons (nx, n, d, d) u8, mask (nx, n) u8, dom (B, n·d) u8, changed (B, n)
+    u8 -> violated (B, nx·d) u8. Two launches: a seed pass into a scratch
+    tensor of ``block_scratch_bytes``, then the revise."""
     b, nx, n = _check(cons, mask, None, dom, changed, d, block=True)
     if cons.device.type == "cpu":
         return dense_revise_block_plain(cons, mask, dom, changed, d=d)
-    sms = torch.cuda.get_device_properties(cons.device).multi_processor_count
-    span = block_span(b, nx, n, d, sms)
-    check_smem("dense_revise_block", single_smem(n, d, span), f"n={n}, d={d}, span={span}")
+    check_block("dense_revise_block", b, n)
     out = torch.empty((b, nx * d), dtype=torch.uint8, device=cons.device)
     if b and nx:
-        launch("dense_revise", "dense_revise_block_launch", [cons, mask, dom, changed, out],
-               b, nx, n, d, span)
+        scratch = torch.empty(block_scratch_bytes(b, n, d), dtype=torch.uint8, device=cons.device)
+        launch("dense_revise", "dense_block_revise_launch",
+               [cons, mask, dom, changed, scratch, out], b, nx, n, d)
         dense_revise_block.launches += 1
     return out
 

@@ -208,10 +208,12 @@ BLOCK_CASES = [(shape, rows) for shape, rows in SINGLE_CASES
 
 def _x_block(args, d_p, kind, nx, x0):
     """A single-network case's operands cut to the rows of variables
-    [x0, x0 + nx): (network rows, mask rows, domains, seeds)."""
+    [x0, x0 + nx), the network rows in the pair-major block layout
+    (nx, n, d_p, cols): (network rows, mask rows, domains, seeds)."""
     cons, mask, dom, seed = args
-    return (cons[x0 * d_p:(x0 + nx) * d_p].contiguous(), mask[x0:x0 + nx].contiguous(),
-            dom, seed)
+    n = mask.shape[0]
+    net = cons.view(n, d_p, n, cons.shape[1] // n).permute(0, 2, 1, 3)
+    return net[x0:x0 + nx].contiguous(), mask[x0:x0 + nx].contiguous(), dom, seed
 
 
 @pytest.mark.parametrize("kind", ["packed", "dense"])
@@ -241,40 +243,58 @@ def test_block_kernels_match_plain_on_x_blocks(cuda, shape, rows, cut, kind):
 @pytest.mark.parametrize("kind", ["packed", "dense"])
 @pytest.mark.parametrize("shape,rows", SINGLE_CASES)
 def test_block_kernels_square_call_equals_single_network_kernel(cuda, shape, rows, kind):
-    """With nx = n the block form is the single-network kernel, bit for bit,
-    on every shape and row mix that kernel is tested on."""
+    """With nx = n the block form, on the network in the block layout, is
+    the single-network kernel, bit for bit, on every shape and row mix that
+    kernel is tested on."""
     family, knobs = SINGLE_SHAPES[shape]
     args, d_p = _single_rows(generate(family, seed=0, device=cuda, **knobs), rows, cuda, kind,
                              unpadded=shape == "n30_unpadded")
     mod, kw = (bs, dict(d=d_p, w=-(-d_p // 32))) if kind == "packed" else (rs, dict(d=d_p))
-    torch.testing.assert_close(getattr(mod, f"{kind}_revise_block")(*args, **kw),
+    block = _x_block(args, d_p, kind, args[1].shape[0], 0)
+    torch.testing.assert_close(getattr(mod, f"{kind}_revise_block")(*block, **kw),
                                getattr(mod, f"{kind}_revise")(*args, **kw), rtol=0, atol=0)
 
 
-def _production_block(nx, device, b=4, n=4096, d=32, seed=0):
-    """Packed operands at the reference's production shape (n=4096, d=32,
-    W=1) for an x-block of ``nx`` variables: sparse network words (about a
-    quarter of the bits set), 3 % of pairs constrained, domains with about
-    a third of their values live; a root row, a row with 40 seeds, a
-    seedless row and a one-hot row."""
+def _production_block(nx, device, b=4, n=4096, d=32, kind="packed", seed=0):
+    """Operands at the reference's production shape (n=4096, d=32) for an
+    x-block of ``nx`` variables in the pair-major layout: packed (W words)
+    or dense u8 (d a multiple of 8). Sparse entries (about a quarter of the
+    bits set), 3 % of pairs constrained, domains with about a third of their
+    values live. Rows, cycling: a root row, a row with 40 seeds, a seedless
+    row, a one-hot row, a row whose seeds miss every neighbour of the
+    block; and x-row 1 has an empty mask row."""
     g = torch.Generator(device=device).manual_seed(seed)
-    words = lambda *shape: torch.randint(-2**31, 2**31, shape, dtype=torch.int32, device=device,
-                                         generator=g)
-    cons = words(nx * d, n) & words(nx * d, n)
     mask = (torch.rand((nx, n), device=device, generator=g) < 0.03).to(torch.uint8)
-    dom = words(b, n) & (words(b, n) | words(b, n))
+    mask[1] = 0
+    unconstrained = torch.nonzero(mask.sum(dim=0) == 0).flatten()
     seed_rows = torch.zeros((b, n), dtype=torch.uint8, device=device)
-    seed_rows[0] = 1
-    seed_rows[1, torch.randperm(n, device=device, generator=g)[:40]] = 1
-    seed_rows[3, 17] = 1
-    return (cons, mask, dom, seed_rows[:b].contiguous()), dict(d=d, w=1)
+    seed_rows[0::5] = 1
+    for r in range(1, b, 5):
+        seed_rows[r, torch.randperm(n, device=device, generator=g)[:40]] = 1
+    seed_rows[3::5, 17] = 1
+    seed_rows[4::5, unconstrained[:8]] = 1
+    live = (torch.rand((b, n, d), device=device, generator=g) < 0.35)
+    if kind == "packed":  # random words, a quarter of the bits set, the padding bits clear
+        w = -(-d // 32)
+        words = lambda: torch.randint(-2**31, 2**31, (nx, n, d, w), dtype=torch.int32,  # noqa: E731
+                                      device=device, generator=g)
+        cons = words() & words()
+        if d % 32:
+            cons[..., -1] &= (1 << d % 32) - 1
+        dom = ref.pack_bits_ref(live).reshape(b, -1)
+        kw = dict(d=d, w=w)
+    else:
+        cons = (torch.randint(0, 4, (nx, n, d, d), dtype=torch.uint8, device=device,
+                              generator=g) == 0).to(torch.uint8)
+        dom = live.to(torch.uint8).reshape(b, -1)
+        kw = dict(d=d)
+    return (cons.contiguous(), mask, dom.contiguous(), seed_rows), kw
 
 
-@pytest.mark.parametrize("nx", [8, 2048, 4096])
+@pytest.mark.parametrize("nx", [8, 256, 2048, 4096])
 def test_packed_block_kernel_at_production_shape(cuda, nx):
     """n=4096, d=32 (the reference's production CSP; a 2 GiB packed network
-    at nx = n): pairs need the wide neighbour encoding, and a CTA revises 8
-    variables."""
+    at nx = n), B=4, against the plain version."""
     args, kw = _production_block(nx, cuda)
     bs.reset_launches()
     got = bs.packed_revise_block(*args, **kw)
@@ -282,6 +302,31 @@ def test_packed_block_kernel_at_production_shape(cuda, nx):
     torch.testing.assert_close(got, want, rtol=0, atol=0)
     assert bs.packed_revise_block.launches == 1
     assert want[0].any() and not want[2].any()
+
+
+#: block-kernel edge cases at n=4096: (kind, nx, B, d) — row groups cut at
+#: their edge (B = 33), one row, d = 40 (packed W = 2 as one 8-byte word,
+#: dense d_p = 40 read at run time)
+BLOCK_EDGE_CASES = [("packed", 256, 1, 32), ("packed", 256, 16, 32), ("packed", 256, 32, 32),
+                    ("packed", 256, 33, 32), ("packed", 64, 33, 40), ("dense", 256, 33, 32),
+                    ("dense", 64, 16, 40), ("dense", 8, 1, 32)]
+
+
+@pytest.mark.parametrize("kind,nx,b,d", BLOCK_EDGE_CASES)
+def test_block_kernels_edge_cases_at_production_width(cuda, kind, nx, b, d):
+    """Both block kernels at n=4096 against their plain versions: a seedless
+    row, an x-row with an empty mask row and a row whose seeds miss every
+    neighbour violate nothing; B = 33 cuts a second row group to one row."""
+    args, kw = _production_block(nx, cuda, b=b, d=d, kind=kind)
+    mod = bs if kind == "packed" else rs
+    mod.reset_launches()
+    got = getattr(mod, f"{kind}_revise_block")(*args, **kw)
+    want = getattr(mod, f"{kind}_revise_block_plain")(*args, **kw)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    assert getattr(mod, f"{kind}_revise_block").launches == 1
+    assert want[0].any()
+    assert not want[2::5].any() and not want[4::5].any()
+    assert not want.view(b, nx, d)[:, 1].any()
 
 
 #: stacked-kernel edge cases: case -> (family, knobs); the case also picks

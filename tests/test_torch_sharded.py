@@ -237,12 +237,13 @@ def test_block_plain_equals_slices_of_the_reference_kernels(kind, nx, n, d):
     ch_u8 = changed.astype(np.uint8)
     m_u8 = mask.astype(np.uint8)
     if kind == "packed":
-        net = np.asarray(ref_ref.pack_bits_ref(cons)).transpose(0, 2, 1, 3).reshape(n * d, n * w)
+        blk = np.asarray(ref_ref.pack_bits_ref(cons))  # (n, n, d, W), the reference's cons_blk_pk
+        net = blk.transpose(0, 2, 1, 3).reshape(n * d, n * w)
         rows = np.asarray(ref_ref.pack_bits_ref(dom)).reshape(4, n * w)
         want = np.concatenate([np.asarray(ref_bs.packed_revise(
             net, rows[i:i + 1], ch_u8[i:i + 1], m_u8, d=d, w=w)) for i in range(4)])
         got = bs.packed_revise_block_plain(
-            torch.from_numpy(net[x0 * d:].view(np.int32).copy()),
+            torch.from_numpy(blk[x0:].view(np.int32).copy()),
             torch.from_numpy(m_u8[x0:].copy()), torch.from_numpy(rows.view(np.int32).copy()),
             torch.from_numpy(ch_u8), d=d, w=w)
     else:
@@ -251,7 +252,7 @@ def test_block_plain_equals_slices_of_the_reference_kernels(kind, nx, n, d):
         want = np.concatenate([np.asarray(ref_rs.dense_revise(
             net, rows[i:i + 1], ch_u8[i:i + 1], m_u8, d=d)) for i in range(4)])
         got = rs.dense_revise_block_plain(
-            torch.from_numpy(net[x0 * d:].copy()), torch.from_numpy(m_u8[x0:].copy()),
+            torch.from_numpy(cons[x0:].astype(np.uint8)), torch.from_numpy(m_u8[x0:].copy()),
             torch.from_numpy(rows), torch.from_numpy(ch_u8), d=d)
     np.testing.assert_array_equal(got.numpy(), want[:, x0 * d:])
     oracle = np.stack([ref.revise_ref(*(torch.from_numpy(a) for a in (cons, mask, dom[i],
@@ -259,3 +260,46 @@ def test_block_plain_equals_slices_of_the_reference_kernels(kind, nx, n, d):
                        .reshape(-1).numpy() for i in range(4)])
     np.testing.assert_array_equal(got.numpy(), oracle[:, x0 * d:].astype(np.uint8))
     assert want[0].any() and not want[3].any()
+
+
+@pytest.mark.parametrize("n,d", [(24, 8), (16, 40)])
+@pytest.mark.parametrize("impl,dtype", [("bitpacked", torch.bfloat16), ("einsum", torch.uint8),
+                                        ("einsum", torch.bfloat16)])
+def test_block_layout_is_the_references_pair_major_block(impl, dtype, n, d):
+    """`block_layout` of a rank's rows: bitpacked is the reference's
+    ``cons_blk_pk = pack_bits_ref(cons)`` (nx, n, d, W) word for word; u8 is
+    the bool block padded to (nx, n, d_p, d_p), d_p = d rounded up to 8;
+    float is the block in ``dtype``."""
+    from repro_torch.core.sharded import block_layout
+
+    cons = _single_network(n, d, 4)[0][n // 2:]
+    got = block_layout(torch.from_numpy(cons), impl, dtype)
+    if impl == "bitpacked":
+        want = np.asarray(ref_ref.pack_bits_ref(cons))
+        assert got.dtype == torch.int32 and tuple(got.shape) == want.shape
+        np.testing.assert_array_equal(got.numpy().view(np.uint32), want)
+    elif dtype == torch.uint8:
+        d_p = -(-d // 8) * 8
+        want = np.zeros((n - n // 2, n, d_p, d_p), dtype=np.uint8)
+        want[:, :, :d, :d] = cons
+        np.testing.assert_array_equal(got.numpy(), want)
+    else:
+        assert got.dtype == dtype
+        np.testing.assert_array_equal(got.float().numpy(), cons.astype(np.float32))
+
+
+@pytest.mark.parametrize("rows,n,ok", [(1, 65535, True), (65535 * 32, 64, True),
+                                       (1, 65536, False), (65535 * 32 + 1, 64, False)])
+def test_block_revise_limits_raise_before_a_launch(rows, n, ok):
+    """The block wrappers' shape check (`launch.check_block`): n up to 65535
+    (a listed neighbour is a u16) and up to 65535 groups of 32 rows pass,
+    with a CTA's shared memory under the limit at every such n; beyond
+    either the wrapper raises instead of launching."""
+    from repro_torch.kernels import launch
+
+    if ok:
+        launch.check_block("packed_revise_block", rows, n)
+        assert launch.block_smem(n) <= launch.SMEM_OPT_IN_LIMIT
+    else:
+        with pytest.raises(ValueError, match="packed_revise_block"):
+            launch.check_block("packed_revise_block", rows, n)
