@@ -108,12 +108,26 @@ Phases (any failure exits non-zero):
               16, 32 and x2's dense call 1 to B = 1, 2, 4, 8, the network
               the same: how the time grows with the rows. At x1, x4 and x2
               the library call, the bf16 einsum local revise on the same
-              rows, is held against the kernel and timed.
+              rows, is held against the kernel and timed. (x6) The entry
+              point `repro_torch.launch.distributed_ac` as a one-rank NCCL
+              world at x1's network and the full batch, B=512, bitpacked:
+              dom, consistent and k against the single-network
+              `hopper_packed` engine (kernel 3 at n=4096), the first block
+              call against plain, ms a recurrence, the local revise and each
+              recurrence's all-gather (CUDA events), one profiled call; the
+              kernels line's packed block row carries its launches
+              (``full_batch_launches``). Then `hopper_packed` on the same
+              network and batch in this process, its launches counted from
+              0: its result equals x6's, its first `packed_revise` call
+              (kernel 3 at n=4096, a variable a warp) is held against plain
+              and timed beside its bound; kernel 3's row carries them
+              (``full_batch_*``).
 (p) profile — one fused and one stepped `solve_many`, one phase-e
               `mac_solve` (instance 1) and the phase-s replay on each Hopper
-              engine under `torch.profiler`: device busy share and the
-              kernels that take the device's time, each with its share of
-              the wall time.
+              engine under `torch.profiler`: device busy share (the union
+              of the device's kernel and copy intervals) and the kernels
+              that take the device's time, each with its share of the wall
+              time.
 
 Prints a ``{"kernels": [...]}`` JSON line, then the card's name and power
 limit, then ``{"ok": true, "device": {...}}`` as the last line. Exits 2
@@ -352,14 +366,14 @@ def work_bound(mask, idx, seeds, d: int, entry: int, out_bytes: int, idx_bytes: 
 
     r, n = seeds[0].shape
     slots = idx.long()
-    mask_g = mask[slots].bool()
+    cols = mask.bool().sum(dim=1)  # (networks, n): the constrained x of each column y
     touched = torch.zeros((mask.shape[0], n), dtype=torch.bool, device=mask.device)
     ands = 0
     for seed in seeds:
         for s in slots.unique():
             touched[s] |= seed[slots == s].any(dim=0)
-        ands += int((mask_g & seed[:, None, :]).sum()) * d * entry // 4
-    col_x = int((mask.bool().sum(dim=1) * touched).sum())
+        ands += int((cols[slots] * seed).sum()) * d * entry // 4
+    col_x = int((cols * touched).sum())
     nbytes = (col_x * d * entry + int(touched.sum()) * mask.shape[-2]
               + r * (n * entry + n + idx_bytes)
               + out_bytes)
@@ -882,28 +896,33 @@ def mac_path(device, max_assignments: int = MAX_ASSIGNMENTS, n_instances: int = 
 
 def profiled(label: str, run):
     """Where a round's time goes: `torch.profiler` over ``run()``, which
-    returns (wall seconds, rounds). Prints the wall time, the summed device
-    time of every kernel and copy, the device busy share, and the kernels
+    returns (wall seconds, rounds). Prints the wall time, the device busy
+    time (`device_busy_ms`: the union of the kernels' and copies' device
+    intervals) and share beside their device times summed, and the kernels
     that take the most device time, each with its share of the wall time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch.distributed_ac import device_busy_ms
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         seconds, rounds = run()
     wall_ms = 1e3 * seconds
     device_time = lambda e: e.self_device_time_total / 1e3  # us -> ms
     # device-side events only (kernels, copies): a CPU op's entry repeats the
-    # device time of the kernels it launched
+    # device time of the kernels it launched, a user annotation's those inside it
     on_device = sorted((e for e in prof.key_averages()
-                        if e.device_type != torch.autograd.DeviceType.CPU and device_time(e) > 0),
+                        if e.device_type != torch.autograd.DeviceType.CPU
+                        and not e.is_user_annotation and device_time(e) > 0),
                        key=device_time, reverse=True)
-    busy_ms = sum(device_time(e) for e in on_device)
     if not on_device:
         print(f"[p] {label}: profiler recorded no device time: device busy share not measured")
         return
+    busy_ms, summed_ms = device_busy_ms(prof), sum(device_time(e) for e in on_device)
     print(f"[p] profiled {label}: "
           f"wall {wall_ms:.1f} ms over {rounds} rounds ({wall_ms / rounds:.3f} ms/round, "
-          f"profiler on); device busy {busy_ms:.1f} ms = {100 * busy_ms / wall_ms:.1f}% of wall")
+          f"profiler on); device busy {busy_ms:.1f} ms = {100 * busy_ms / wall_ms:.1f}% of wall "
+          f"(kernels and copies summed: {summed_ms:.1f} ms)")
     for e in on_device[:8]:
         print(f"[p]   {device_time(e):9.2f} ms ({100 * device_time(e) / wall_ms:5.1f}% of wall) "
               f"{e.count:6d} calls  {e.key[:90]}")
@@ -1500,6 +1519,15 @@ X_RANK_BATCH = {"single pod": 32, "multi-pod": 16}
 #: call 1 for the packed block revise, x2's for the dense one)
 X_ROW_COUNTS = {"packed": (1, 4, 8, 16, 32), "dense": (1, 2, 4, 8)}
 X_DIR = os.path.join(TRACE_DIR, "sharded")
+#: x6: the production CSP's full batch (`launch/dryrun_rtac.py`'s B=512)
+X_FULL_BATCH = 512
+#: `distributed_ac`'s names of the X specs' sizes (torchrun refuses ``--n``, ``--d``)
+DAC_OPTIONS = {"n": "n-vars", "d": "dom-size"}
+
+
+def dac_args(spec) -> list:
+    """``spec`` as `repro_torch.launch.distributed_ac` options."""
+    return [f"--{DAC_OPTIONS.get(k, k)}={v}" for k, v in spec.items()]
 
 
 def time_block(kind: str, args, kw, reps: int = 20) -> dict:
@@ -1778,7 +1806,7 @@ def phase_x_two_ranks(reference):
     args = [sys.executable, "-m", "repro_torch.launch.distributed_ac", "--device", "cuda",
             "--backend", "gloo", "--mesh", "1,2", "--network", "hashed", "--impl",
             "bitpacked", "--check", "none", "--store", os.path.join(X_DIR, "store"),
-            "--world", "2", "--out", out, *[f"--{k}={v}" for k, v in spec.items()]]
+            "--world", "2", "--out", out, *dac_args(spec)]
     env = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")}
     procs = [subprocess.Popen([*args, "--rank", str(r)], cwd=ROOT, env=env,
                               stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
@@ -1807,9 +1835,91 @@ def phase_x_two_ranks(reference):
           f"staged through host memory: {bool(got['staged'])}", flush=True)
 
 
+def phase_x_full_batch():
+    """(x6) `repro_torch.launch.distributed_ac` as a one-rank NCCL world on
+    the production CSP at its full batch (n=4096, d=32, B=512, bitpacked),
+    held against the single-network `hopper_packed` engine (kernel 3) and
+    its first block call against plain, with one profiled call; its
+    ``--out`` record checked here. Returns the block kernel's launches and
+    the record."""
+    import numpy as np
+
+    os.makedirs(X_DIR, exist_ok=True)
+    out = os.path.join(X_DIR, "full_batch.npz")
+    spec = {**X_FULL, "batch": X_FULL_BATCH}
+    args = [sys.executable, "-m", "repro_torch.launch.distributed_ac", "--device", "cuda",
+            "--mesh", "1,1", "--network", "hashed", "--impl", "bitpacked", "--check",
+            "hopper_packed", "--check", "plain", "--out", out, *dac_args(spec)]
+    env = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")}
+    t0 = time.perf_counter()
+    run = subprocess.run(args, cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+    seconds = time.perf_counter() - t0
+    check(run.returncode == 0, f"[x6] distributed_ac exited {run.returncode}:\n"
+                               f"{run.stdout[-3000:]}\n{run.stderr[-3000:]}")
+    for line in run.stdout.splitlines():
+        print(f"[x6] {line}", flush=True)
+    check("single-device results (hopper_packed) ✓" in run.stdout,
+          "[x6] no hopper_packed verdict")
+    check("first block call bit-identical to plain" in run.stdout, "[x6] no plain verdict")
+    got = np.load(out)
+    k_max = int(got["k"].max())
+    launches = int(got["packed_revise_block"])
+    check(k_max >= 3 and launches == k_max, f"[x6] {launches} block launches, k max {k_max}")
+    check(len(got["gathers"]) == k_max + 3 and not bool(got["staged"]),
+          f"[x6] {len(got['gathers'])} gathers for {k_max} recurrences, staged {got['staged']}")
+    print(f"[x6] full batch B={spec['batch']} == hopper_packed, first call == plain; "
+          f"{1e3 * float(got['seconds']) / k_max:.3f} ms a recurrence (wall); "
+          f"{launches} packed_revise_block launches; {seconds:.1f} s with start-up", flush=True)
+    return launches, got
+
+
+def phase_x_oracle(device, want) -> dict:
+    """(x6) Kernel 3 at the full batch: `hopper_packed` on x6's network and
+    batch in this process, `packed_revise`'s count set to 0 just before and
+    read just after; its result against x6's record ``want``, its first
+    call (n=4096: a variable a warp) against `packed_revise_plain` bit for
+    bit, timed beside its bound."""
+    import numpy as np
+    import torch
+
+    from repro_torch.engines import get_engine
+
+    t0 = time.perf_counter()
+    csp, doms = x_network({**X_FULL, "batch": X_FULL_BATCH}, device)
+    prepared = get_engine("hopper_packed", device=device).prepare(csp)
+    del csp
+    reset_launches()
+    with StackedCalls([("packed_revise", "packed")], (1,), shared=(0, 1)) as rec:
+        res = prepared.enforce_batch(doms)
+        torch.cuda.synchronize()
+    launches = kernel_module("packed").packed_revise.launches
+    k_max = int(want["k"].max())
+    check(all(np.array_equal(t.cpu().numpy(), want[f])
+              for t, f in zip(res, ("dom", "consistent", "k"))),
+          "[x6] hopper_packed in this process differs from x6's sharded run")
+    check(launches == k_max, f"[x6] {launches} packed_revise launches for {k_max} recurrences")
+    _key, _i, args, kw = rec.calls[0]
+    fn = kernel_module("packed").packed_revise
+    plain = kernel_module("packed").packed_revise_plain
+    err = max_err(fn(*args, **kw), plain(*args, **kw))
+    check(err == 0, f"[x6] packed_revise at B={X_FULL_BATCH}, n={X_FULL['n']} differs from its "
+                    f"plain version (max abs err {err})")
+    m = dict(max_abs_err=err, ms=timed_ms(lambda: fn(*args, **kw), 20, device),
+             plain_ms=timed_ms(lambda: plain(*args, **kw), 1, device),
+             bound=single_bound("packed", [args], kw), launches=launches)
+    report(f"hopper_packed oracle, call 1 of {launches} (n_p={args[3].shape[1]}, "
+           f"B={X_FULL_BATCH})", "packed_revise", m, "x6")
+    print(f"[x6] hopper_packed == x6's sharded run: dom, consistent and k bit-identical; "
+          f"{launches} packed_revise launches; {time.perf_counter() - t0:.1f} s", flush=True)
+    return m
+
+
 def phase_x(device):
     """(x): x1 and x4 at full width, x2, x3 at n=1024, in a one-rank world
-    made for the phase. Returns the block routes' rows of the kernels line."""
+    made for the phase, then x6 at the full batch in a process of its own
+    and its `hopper_packed` oracle here. Returns the block routes' rows of
+    the kernels line and kernel 3's numbers at the full batch."""
+    import torch
     import torch.distributed as dist
 
     from repro_torch.launch.mesh import init_world
@@ -1821,6 +1931,9 @@ def phase_x(device):
     finally:
         dist.destroy_process_group()
     phase_x_two_ranks(small["reference"])
+    torch.cuda.empty_cache()
+    full_batch, record = phase_x_full_batch()
+    oracle = phase_x_oracle(device, record)
     rows = []
     for name, kind, line, launches, m in (
             ("packed_revise_block", "packed", "bitpack_support.py:64", full["launches"],
@@ -1834,7 +1947,8 @@ def phase_x(device):
             max_abs_err=m["max_abs_err"], ms=m["ms"], plain_ms=m["plain_ms"],
             bound_ms=m["bound"][0], bound_by=m["bound"][1], library_ms=m["library_ms"],
             service_launches=0))
-    return rows
+    rows[0]["full_batch_launches"] = full_batch
+    return rows, oracle
 
 
 # ---------------------------------------------------------------------------
@@ -2155,7 +2269,7 @@ def main(argv) -> int:
         phase_sweeps(device)
         stamp("phase x, the sharded path")
         t_x = time.perf_counter()
-        sharded_rows = phase_x(device)
+        sharded_rows, oracle = phase_x(device)
         print(f"[x] phase x took {time.perf_counter() - t_x:.1f} s", flush=True)
         for name in ("hopper_packed", "hopper_dense"):
             stamp(f"phase p, {name}")
@@ -2185,6 +2299,12 @@ def main(argv) -> int:
             check(kernels[-1]["launches"] > 0, f"{name} was not launched on its path ({run})")
             check(service_run is None or kernels[-1]["service_launches"] > 0,
                   f"{name} was not launched on the service path ({service_run})")
+            if name == "packed_revise":  # x6: the oracle's launches at n=4096, B=512
+                kernels[-1].update(
+                    full_batch_launches=oracle["launches"],
+                    full_batch_max_abs_err=oracle["max_abs_err"], full_batch_ms=oracle["ms"],
+                    full_batch_plain_ms=oracle["plain_ms"],
+                    full_batch_bound_ms=oracle["bound"][0])
         kernels += sharded_rows
         print(f"[done] {time.perf_counter() - t_start:.1f} s in all", flush=True)
         print(json.dumps({"kernels": kernels}))

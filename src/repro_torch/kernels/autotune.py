@@ -60,6 +60,7 @@ import torch
 from repro_torch import obs
 from repro_torch.core.engine import next_pow2
 from repro_torch.device import Device, resolve_device
+from repro_torch.kernels.launch import SINGLE_WIDE_N
 
 SCHEMA = "repro-torch-autotune/v1"
 CACHE_ENV = "REPRO_TORCH_AUTOTUNE_CACHE"
@@ -204,6 +205,8 @@ def single_span(rows: int, n: int, sms: Optional[int] = None) -> int:
     a CTA (a multiple of 8) that still give the card `CTAS_PER_SM` CTAs an
     SM over ``rows`` rows, and at least one variable a warp. ``sms``
     defaults to the card's SM count, or an H100's without a card."""
+    if n >= SINGLE_WIDE_N:  # the launcher's one span there: a variable a warp
+        return 8
     sms = _sm_count() if sms is None else sms
     blocks = -(-n // 8)  # groups of 8 variables
     groups = max(1, min(-(-(CTAS_PER_SM * sms) // rows), blocks))
@@ -262,6 +265,8 @@ def candidate_configs(kind: str, n_p: int, d_p: int, r: int) -> List[TuneConfig]
     count of CTAs a row, widest first (7 at n_p = 104 or 128)."""
     del r  # every bucket of a kind has the same candidates
     if kind in SPAN_KINDS:
+        if n_p >= SINGLE_WIDE_N:
+            return [TuneConfig(span=8)]
         blocks = -(-n_p // 8)
         spans = sorted({8 * -(-blocks // g) for g in range(1, blocks + 1)}, reverse=True)
         return [TuneConfig(span=s) for s in spans]

@@ -103,8 +103,9 @@ __host__ __device__ inline int owner_lanes(int n) {
 // to distinct banks) and violation words (lanes × ceil(d/32)); u16: the
 // (variable, neighbour) pairs of its owner lanes (lanes × n). A CTA that
 // owns every variable of a row has owner_lanes(n) lanes a warp; its pairs
-// alone outgrow the shared memory for n ≥ 460. The launchers refuse
-// n ≥ 2^kPairY, so a pair's neighbour fits its 11 bits.
+// alone outgrow the shared memory for n ≥ 460. The stacked launchers refuse
+// n ≥ 2^kPairY, so a pair's neighbour fits its 11 bits; from there the
+// single-network launcher gives each warp one variable (launch_single).
 struct Smem {
   int seed, nbits, viol, pairs, total;
   __host__ __device__ Smem(int n, int d, int dom_bytes, int lanes) {
@@ -457,10 +458,11 @@ __global__ void __launch_bounds__(kThreads) revise_single_kernel(
                          S.pairs, out, x_begin, x_end, n, d, K, lanes, warp, lane);
 }
 
-// Whether the kernels take (n, d, K): a pair's neighbour has kPairY bits,
-// and word offsets into a network are 32-bit.
-inline bool takes(int n, int d, int k) {
-  return n < (1 << kPairY) && static_cast<double>(n) * d * n * k < 4294967296.0;
+// Whether the kernels take (n, d, K): a pair's neighbour has kPairY bits
+// (kPairYWide in a single-network launch), and word offsets into a network
+// are 32-bit.
+inline bool takes(int n, int d, int k, int pair_bits = kPairY) {
+  return n < (1 << pair_bits) && static_cast<double>(n) * d * n * k < 4294967296.0;
 }
 
 // Launch one CTA per row.
@@ -499,13 +501,31 @@ inline int single_span(int rows, int n) {
   return kWarps * ((blocks + groups - 1) / groups);
 }
 
+// From n = 2^kPairY a pair's neighbour leaves no bits for its lane: a
+// single-network CTA then revises kWarps variables, one a warp, so a warp
+// has one owner lane and a pair is its neighbour alone (kPairYWide bits).
+// Its shared memory is then about 19 bytes a neighbour (77,856 B at n =
+// 4096, d = 32: launch.single_revise_smem), so n up to 12,224 fits.
+// The whole-row layout's pairs alone would outgrow it from n = 460.
+constexpr int kPairYWide = 16;
+
 // Launch rows × ceil(n / span) CTAs against one network. `span` is a tuned
 // schedule (kernels/autotune.py): a multiple of 8, at most n rounded up to
-// 8; 0 takes `single_span`'s rule.
+// 8; 0 takes `single_span`'s rule. From n = 2^kPairY the span is kWarps.
 template <typename T, int KW>
 int launch_single(const void* net, const void* mask, const void* dom_in, const void* seed_in,
                   void* viol_out, int rows, int n, int d, int k, int span, void* stream) {
   if (rows <= 0) return 0;
+  if (n >= (1 << kPairY)) {
+    if (!takes(n, d, k, kPairYWide) || (span != 0 && span != kWarps))
+      return static_cast<int>(cudaErrorInvalidValue);
+    return static_cast<int>(fixpoint::launch_rows(
+        revise_single_kernel<T, KW, kPairYWide>, dim3(rows, (n + kWarps - 1) / kWarps),
+        Smem(n, d, mbits_bytes(n, kWarps), 1).total, static_cast<cudaStream_t>(stream),
+        static_cast<const T*>(net), static_cast<const uint8_t*>(mask),
+        static_cast<const T*>(dom_in), static_cast<const uint8_t*>(seed_in),
+        static_cast<uint8_t*>(viol_out), n, n, d, k, kWarps));
+  }
   if (!takes(n, d, k) || span < 0 || span % kWarps != 0 || span > kWarps * ((n + 7) / 8))
     return static_cast<int>(cudaErrorInvalidValue);
   if (span == 0) span = single_span(rows, n);

@@ -68,25 +68,33 @@ def fixpoint_smem(n: int, d: int, dom_bytes: int) -> int:
             + 2 * CTA_WARPS * (n + d) + 2 * n)
 
 
-def revise_smem(n: int, d: int, dom_bytes: int) -> int:
+def revise_smem(n: int, d: int, dom_bytes: int, lanes: Optional[int] = None) -> int:
     """Shared memory of one stacked-revise CTA (``Smem`` in
     csrc/revise_common.cuh): the row's domain of ``dom_bytes``, then per
     warp its seed bits, and for each of its owner lanes (one a variable,
-    ``min(32, ceil(n/8))``) the variable's seeded-neighbour bits and
-    violation words (u32) and n (variable, neighbour) pairs (u16)."""
+    by default ``min(32, ceil(n/8))``) the variable's seeded-neighbour bits
+    and violation words (u32) and n (variable, neighbour) pairs (u16)."""
     nwn, w = -(-n // 32), -(-d // 32)
-    lanes = min(32, -(-n // CTA_WARPS))
+    lanes = min(32, -(-n // CTA_WARPS)) if lanes is None else lanes
     return dom_bytes + 4 * CTA_WARPS * (nwn + lanes * (nwn + w)) + 2 * CTA_WARPS * lanes * n
 
 
+#: the n from which a single-network revise CTA revises `CTA_WARPS`
+#: variables, one a warp (``1 << kPairY`` in csrc/revise_common.cuh): a
+#: pair's neighbour no longer fits beside its lane
+SINGLE_WIDE_N = 1 << 11
+
+
 def single_revise_smem(n: int, d: int) -> int:
-    """The most shared memory one single-network revise CTA uses: that of a
-    CTA owning a whole row, the stacked layout with, in the domain's place
-    (the domain is read in place), its variables' mask rows as bits,
-    ``ceil(n/32)`` u32 words a row (``mbits_bytes`` in
-    csrc/revise_common.cuh). A CTA that owns a span of a row's variables
-    has fewer rows and owner lanes."""
-    return revise_smem(n, d, 4 * -(-n // 32) * CTA_WARPS * -(-n // CTA_WARPS))
+    """The most shared memory one single-network revise CTA uses: below
+    `SINGLE_WIDE_N`, that of a CTA owning a whole row (a tuned span may be
+    any), the stacked layout with, in the domain's place (the domain is
+    read in place), its variables' mask rows as bits, ``ceil(n/32)`` u32
+    words a row (``mbits_bytes`` in csrc/revise_common.cuh); from it, the
+    one span the launcher takes, a variable a warp (one owner lane)."""
+    rows = CTA_WARPS if n >= SINGLE_WIDE_N else CTA_WARPS * -(-n // CTA_WARPS)
+    return revise_smem(n, d, 4 * -(-n // 32) * rows,
+                       lanes=1 if n >= SINGLE_WIDE_N else None)
 
 
 #: rows a block-revise CTA revises together, the neighbours a warp lists

@@ -81,11 +81,21 @@ def prepare_dense(csp: CSP, block_rx: int = N_MULT, block_ry: int = N_MULT, devi
     return network, pad_dom(csp.dom.to(device), n_p, d_p), (n_p, d_p)
 
 
+#: network elements a chunk of `pack_network` packs at most, so its int32
+#: temporaries stay near 256 MiB at any n (one pass over the production
+#: CSP's 16 GiB network would need 64 GiB)
+_PACK_CHUNK = 1 << 25
+
+
 def pack_network(cons: Tensor, n_p: int, d_p: int) -> Tuple[Tensor, int]:
-    """(n_p,n_p,d_p,d_p) bool -> ((n_p*d_p, n_p*W) int32, W)."""
-    packed = ref.pack_bits_ref(cons)  # (n_p, n_p, d_p, W)
-    w = packed.shape[-1]
-    return packed.permute(0, 2, 1, 3).reshape(n_p * d_p, n_p * w).contiguous(), w
+    """(n_p,n_p,d_p,d_p) bool -> ((n_p*d_p, n_p*W) int32, W), packed in
+    chunks of x-rows."""
+    w = -(-d_p // 32)
+    out = torch.empty((n_p, d_p, n_p, w), dtype=torch.int32, device=cons.device)
+    step = max(1, _PACK_CHUNK // (n_p * d_p * d_p))
+    for x0 in range(0, n_p, step):  # (x, y, a, W) -> (x, a, y, W)
+        out[x0:x0 + step] = ref.pack_bits_ref(cons[x0:x0 + step]).permute(0, 2, 1, 3)
+    return out.view(n_p * d_p, n_p * w), w
 
 
 def prepare_packed(csp: CSP, block_rx: int = N_MULT, block_ry: int = N_MULT, device=None,

@@ -26,7 +26,11 @@ computes from the port's layouts.
 
 A gloo group given CUDA tensors gathers through host memory (gloo's
 all-gather takes host tensors); the helper chooses that by the group's
-backend, before the call.
+backend, before the call, and the record says so (``staged``). Inside
+``timing()`` each all-gather of CUDA tensors is bracketed by two CUDA
+events on the current stream, which waits for the collective's own stream:
+``elapsed_time`` of a pair is the gather as this rank saw it, the wait for
+the slowest peer included.
 """
 
 from __future__ import annotations
@@ -41,14 +45,17 @@ import torch.distributed as dist
 
 class Collective(NamedTuple):
     """One collective as issued: its kind (HLO spelling), the bytes of its
-    result on this rank, and its group's size."""
+    result on this rank, its group's size, and whether it went through host
+    memory."""
 
     kind: str
     result_bytes: int
     group_size: int
+    staged: bool = False
 
 
 _RECORDERS: List[List[Collective]] = []
+_TIMERS: List[list] = []
 
 
 @contextlib.contextmanager
@@ -63,9 +70,21 @@ def recording():
         _RECORDERS.remove(log)
 
 
-def _record(kind: str, result_bytes: int, group_size: int) -> None:
+@contextlib.contextmanager
+def timing():
+    """Collect a (start, end) pair of CUDA events for every all-gather of
+    CUDA tensors issued inside the block; read them after a synchronize."""
+    pairs: list = []
+    _TIMERS.append(pairs)
+    try:
+        yield pairs
+    finally:
+        _TIMERS.remove(pairs)
+
+
+def _record(kind: str, result_bytes: int, group_size: int, staged: bool) -> None:
     for log in _RECORDERS:
-        log.append(Collective(kind, int(result_bytes), int(group_size)))
+        log.append(Collective(kind, int(result_bytes), int(group_size), staged))
 
 
 def wire_factor(kind: str, group_size: int) -> float:
@@ -121,13 +140,22 @@ def all_gather(t: torch.Tensor, group: Optional[dist.ProcessGroup], dim: int = 0
     src = src.view(torch.uint8) if src.dtype == torch.bool else src
     # the ranks' tensors one after another along dim 0, as every backend takes it
     out = torch.empty((g * src.shape[0], *src.shape[1:]), dtype=src.dtype, device=src.device)
-    _record("all-gather", out.numel() * out.element_size(), g)
-    if staged(group, src):
+    via_host = staged(group, src)
+    _record("all-gather", out.numel() * out.element_size(), g, via_host)
+    events = None
+    if _TIMERS and src.device.type == "cuda":
+        events = tuple(torch.cuda.Event(enable_timing=True) for _ in range(2))
+        events[0].record()
+    if via_host:
         host = torch.empty(out.shape, dtype=src.dtype)
         _gather_into(host, src.cpu(), group)
         out.copy_(host)
     else:
         _gather_into(out, src, group)
+    if events is not None:
+        events[1].record()
+        for pairs in _TIMERS:
+            pairs.append(events)
     out = out.view(torch.bool) if t.dtype == torch.bool else out
     shape = t.shape
     return out.view(g, *shape).movedim(0, dim).reshape(*shape[:dim], g * shape[dim],

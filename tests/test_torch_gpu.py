@@ -7,6 +7,10 @@ Marked ``gpu``; without a CUDA device every test skips. On the card:
 ``PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py``.
 """
 
+import os
+import subprocess
+import sys
+
 import numpy as np
 import pytest
 import torch
@@ -304,6 +308,35 @@ def test_packed_block_kernel_at_production_shape(cuda, nx):
     assert want[0].any() and not want[2].any()
 
 
+#: the single-network revises from n = 2^11, where a CTA revises one
+#: variable a warp: (kind, n, d, B) — the production CSP's n=4096, d=32 (a
+#: 2 GiB packed network; kernel 3 is the oracle of the sharded path there),
+#: packed W = 2 and dense at n=2048
+WIDE_SINGLE_CASES = [("packed", 4096, 32, 5), ("packed", 4096, 32, 64), ("packed", 2048, 40, 33),
+                     ("dense", 2048, 8, 5), ("dense", 2048, 16, 64)]
+
+
+@pytest.mark.parametrize("kind,n,d,b", WIDE_SINGLE_CASES)
+def test_single_network_kernels_from_n_2048(cuda, kind, n, d, b):
+    """`packed_revise` / `dense_revise` at n ≥ 2048 (the network of
+    `_production_block` at nx = n, in the single-network layout) bit for bit
+    against their plain versions; the seedless rows, the rows whose seeds
+    miss every neighbour and the variable with an empty mask row violate
+    nothing."""
+    args, kw = _production_block(n, cuda, b=b, n=n, d=d, kind=kind)
+    single = (args[0].permute(0, 2, 1, 3).reshape(n * d, -1).contiguous(), *args[1:])
+    del args
+    mod = bs if kind == "packed" else rs
+    mod.reset_launches()
+    got = getattr(mod, f"{kind}_revise")(*single, **kw)
+    want = getattr(mod, f"{kind}_revise_plain")(*single, **kw)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    assert getattr(mod, f"{kind}_revise").launches == 1
+    assert want[0].any()
+    assert not want[2::5].any() and not want[4::5].any()
+    assert not want.view(b, n, d)[:, 1].any()
+
+
 #: block-kernel edge cases at n=4096: (kind, nx, B, d) — row groups cut at
 #: their edge (B = 33), one row, d = 40 (packed W = 2 as one 8-byte word,
 #: dense d_p = 40 read at run time)
@@ -422,14 +455,17 @@ def _dense_operands(n, d, device):
 
 def test_dense_wrappers_raise_on_a_layout_they_cannot_hold(cuda):
     # n=1, d=24584: > 227 KB for the fixpoint's lists; both revises hold it
-    # (49,272 B stacked, 24,720 B single-network) and refuse n=4096, d=8
-    # (2,266,112 B and 4,330,496 B: launch.revise_smem, single_revise_smem)
+    # (49,272 B stacked, 24,720 B single-network); the stacked revise refuses
+    # n=4096, d=8 (2,266,112 B: launch.revise_smem) and the single-network
+    # one n=2040, d=8, where a tuned span may own a whole row (1,635,328 B:
+    # single_revise_smem; from n=2048 it revises a variable a warp)
     cons, mask, idx, dom, seed = _dense_operands(1, 24584, cuda)
     big = _dense_operands(4096, 8, cuda)
+    single = _dense_operands(2040, 8, cuda)
     rs.reset_launches()
     for call in (lambda: rs.dense_fixpoint_stacked(cons, mask, idx, dom, seed, d=24584),
                  lambda: rs.dense_revise_stacked(*big, d=8),
-                 lambda: rs.dense_revise(big[0][0], big[1][0], *big[3:], d=8)):
+                 lambda: rs.dense_revise(single[0][0], single[1][0], *single[3:], d=8)):
         with pytest.raises(ValueError, match="shared memory"):
             call()
     assert (rs.dense_fixpoint_stacked.launches, rs.dense_revise_stacked.launches,
@@ -557,3 +593,42 @@ def test_service_on_card_grows_its_table_between_rounds(cuda, name):
     for csp, (sol, *_rest) in zip(csps, out[1]):
         if sol is not None:
             assert check_solution(csp, sol)
+
+
+def test_two_nccl_ranks_equal_one_rank(cuda, tmp_path):
+    """`distributed_ac --network hashed` at n=256, d=32, B=8 on the (1,2)
+    mesh: two NCCL ranks, one card each (a FileStore, ``--device cuda:R``),
+    equal the one-rank run of the same command on every rank
+    (``--against``), launch the block kernel, and stage nothing through
+    host memory. Needs two cards: NCCL refuses two ranks on one."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices (NCCL refuses two ranks on one card)")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = {**os.environ, "PYTHONPATH": os.path.join(root, "src")}
+    cmd = [sys.executable, "-m", "repro_torch.launch.distributed_ac", "--network", "hashed",
+           "--n-vars", "256", "--dom-size", "32", "--density", "0.16", "--tightness", "0.6",
+           "--batch", "8", "--impl", "bitpacked", "--check", "plain"]
+    one = subprocess.run([*cmd, "--device", "cuda", "--mesh", "1,1", "--check",
+                          "hopper_packed", "--out", str(tmp_path / "one.npz")],
+                         capture_output=True, text=True, env=env, timeout=600)
+    assert one.returncode == 0, one.stdout[-3000:] + one.stderr[-3000:]
+    procs = [subprocess.Popen(
+        [*cmd, "--device", f"cuda:{r}", "--mesh", "1,2", "--against", str(tmp_path / "one.npz"),
+         "--out", str(tmp_path / "two.npz"), "--store", str(tmp_path / "store"), "--rank",
+         str(r), "--world", "2"], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        env=env) for r in range(2)]
+    try:
+        logs = [p.communicate(timeout=600)[0] for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        assert p.returncode == 0, f"rank {r}:\n{log[-3000:]}"
+    assert "on 2 nccl ranks (cuda)" in logs[0]
+    assert "staged through host memory: {'data': False, 'model': False}" in logs[0]
+    assert logs[0].count("first block call bit-identical to plain") == 2
+    got, want = np.load(tmp_path / "two.npz"), np.load(tmp_path / "one.npz")
+    for name in ("dom", "consistent", "k"):
+        np.testing.assert_array_equal(got[name], want[name])
+    assert not got["staged"] and int(got["packed_revise_block"]) == int(got["k"].max())
+    assert all(g == 2 for _b, g in got["gathers"][:int(got["k"].max())])

@@ -418,7 +418,7 @@ def test_revise_smem_pins_the_driven_shapes(kind, n, d):
         assert REVISE_SMEM[kind, n, d] == (832 if kind == "packed" else 4160) + 2624 + 21632
     if kind == "dense":
         assert launch.revise_smem(4096, 8, 4096 * 8) > launch.SMEM_OPT_IN_LIMIT
-        assert launch.single_revise_smem(4096, 8) > launch.SMEM_OPT_IN_LIMIT
+        assert launch.single_revise_smem(2040, 8) > launch.SMEM_OPT_IN_LIMIT
         assert launch.fixpoint_smem(1, 24584, 24584) > launch.SMEM_OPT_IN_LIMIT
 
 
@@ -446,8 +446,34 @@ def test_single_revise_smem_pins_the_driven_shapes(n, d):
         assert SINGLE_REVISE_SMEM[n, d] == 1664 + 2624 + 21632
         for kind, dom_bytes in (("packed", 832), ("dense", 4160)):
             assert launch.revise_smem(n, d, dom_bytes) - dom_bytes == 2624 + 21632
-    # the pairs alone of 32 owner lanes a warp: 8 × 32 × 4,096 × 2 B
-    assert launch.single_revise_smem(4096, 8) > 8 * 32 * 4096 * 2 > launch.SMEM_OPT_IN_LIMIT
+    # below n = 2^11 a tuned span may own a whole row: the pairs alone of 32
+    # owner lanes a warp, 8 × 32 × 2,040 × 2 B
+    assert launch.single_revise_smem(2040, 8) > 8 * 32 * 2040 * 2 > launch.SMEM_OPT_IN_LIMIT
+
+
+def test_single_revise_from_n_2048_revises_one_variable_a_warp():
+    """From n = 2^11 a pair's neighbour leaves no bits for its lane, so the
+    single-network launcher gives a CTA 8 variables, one a warp (one owner
+    lane), whatever the rows: the wrappers check that layout's shared
+    memory, which fits up to n = 12,224 at d = 32, and autotune's mirror of
+    the span rule and its candidates have that one span."""
+    from repro_torch.kernels import autotune
+
+    assert launch.SINGLE_WIDE_N == 2048
+    # by hand at n=4096, d=32: the 8 variables' mask bits (8 × 128 words ×
+    # 4 B), then per warp its seed bits (128 words), its owner lane's
+    # neighbour bits (128 words) and violation word, and 4,096 pairs of 2 B
+    assert launch.single_revise_smem(4096, 32) == 4096 + 8 * 4 * (128 + 128 + 1) + 8 * 2 * 4096
+    assert launch.single_revise_smem(4096, 32) == 77856
+    assert launch.single_revise_smem(12224, 32) <= launch.SMEM_OPT_IN_LIMIT
+    assert launch.single_revise_smem(12232, 32) > launch.SMEM_OPT_IN_LIMIT
+    assert launch.single_revise_smem(2048, 8) < launch.single_revise_smem(2040, 8)
+    for rows in (1, 32, 512):
+        assert autotune.single_span(rows, 4096, sms=132) == 8
+        assert autotune.default_config("packed_single", 4096, 32, rows).span == 8
+    assert autotune.single_span(512, 2040, sms=132) == 1024  # the rule below 2^11
+    assert autotune.candidate_configs("packed_single", 4096, 32, 512) == [
+        autotune.TuneConfig(span=8)]
 
 
 def test_cpu_wrappers_run_plain_and_count_no_launch():
