@@ -116,12 +116,17 @@ Phases (any failure exits non-zero):
               call against plain, ms a recurrence, the local revise and each
               recurrence's all-gather (CUDA events), one profiled call; the
               kernels line's packed block row carries its launches
-              (``full_batch_launches``). Then `hopper_packed` on the same
-              network and batch in this process, its launches counted from
-              0: its result equals x6's, its first `packed_revise` call
-              (kernel 3 at n=4096, a variable a warp) is held against plain
-              and timed beside its bound; kernel 3's row carries them
-              (``full_batch_*``).
+              (``full_batch_launches``). Then `hopper_packed` and
+              `hopper_dense` on the same network and batch in this process,
+              each wrapper's launches counted from 0: each result equals
+              x6's, each first `packed_revise` / `dense_revise` call
+              (kernels 3 and 6 at n=4096: the block revise's kernel on the
+              value-major network) is held against plain and against the
+              block revise on the network permuted pair-major (3b, 6b at
+              nx = n), timed beside its bound and the block revise, then cut
+              to B = 1, 5, 64; kernels 3 and 6's rows carry them
+              (``full_batch_*``), and the dense prepare's peak memory is
+              printed.
 (p) profile — one fused and one stepped `solve_many`, one phase-e
               `mac_solve` (instance 1) and the phase-s replay on each Hopper
               engine under `torch.profiler`: device busy share (the union
@@ -143,7 +148,10 @@ the replayed `mac_solve` calls and its root calls; then stepped
 `solve_many` and phase e's `mac_solve` on both Hopper engines in the same
 turns; the block revises on x1's call 1, x4's cuts and x2's dense call 1,
 the other tree's value-major launcher (where it has no pair-major one) on
-the same network permuted into its layout. It prints no result line.
+the same network permuted into its layout; kernels 3 and 6 on x6's first
+calls at B = 512, 1, 5 and 64, the other tree's single-network launcher
+where it has no launcher of this tree's route from n = 2048. It prints no
+result line.
 """
 
 from __future__ import annotations
@@ -1521,6 +1529,9 @@ X_ROW_COUNTS = {"packed": (1, 4, 8, 16, 32), "dense": (1, 2, 4, 8)}
 X_DIR = os.path.join(TRACE_DIR, "sharded")
 #: x6: the production CSP's full batch (`launch/dryrun_rtac.py`'s B=512)
 X_FULL_BATCH = 512
+#: x6's oracle: its first single-network calls cut to these row counts
+#: (`mac_solve`'s 1-64 rows a call), each timed beside the block revise
+X_ORACLE_ROWS = (1, 5, 64)
 #: `distributed_ac`'s names of the X specs' sizes (torchrun refuses ``--n``, ``--d``)
 DAC_OPTIONS = {"n": "n-vars", "d": "dom-size"}
 
@@ -1730,8 +1741,7 @@ def phase_x_rows(label: str, kind: str, args, kw) -> dict:
     latency and the count of requests set it. Returns {B: ms}."""
     out = {}
     for b in X_ROW_COUNTS[kind]:
-        cut = (*args[:2], args[2][:b].contiguous(), args[3][:b].contiguous())
-        m = time_block(kind, cut, kw)
+        m = time_block(kind, cut_rows(args, b), kw)
         out[b] = m["ms"]
         print(f"[x5] {label} {kind}_revise_block B={b}: kernel_ms={m['ms']:.4f} "
               f"({m['ms'] / b:.4f} a row) bound_ms={m['bound'][0]:.4f}; bit-identical to plain",
@@ -1873,45 +1883,128 @@ def phase_x_full_batch():
     return launches, got
 
 
-def phase_x_oracle(device, want) -> dict:
-    """(x6) Kernel 3 at the full batch: `hopper_packed` on x6's network and
-    batch in this process, `packed_revise`'s count set to 0 just before and
-    read just after; its result against x6's record ``want``, its first
-    call (n=4096: a variable a warp) against `packed_revise_plain` bit for
-    bit, timed beside its bound."""
-    import numpy as np
+def x6_first_calls(device, kinds=("packed", "dense")):
+    """Yield, for each of ``kinds``, `hopper_{kind}` on x6's network and
+    batch (x1's network at B=512) in this process: (kind, result of its
+    `enforce_batch`, the single-network wrapper's launches, counted from 0
+    just before and read just after, the operands and keywords of its first
+    call, and the prepare's bytes: allocated before it and at its peak).
+    The CSP (its 16 GiB dense network) is dropped once the last engine is
+    prepared; each engine is dropped before the next is prepared, its
+    first call's network kept."""
     import torch
 
     from repro_torch.engines import get_engine
 
-    t0 = time.perf_counter()
     csp, doms = x_network({**X_FULL, "batch": X_FULL_BATCH}, device)
-    prepared = get_engine("hopper_packed", device=device).prepare(csp)
-    del csp
-    reset_launches()
-    with StackedCalls([("packed_revise", "packed")], (1,), shared=(0, 1)) as rec:
-        res = prepared.enforce_batch(doms)
+    for i, kind in enumerate(kinds):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+        before = torch.cuda.memory_allocated(device)
+        prepared = get_engine(f"hopper_{kind}", device=device).prepare(csp)
         torch.cuda.synchronize()
-    launches = kernel_module("packed").packed_revise.launches
+        memory = dict(before=before, peak=torch.cuda.max_memory_allocated(device))
+        if i == len(kinds) - 1:
+            del csp
+        name = f"{kind}_revise"
+        reset_launches()
+        with StackedCalls([(name, kind)], (1,), shared=(0, 1)) as rec:
+            res = prepared.enforce_batch(doms)
+            torch.cuda.synchronize()
+        launches = getattr(kernel_module(kind), name).launches
+        del prepared
+        _key, _i, args, kw = rec.calls[0]
+        del rec
+        yield kind, res, launches, args, kw, memory
+        del res, args
+
+
+def cut_rows(args, b: int):
+    """A single-network or block call's operands with its rows cut to ``b``."""
+    return (*args[:2], args[2][:b].contiguous(), args[3][:b].contiguous())
+
+
+def pair_major(args, kw):
+    """A single-network call's operands with its network (n·d, n·K) permuted
+    into the block revise's pair-major layout (n, n, d, K): the same call of
+    kernel 3b or 6b at nx = n."""
+    cons, mask, dom, seed = args
+    n = mask.shape[0]
+    return (cons.view(n, kw["d"], n, -1).permute(0, 2, 1, 3).contiguous(), mask, dom, seed)
+
+
+def once_ms(fn, device):
+    """(result, ms) of one call of ``fn`` timed with CUDA events: for plain
+    versions that take seconds, far longer than their host time."""
+    import torch
+
+    torch.cuda.synchronize(device)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def phase_x_oracle(device, want) -> dict:
+    """(x6) Kernels 3 and 6 at the full batch, from n = 2048 the block
+    revise's row groups on the single-network layout: `hopper_packed` and
+    `hopper_dense` on x6's network and batch in this process
+    (`x6_first_calls`), each result against x6's record ``want``, each
+    wrapper launched once a recurrence; each first call against its plain
+    version and against the block revise on the same call in the pair-major
+    layout (3b, 6b at nx = n), bit for bit, timed beside its bound; then the
+    call cut to `X_ORACLE_ROWS` rows, timed beside the block revise.
+    Returns {wrapper: numbers}."""
+    import numpy as np
+    import torch
+
     k_max = int(want["k"].max())
-    check(all(np.array_equal(t.cpu().numpy(), want[f])
-              for t, f in zip(res, ("dom", "consistent", "k"))),
-          "[x6] hopper_packed in this process differs from x6's sharded run")
-    check(launches == k_max, f"[x6] {launches} packed_revise launches for {k_max} recurrences")
-    _key, _i, args, kw = rec.calls[0]
-    fn = kernel_module("packed").packed_revise
-    plain = kernel_module("packed").packed_revise_plain
-    err = max_err(fn(*args, **kw), plain(*args, **kw))
-    check(err == 0, f"[x6] packed_revise at B={X_FULL_BATCH}, n={X_FULL['n']} differs from its "
-                    f"plain version (max abs err {err})")
-    m = dict(max_abs_err=err, ms=timed_ms(lambda: fn(*args, **kw), 20, device),
-             plain_ms=timed_ms(lambda: plain(*args, **kw), 1, device),
-             bound=single_bound("packed", [args], kw), launches=launches)
-    report(f"hopper_packed oracle, call 1 of {launches} (n_p={args[3].shape[1]}, "
-           f"B={X_FULL_BATCH})", "packed_revise", m, "x6")
-    print(f"[x6] hopper_packed == x6's sharded run: dom, consistent and k bit-identical; "
-          f"{launches} packed_revise launches; {time.perf_counter() - t0:.1f} s", flush=True)
-    return m
+    out = {}
+    for kind, res, launches, args, kw, memory in x6_first_calls(device):
+        t0 = time.perf_counter()
+        name = f"{kind}_revise"
+        check(all(np.array_equal(t.cpu().numpy(), want[f])
+                  for t, f in zip(res, ("dom", "consistent", "k"))),
+              f"[x6] hopper_{kind} in this process differs from x6's sharded run")
+        check(launches == k_max, f"[x6] {launches} {name} launches for {k_max} recurrences")
+        mod = kernel_module(kind)
+        fn, plain, block = (getattr(mod, name), getattr(mod, f"{name}_plain"),
+                            getattr(mod, f"{name}_block"))
+        got = fn(*args, **kw)
+        expect, plain_ms = once_ms(lambda: plain(*args, **kw), device)
+        err = max_err(got, expect)
+        check(err == 0, f"[x6] {name} at B={X_FULL_BATCH}, n={X_FULL['n']} differs from its "
+                        f"plain version (max abs err {err})")
+        del expect
+        blocked = pair_major(args, kw)
+        check(torch.equal(block(*blocked, **kw), got),
+              f"[x6] {name} differs from {name}_block on the pair-major network")
+        m = dict(max_abs_err=err, ms=timed_ms(lambda: fn(*args, **kw), 20, device),
+                 plain_ms=plain_ms, bound=single_bound(kind, [args], kw), launches=launches,
+                 block_ms=timed_ms(lambda: block(*blocked, **kw), 20, device))
+        report(f"hopper_{kind} oracle, call 1 of {launches} (n_p={args[3].shape[1]}, "
+               f"B={X_FULL_BATCH}; {name}_block on the pair-major network: "
+               f"{m['block_ms']:.4f} ms)", name, m, "x6")
+        for b in X_ORACLE_ROWS:
+            cut, cut_block = cut_rows(args, b), cut_rows(blocked, b)
+            check(torch.equal(fn(*cut, **kw), block(*cut_block, **kw)),
+                  f"[x6] {name} at B={b} differs from {name}_block")
+            ms = timed_ms(lambda: fn(*cut, **kw), 20, device)
+            block_ms = timed_ms(lambda: block(*cut_block, **kw), 20, device)
+            m[f"ms_b{b}"], m[f"block_ms_b{b}"] = ms, block_ms
+            print(f"[x6] {name} call 1 cut to B={b}: kernel_ms={ms:.4f} {name}_block "
+                  f"(pair-major) {block_ms:.4f} bound_ms={single_bound(kind, [cut], kw)[0]:.4f}; "
+                  f"== {name}_block", flush=True)
+        print(f"[x6] hopper_{kind} == x6's sharded run: dom, consistent and k bit-identical; "
+              f"{launches} {name} launches; prepare's peak {memory['peak'] / 2**30:.2f} GiB "
+              f"allocated ({memory['before'] / 2**30:.2f} GiB before it); "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        out[name] = m
+        del res, args, blocked, got
+    torch.cuda.empty_cache()
+    return out
 
 
 def phase_x(device):
@@ -2014,8 +2107,6 @@ def other_block_call(lib, kind: str, args, kw):
     wrappers to ``lib``); else through the value-major launcher
     (``{kind}_revise_block_launch``) on the network permuted into its
     (nx·d, n·K) layout, with `previous_block_span`'s span."""
-    import ctypes
-
     import torch
 
     from repro_torch.kernels import launch
@@ -2029,18 +2120,85 @@ def other_block_call(lib, kind: str, args, kw):
     sms = torch.cuda.get_device_properties(dom.device).multi_processor_count
     ints = [b, nx, n, d, *([kw["w"]] if kind == "packed" else []),
             previous_block_span(b, nx, n, d, sms)]
-    fn = getattr(lib, f"{kind}_revise_block_launch")
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * len(ints) + [ctypes.c_void_p]
+    return other_launch(lib, f"{kind}_revise_block_launch", (value_major, mask, dom, seed), ints,
+                        torch.empty((b, nx * d), dtype=torch.uint8, device=dom.device))
+
+
+def other_wide_call(lib, kind: str, args, kw):
+    """A function that runs another tree's single-network revise (library
+    ``lib``) from n = 2048 on ``args``: through this tree's wrapper where
+    ``lib`` exports this tree's launcher of that route (the caller routes
+    the wrappers to ``lib``); else through its single-network launcher
+    (``{kind}_revise_launch``), the route it takes there."""
+    import torch
+
+    wrapper = getattr(kernel_module(kind), f"{kind}_revise")
+    if hasattr(lib, f"{kind}_revise_wide_launch"):
+        return lambda: wrapper(*args, **kw)
+    b, n, d = args[2].shape[0], args[1].shape[0], kw["d"]
+    return other_launch(lib, f"{kind}_revise_launch", args,
+                        [b, n, d, *([kw["w"]] if kind == "packed" else [])],
+                        torch.empty((b, n * d), dtype=torch.uint8, device=args[2].device))
+
+
+def other_launch(lib, launcher: str, tensors, ints, out):
+    """A function that runs ``launcher`` of another tree's library ``lib``
+    (a plain C launcher: pointers, ints, the stream) on ``tensors``, then
+    ``out``, and ``ints``, and returns ``out``."""
+    import ctypes
+
+    import torch
+
+    fn = getattr(lib, launcher)
+    fn.argtypes = ([ctypes.c_void_p] * (len(tensors) + 1) + [ctypes.c_int] * len(ints)
+                   + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
-    out = torch.empty((b, nx * d), dtype=torch.uint8, device=dom.device)
 
     def call():
-        rc = fn(value_major.data_ptr(), mask.data_ptr(), dom.data_ptr(), seed.data_ptr(),
-                out.data_ptr(), *ints, torch.cuda.current_stream(dom.device).cuda_stream)
-        check(rc == 0, f"the other tree's {kind} block launcher failed: cudaError {rc}")
+        rc = fn(*(t.data_ptr() for t in (*tensors, out)), *ints,
+                torch.cuda.current_stream(out.device).cuda_stream)
+        check(rc == 0, f"the other tree's {launcher} failed: cudaError {rc}")
         return out
 
     return call
+
+
+def compare_turns(label: str, this, other, use, fmt, device) -> None:
+    """``this`` and ``other`` (functions returning a tensor, the wrappers
+    routed to each side's libraries by ``use``) bit for bit and timed in
+    `TURNS`: one ``[vs]`` line."""
+    import torch
+
+    got, ms = {}, {"other": [], "this": []}
+    for side in TURNS:
+        use(side)
+        fn = this if side == "this" else other
+        got[side] = fn().clone()
+        ms[side].append(timed_ms(fn, 20, device))
+    check(torch.equal(got["this"], got["other"]), f"[vs] {label}: the two trees differ")
+    ratio = sum(ms["other"]) / sum(ms["this"])
+    print(f"[vs] {label}: other {fmt(ms['other'])} -> this {fmt(ms['this'])}; {ratio:.2f}x; "
+          "bit-identical", flush=True)
+
+
+def compare_wide(libs, use, fmt, device):
+    """This tree's single-network revises from n = 2048 beside ``libs``'
+    (`other_wide_call`) on x6's first calls (`x6_first_calls`: x1's network
+    at B=512, every variable seeded) and on those calls cut to
+    `X_ORACLE_ROWS` rows, bit for bit, in `TURNS`."""
+    import torch
+
+    use("this")
+    for kind, _res, _launches, args, kw, _memory in x6_first_calls(device):
+        fn = getattr(kernel_module(kind), f"{kind}_revise")
+        for b in (X_FULL_BATCH, *X_ORACLE_ROWS):
+            cut = cut_rows(args, b)
+            compare_turns(f"x6 call 1 (n={X_FULL['n']}, d={X_FULL['d']}, B={b}) {fn.__name__}",
+                          lambda: fn(*cut, **kw), other_wide_call(libs[f"{kind}_revise"], kind,
+                                                                  cut, kw), use, fmt, device)
+        use("this")
+        del args, cut
+    torch.cuda.empty_cache()
 
 
 def block_cases(device):
@@ -2086,18 +2244,8 @@ def compare_blocks(libs, use, fmt, device):
 
     for label, kind, args, kw in block_cases(device):
         this = lambda: getattr(kernel_module(kind), f"{kind}_revise_block")(*args, **kw)  # noqa: E731
-        other = other_block_call(libs[f"{kind}_revise"], kind, args, kw)
-        got, ms = {}, {"other": [], "this": []}
-        for side in TURNS:
-            use(side)
-            fn = this if side == "this" else other
-            got[side] = fn().clone()
-            ms[side].append(timed_ms(fn, 20, device))
-        check(torch.equal(got["this"], got["other"]), f"[vs] {label} {kind}_revise_block: the "
-                                                      "two trees differ")
-        ratio = sum(ms["other"]) / sum(ms["this"])
-        print(f"[vs] {label} {kind}_revise_block: other {fmt(ms['other'])} -> this "
-              f"{fmt(ms['this'])}; {ratio:.2f}x; bit-identical", flush=True)
+        compare_turns(f"{label} {kind}_revise_block", this,
+                      other_block_call(libs[f"{kind}_revise"], kind, args, kw), use, fmt, device)
     use("this")
     torch.cuda.empty_cache()
 
@@ -2159,6 +2307,7 @@ def compare_against(csrc: str, shapes, device, max_assignments: int = 500):
             print(f"[vs] {fn.__name__} {case}: us/launch other {fmt(ms['other'])} -> this "
                   f"{fmt(ms['this'])}; {ratio:.2f}x; bit-identical", flush=True)
     compare_blocks(sides["other"], use, fmt, device)
+    compare_wide(sides["other"], use, fmt, device)
     for engine in ("hopper_packed", "hopper_dense"):
         runs, per_round = {}, {"other": [], "this": []}
         for side in TURNS:
@@ -2299,12 +2448,12 @@ def main(argv) -> int:
             check(kernels[-1]["launches"] > 0, f"{name} was not launched on its path ({run})")
             check(service_run is None or kernels[-1]["service_launches"] > 0,
                   f"{name} was not launched on the service path ({service_run})")
-            if name == "packed_revise":  # x6: the oracle's launches at n=4096, B=512
+            if name in oracle:  # x6: the oracle's call 1 at n=4096, B=512
+                m = oracle[name]
                 kernels[-1].update(
-                    full_batch_launches=oracle["launches"],
-                    full_batch_max_abs_err=oracle["max_abs_err"], full_batch_ms=oracle["ms"],
-                    full_batch_plain_ms=oracle["plain_ms"],
-                    full_batch_bound_ms=oracle["bound"][0])
+                    full_batch_launches=m["launches"], full_batch_max_abs_err=m["max_abs_err"],
+                    full_batch_ms=m["ms"], full_batch_plain_ms=m["plain_ms"],
+                    full_batch_bound_ms=m["bound"][0], full_batch_block_ms=m["block_ms"])
         kernels += sharded_rows
         print(f"[done] {time.perf_counter() - t_start:.1f} s in all", flush=True)
         print(json.dumps({"kernels": kernels}))

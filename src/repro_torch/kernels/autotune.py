@@ -14,6 +14,8 @@ compiled instantiation runs and the shape of its grid:
   ``dense_single``): the variables one CTA revises, a multiple of 8 and at
   most n_p rounded up to 8, so a row's variables go to ceil(n_p/span) CTAs.
   Each CTA writes the bytes of its own variables, from the same tests.
+  From n_p = ``launch.SINGLE_WIDE_N`` these revises run the block route,
+  which picks its own grid: the one schedule there is 0, the default.
 
 This module picks the fastest schedule per shape bucket, once, and persists
 the choice.
@@ -204,9 +206,10 @@ def single_span(rows: int, n: int, sms: Optional[int] = None) -> int:
     """`revise::single_span` (csrc/revise_common.cuh): the fewest variables
     a CTA (a multiple of 8) that still give the card `CTAS_PER_SM` CTAs an
     SM over ``rows`` rows, and at least one variable a warp. ``sms``
-    defaults to the card's SM count, or an H100's without a card."""
-    if n >= SINGLE_WIDE_N:  # the launcher's one span there: a variable a warp
-        return 8
+    defaults to the card's SM count, or an H100's without a card. From
+    `SINGLE_WIDE_N`, 0: the block route there takes no span."""
+    if n >= SINGLE_WIDE_N:
+        return 0
     sms = _sm_count() if sms is None else sms
     blocks = -(-n // 8)  # groups of 8 variables
     groups = max(1, min(-(-(CTAS_PER_SM * sms) // rows), blocks))
@@ -229,7 +232,8 @@ def _sanitize(kind: str, cfg: TuneConfig, n_p: int, d_p: int, r: int) -> TuneCon
     default = default_config(kind, n_p, d_p, r)
     if kind in SPAN_KINDS:
         span = cfg.span
-        ok = span is not None and 0 < span <= 8 * -(-n_p // 8) and span % 8 == 0
+        ok = span == default.span or (span is not None and n_p < SINGLE_WIDE_N
+                                      and 0 < span <= 8 * -(-n_p // 8) and span % 8 == 0)
         return TuneConfig(span=span if ok else default.span)
     ok = cfg.width == "runtime" or (cfg.width == "compiled" and compiled_width(kind, d_p))
     return TuneConfig(width=cfg.width if ok else default.width)
@@ -262,11 +266,11 @@ def schedule(kind: str, n_p: int, d_p: int, w: int, r: int) -> Optional[int]:
 def candidate_configs(kind: str, n_p: int, d_p: int, r: int) -> List[TuneConfig]:
     """Both widths where a compiled one exists (else the run-time one
     alone); for the single-network kinds the smallest span of each distinct
-    count of CTAs a row, widest first (7 at n_p = 104 or 128)."""
-    del r  # every bucket of a kind has the same candidates
+    count of CTAs a row, widest first (7 at n_p = 104 or 128), and from
+    `SINGLE_WIDE_N` the default alone."""
     if kind in SPAN_KINDS:
         if n_p >= SINGLE_WIDE_N:
-            return [TuneConfig(span=8)]
+            return [default_config(kind, n_p, d_p, r)]
         blocks = -(-n_p // 8)
         spans = sorted({8 * -(-blocks // g) for g in range(1, blocks + 1)}, reverse=True)
         return [TuneConfig(span=s) for s in spans]

@@ -16,10 +16,12 @@ each row's network in place — no per-round gathered copy of the networks:
   fixpoint's revise);
 - :func:`packed_fixpoint_stacked` — the whole incremental fixpoint of R rows
   in one launch (``csrc/packed_fixpoint.cu``; the fused default);
-- :func:`packed_revise` — one revise step of B domains against ONE network,
-  a CTA per (row, span of variables) (``csrc/packed_revise.cu`` with
-  ``csrc/revise_common.cuh``; the single-network path of
-  ``enforce``/``enforce_batch`` and so of ``mac_solve``);
+- :func:`packed_revise` — one revise step of B domains against ONE network
+  (the single-network path of ``enforce``/``enforce_batch`` and so of
+  ``mac_solve``): below n = 2048 a CTA per (row, span of variables)
+  (``csrc/packed_revise.cu`` with ``csrc/revise_common.cuh``); from it the
+  block revise's row groups on the network as it is
+  (``csrc/block_revise.cuh``, value-major);
 - :func:`packed_revise_block` — one revise step of B domains against an
   x-block of one network in the reference's pair-major layout
   ``(nx, n, d, W)``: this rank's rows of a sharded network against all n
@@ -39,8 +41,9 @@ from typing import Optional
 import torch
 
 from . import autotune
-from .launch import (block_scratch_bytes, check_block, check_operands, check_smem,
-                     fixpoint_smem, launch, revise_smem, single_revise_smem)
+from .launch import (SINGLE_WIDE_N, block_scratch_bytes, check_block, check_operands,
+                     check_smem, check_wide, fixpoint_smem, launch, revise_smem,
+                     single_revise_smem)
 from .ref import pack_bits_ref, unpack_bits_ref
 
 Tensor = torch.Tensor
@@ -54,6 +57,11 @@ def _check(cons: Tensor, mask: Tensor, idx: Optional[Tensor], dom_words: Tensor,
         raise ValueError(f"W={w} != ceil({d}/32)")
     return check_operands(cons, mask, idx, dom_words, changed, d=d, cols=w, word=torch.int32,
                           block=block)
+
+
+#: words of network a chunk of the plain single-network and block revises
+#: covers at most, so their temporaries stay near a gigabyte at any n
+_NET_CHUNK_WORDS = 1 << 28
 
 
 def _revise_chunk_rows(n: int, d: int, w: int, nx: Optional[int] = None) -> int:
@@ -193,14 +201,18 @@ packed_fixpoint_stacked.launches = 0
 
 def packed_revise_plain(cons: Tensor, mask: Tensor, dom_words: Tensor, changed: Tensor, *,
                         d: int, w: int) -> Tensor:
-    """Plain PyTorch version of `packed_revise`, in chunks of rows."""
+    """Plain PyTorch version of `packed_revise`, in chunks of x-rows and of
+    domains."""
     b, n = _check(cons, mask, None, dom_words, changed, d, w)
-    out = torch.empty((b, n * d), dtype=torch.uint8, device=cons.device)
-    step = _revise_chunk_rows(n, d, w)
-    for s in range(0, b, step):
-        out[s:s + step] = _revise_rows_plain(cons[None], mask[None], dom_words[s:s + step],
-                                             changed[s:s + step], n, d, w)
-    return out
+    out = torch.empty((b, n, d), dtype=torch.uint8, device=cons.device)
+    xs = max(1, _NET_CHUNK_WORDS // (d * n * w))
+    for x0 in range(0, n, xs):
+        net, m = cons[x0 * d:(x0 + xs) * d][None], mask[x0:x0 + xs][None]
+        step = _revise_chunk_rows(n, d, w, m.shape[1])
+        for s in range(0, b, step):
+            out[s:s + step, x0:x0 + xs] = _revise_rows_plain(
+                net, m, dom_words[s:s + step], changed[s:s + step], n, d, w).view(-1, m.shape[1], d)
+    return out.view(b, n * d)
 
 
 def packed_revise(cons: Tensor, mask: Tensor, dom_words: Tensor, changed: Tensor, *,
@@ -212,12 +224,24 @@ def packed_revise(cons: Tensor, mask: Tensor, dom_words: Tensor, changed: Tensor
     cons (n·d, n·W) int32, mask (n, n) u8, dom_words (B, n·W) int32,
     changed (B, n) u8 -> violated (B, n·d) u8. ``sched`` (CUDA only) is the
     variables a CTA revises, a multiple of 8 (0: the default rule); None
-    takes the tuned one of the shape's bucket, or the default."""
+    takes the tuned one of the shape's bucket, or the default. From
+    n = `SINGLE_WIDE_N` the call is the block revise's on the whole network
+    in this layout (a seed pass into a scratch tensor, then the revise),
+    which takes no span: ``sched`` must be None or 0."""
     b, n = _check(cons, mask, None, dom_words, changed, d, w)
     if cons.device.type == "cpu":
         return packed_revise_plain(cons, mask, dom_words, changed, d=d, w=w)
-    check_smem("packed_revise", single_revise_smem(n, d), f"n={n}, d={d}")
     out = torch.empty((b, n * d), dtype=torch.uint8, device=cons.device)
+    if n >= SINGLE_WIDE_N:
+        check_wide("packed_revise", b, n, sched)
+        if b:
+            scratch = torch.empty(block_scratch_bytes(b, n, 4 * w), dtype=torch.uint8,
+                                  device=cons.device)
+            launch("packed_revise", "packed_revise_wide_launch",
+                   [cons, mask, dom_words, changed, scratch, out], b, n, d, w)
+            packed_revise.launches += 1
+        return out
+    check_smem("packed_revise", single_revise_smem(n, d), f"n={n}, d={d}")
     if b:
         if sched is None:
             sched = autotune.schedule("packed_single", n, d, w, b)
@@ -234,18 +258,13 @@ packed_revise.launches = 0
 # One revise step against an x-block of one network (the sharded path)
 # ---------------------------------------------------------------------------
 
-#: words of network a chunk of the plain block revise covers at most, so its
-#: temporaries stay near a gigabyte at any n
-_BLOCK_CHUNK_WORDS = 1 << 28
-
-
 def packed_revise_block_plain(cons: Tensor, mask: Tensor, dom_words: Tensor, changed: Tensor,
                               *, d: int, w: int) -> Tensor:
     """Plain PyTorch version of `packed_revise_block`, in chunks of x-rows
     and of domains."""
     b, nx, n = _check(cons, mask, None, dom_words, changed, d, w, block=True)
     out = torch.empty((b, nx, d), dtype=torch.uint8, device=cons.device)
-    xs = max(1, _BLOCK_CHUNK_WORDS // (d * n * w))
+    xs = max(1, _NET_CHUNK_WORDS // (d * n * w))
     dom = dom_words.view(b, 1, n, 1, w)
     seed = changed.bool().view(b, 1, n, 1)
     for x0 in range(0, nx, xs):

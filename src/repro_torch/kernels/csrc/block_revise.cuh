@@ -1,20 +1,26 @@
-// The sharded path's local revise: B domains against an x-block of ONE
-// network, this rank's nx variables' rows against all n neighbours, in the
-// reference's pair-major block layout (src/repro/core/sharded.py,
-// `cons_blk_pk (nx, n, d, W)`):
+// The block revise: B domains against an x-block of ONE network, the rows
+// of nx variables against all n neighbours, in one of two layouts:
+// - pair-major (the sharded path's local revise; the reference's block,
+//   src/repro/core/sharded.py `cons_blk_pk (nx, n, d, W)`): entry (x, y, a)
+//   at ((x·n + y)·d + a)·K, the d entries of one (x, y) pair contiguous;
+// - value-major (kValueMajor; the single-network revises from n = 2048 on
+//   the whole network, nx = n, the reference's single-network operand
+//   `cons (n·d, n·K)`): entry (x, y, a) at ((x·d + a)·n + y)·K.
 //
 //   violated[r, x, a] = ∃y: seed[r,y] ∧ mask[x,y] ∧
 //                       no word of (net[x, y, a, ..] & dom[r, y, ..]) is nonzero
 //
 // for every value a, live or not, one byte per (r, x, a). An entry is K
 // words of T: packed, W u32 words (W = 2 as one u64); dense u8, d/8 u64
-// words of the byte-per-bit table, the block (nx, n, d, d). The d entries of
-// one (x, y) pair are contiguous.
+// words of the byte-per-bit table.
 //
-// Replaces two TPU kernels on an x-block: `packed_revise`
+// Replaces two TPU kernels: `packed_revise`
 // (src/repro/kernels/bitpack_support.py:64) for the bitpacked local revise
-// (`_local_revise_bitpacked`), and `dense_revise` (rtac_support.py:71) for
-// the dense u8 one. Included by packed_revise.cu and dense_revise.cu.
+// (`_local_revise_bitpacked`) and, from n = 2048, for the single-network
+// path (packed_revise_wide_launch); and `dense_revise` (rtac_support.py:71)
+// for the dense u8 local revise and, from n = 2048, the single-network
+// path (dense_revise_wide_launch). Included by packed_revise.cu and
+// dense_revise.cu.
 //
 // The block route used to be the single-network kernel (revise_common.cuh)
 // on an x-block in a value-major layout (nx·d, n·K): a CTA per (row, span of
@@ -30,11 +36,12 @@
 //   variable's mask row is read once, as 32 flags a lane, and ANDed with
 //   the union: only (x, seeded y) pairs are listed, a window of 1024
 //   neighbours at a time in a warp's shared list (2 KB a warp, whatever n).
-// - Each listed pair's d entries are read once, lane = value a, one
-//   coalesced load (128 B for packed d=32), and tested against every row of
-//   the group that seeds y. The rows' domain words at y come in one
-//   coalesced load too (lane = row). Where more than a few rows seed y, the
-//   lanes put them in a per-warp stage in shared memory and every lane
+// - Each listed pair's d entries are read once, lane = value a, and tested
+//   against every row of the group that seeds y: pair-major one coalesced
+//   load (128 B for packed d=32), value-major one sector a value (32 B of
+//   which packed uses 4, dense d=32 all). The rows' domain words at y come
+//   in one coalesced load (lane = row). Where more than a few rows seed y,
+//   the lanes put them in a per-warp stage in shared memory and every lane
 //   reads them back 16 bytes at a time (broadcast reads); else they go
 //   round by shuffles, one a seeding row.
 // - Violations gather as a row mask a lane (bit r: row r, value a); at the
@@ -43,15 +50,26 @@
 // - Where the span's variables give too few CTAs for the card, a span is
 //   1, 2 or 4 variables and a variable's neighbour words are split over
 //   8, 4 or 2 warps, whose row masks meet in shared memory.
+// - Value-major, the row groups are the grid's fastest dimension: the
+//   groups of one span run side by side and meet in L2 on the sectors they
+//   share. Pair-major, the spans are.
 //
-// What bounds it (measured on an H100, PERF.md): at the production shape
-// (n=4096, d=32, B=32, every variable seeded) a call takes 0.066 ms against
-// the old route's 2.04 and a byte bound of 0.013. Half of that is the
-// tests themselves, about 4 instructions a (pair, row): the same call with
-// the tests cut out takes 0.035 ms. Measured and dropped: shuffles for
-// every seeding row instead of the stage (0.152 ms; the transposed domain
-// alone gains nothing without the stage); spans for 2 or 8 CTAs an SM
-// instead of 4 (within 2 % at the driven shapes).
+// What bounds it (measured on an H100 80GB HBM3 at 700 W, PERF.md):
+// pair-major at the production shape (n=4096, d=32, B=32, every variable
+// seeded) a call takes 0.066 ms against the old route's 2.04 and a byte
+// bound of 0.013. Half of that is the tests themselves, about 4
+// instructions a (pair, row): the same call with the tests cut out takes
+// 0.035 ms. Value-major on the whole network at B=512 (x6's first call):
+// packed 0.847 ms (the pair-major call on the same operands is in
+// PERF.md: a pair's values lie in 32 sectors here, in one 128-byte line
+// there), dense 4.41 ms (an entry is one sector either way); at B = 1, 5,
+// 64 packed 0.171, 0.172, 0.202 ms: one group reads every pair's sectors
+// alone. Measured and dropped: shuffles for every seeding row instead of
+// the stage (0.152 ms; the transposed domain alone gains nothing without
+// the stage); spans for 2 or 8 CTAs an SM instead of 4 (within 2 % at the
+// driven shapes); value-major with the row groups slowest in the grid
+// (packed 2.648 ms at B=512, 3.13× slower; 0.346 at B=64; dense 1.05×
+// slower).
 #pragma once
 
 #include "fixpoint_common.cuh"
@@ -182,16 +200,17 @@ __device__ __forceinline__ u64 word_of<u64>(const uint4& v, int i) {
 // the value a of this lane (a < d: a real value; else its result is never
 // stored). Returns the lane's row mask: bit r set iff row r0 + r seeds some
 // listed y and no word of entry (x, y, a) meets its domain at y. `net_x` is
-// x's n·d entries, `dom_t` the group's transposed domains (32 rows a
+// x's n·d entries, entry (y, a) at (y·d + a)·K pair-major or at (a·n + y)·K
+// value-major (kValueMajor), `dom_t` the group's transposed domains (32 rows a
 // variable, K words a row), `row_bits` the group's row masks, `stage` the
 // warp's kStageBytes. U pairs a lane has in flight; an entry of KB words a
 // round (KW > 0: all K at once; KW = 0: K read at run time, one a round).
-template <typename T, int KW>
+template <typename T, int KW, bool kValueMajor>
 __device__ __forceinline__ uint32_t test_pairs(const T* __restrict__ net_x,
                                                const T* __restrict__ dom_t,
                                                const uint32_t* __restrict__ row_bits,
-                                               const uint16_t* list, T* stage, int np, int d,
-                                               int K, int a, int rg, int lane) {
+                                               const uint16_t* list, T* stage, int np, int n,
+                                               int d, int K, int a, int rg, int lane) {
   constexpr int KB = KW > 0 ? KW : 1;
   constexpr int U = KB == 1 ? 8 : (KB == 2 ? 4 : 2);
   constexpr int V = 16 / sizeof(T);  // rows a 16-byte read of the stage gives
@@ -213,7 +232,8 @@ __device__ __forceinline__ uint32_t test_pairs(const T* __restrict__ net_x,
 #pragma unroll
       for (int u = 0; u < U; ++u) {
         const bool ok = p0 + u < np;
-        const T* ent = net_x + (static_cast<size_t>(y[u]) * d + a) * K + k0;
+        const T* ent = net_x + (kValueMajor ? static_cast<size_t>(a) * n + y[u]
+                                            : static_cast<size_t>(y[u]) * d + a) * K + k0;
         const T* dm = dom_t + (static_cast<size_t>(y[u]) * kGroup + lane) * K + k0;
 #pragma unroll
         for (int kk = 0; kk < KB; ++kk) {
@@ -296,10 +316,12 @@ __device__ __forceinline__ void store_rows(uint8_t* __restrict__ out, uint32_t f
 // [32g, 32g + 32) of B. span ≥ kWarps: warp w revises x ≡ w (mod kWarps)
 // of the span, one at a time; span < kWarps (a divisor of it): the warps
 // of a variable (kWarps / span) each take a share of its neighbour words
-// and meet in a shared row-mask slot.
-template <typename T, int KW>  // KW: words an entry, or 0: k_arg at run time
+// and meet in a shared row-mask slot. Pair-major, s is blockIdx.x;
+// value-major, g is, so the row groups of one span run side by side and
+// meet in L2 on the entries they share.
+template <typename T, int KW, bool kValueMajor>  // KW: words an entry, or 0: k_arg at run time
 __global__ void __launch_bounds__(kThreads) block_revise_kernel(
-    const T* __restrict__ net,              // (nx, n, d, K) the block, pair-major
+    const T* __restrict__ net,              // (nx, n, d, K) pair-major, or (nx·d, n·K)
     const uint8_t* __restrict__ mask,       // (nx, n)
     const T* __restrict__ dom_t,            // (G, n, 32, K) the seed pass's domains
     const uint32_t* __restrict__ row_bits,  // (G, n) its row masks
@@ -316,8 +338,10 @@ __global__ void __launch_bounds__(kThreads) block_revise_kernel(
   uint32_t* slots = reinterpret_cast<uint32_t*>(block_smem + L.slots);
   T* stage = reinterpret_cast<T*>(block_smem + L.stage + warp * kStageBytes);
 
-  const int g = blockIdx.y, r0 = g * kGroup, rg = min(kGroup, rows - r0);
-  const int x_begin = blockIdx.x * span, x_end = min(nx, x_begin + span);
+  const int g = kValueMajor ? blockIdx.x : blockIdx.y, r0 = g * kGroup;
+  const int rg = min(kGroup, rows - r0);
+  const int x_begin = (kValueMajor ? blockIdx.y : blockIdx.x) * span;
+  const int x_end = min(nx, x_begin + span);
   int seeded = 0;
   for (int j = tid; j < nwn; j += kThreads) {
     const uint32_t word = __ldg(any_bits + static_cast<size_t>(g) * nwn + j);
@@ -360,8 +384,8 @@ __global__ void __launch_bounds__(kThreads) block_revise_kernel(
           for (int k = end - cnt; bits; bits &= bits - 1)
             list[k++] = static_cast<uint16_t>(32 * j + __ffs(bits) - 1);
           __syncwarp();
-          fail |= test_pairs<T, KW>(net_x, dom_g, rbits, list, stage, np, d, K, c + lane, rg,
-                                    lane);
+          fail |= test_pairs<T, KW, kValueMajor>(net_x, dom_g, rbits, list, stage, np, n, d, K,
+                                                 c + lane, rg, lane);
           __syncwarp();  // the list is rewritten for the next window
         }
       }
@@ -396,8 +420,8 @@ inline int block_span(int nx, int groups) {
 // The seed pass, then ceil(nx / span) × ceil(rows / 32) CTAs. `scratch`
 // holds Scratch(rows, n, k · sizeof(T)).total bytes, 16-byte aligned.
 // Refuses n above kMaxN and more than 65535 row groups; every offset is
-// 64-bit.
-template <typename T, int KW>
+// 64-bit. kValueMajor: `net` is the single-network layout (nx·d, n·k).
+template <typename T, int KW, bool kValueMajor>
 int launch(const void* net, const void* mask, const void* dom, const void* seed, void* scratch,
            void* out, int rows, int nx, int n, int d, int k, void* stream) {
   if (rows <= 0 || nx <= 0) return 0;
@@ -416,9 +440,10 @@ int launch(const void* net, const void* mask, const void* dom, const void* seed,
       rows, n, k);
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
-  const int span = block_span(nx, groups);
+  const int span = block_span(nx, groups), spans = (nx + span - 1) / span;
   return static_cast<int>(fixpoint::launch_rows(
-      block_revise_kernel<T, KW>, dim3((nx + span - 1) / span, groups), Smem(n).total, s,
+      block_revise_kernel<T, KW, kValueMajor>,
+      kValueMajor ? dim3(groups, spans) : dim3(spans, groups), Smem(n).total, s,
       static_cast<const T*>(net), static_cast<const uint8_t*>(mask),
       static_cast<const T*>(dom_t), static_cast<const uint32_t*>(row_bits),
       static_cast<const uint32_t*>(any_bits), static_cast<uint8_t*>(out), rows, nx, n, d, k,

@@ -7,10 +7,12 @@
 //   oracle of the fused kernel (dense_fixpoint.cu). One CTA a row.
 // - dense_revise (body _revise_kernel): B domains against ONE network — the
 //   single-network path of enforce/enforce_batch and so of mac_solve, one
-//   launch a recurrence; the reference vmaps it. A CTA per (row, span of
-//   variables), the network compiled in as one. On an x-block of a network,
-//   in the reference's pair-major block layout, the sharded path's local
-//   revise is block_revise.cuh's kernel (dense_block_revise_launch).
+//   launch a recurrence; the reference vmaps it. Below n = 2048 a CTA per
+//   (row, span of variables), the network compiled in as one; from n = 2048
+//   block_revise.cuh's kernel on the value-major network
+//   (dense_revise_wide_launch). On an x-block of a network, in the
+//   reference's pair-major block layout, the sharded path's local revise is
+//   block_revise.cuh's kernel too (dense_block_revise_launch).
 // violated[r, x·d+a] = ∃y: seed[r,y] ∧ mask[x,y] ∧
 //                      no byte of (cons2[x·d+a, y·d ..] & dom[r, y·d ..]) is nonzero.
 // d is a multiple of 8 (ops.D_MULT), so each (x·a, y) slice is read as d/8
@@ -24,15 +26,19 @@
 // of loads above a 1.9 µs launch floor. Measured and dropped, single
 // network: one CTA a row (22.9 µs), d/8 = 5 read at run time (9.7 against
 // 7.9 µs: a round of loads a word), cp.async staging of the seeded mask
-// groups, 8 CTAs an SM; stacked: see revise_common.cuh. The single-network
+// groups, 8 CTAs an SM; stacked: see revise_common.cuh. From n = 2048 (an
+// H100 80GB HBM3 at 700 W, n=4096, d=32, PERF.md): 4.41 ms at B=512 (a
+// variable a warp, the route it replaced: 102.9), one 32-byte sector an
+// entry in either layout; 0.208 ms at B=1 (0.375). The single-network
 // kernel's first design (a block per (row, 8 variables), a thread per
 // (x·a, seeded y) pair, thread 0 listing the seed alone) was bound by
 // latency too: serial seed loads, a division and a mask load per pair, and
 // a seedless row paying as much as a seeded one.
 //
 // Widths compiled as constants: d/8 = 2 for the stacked kernel, as in
-// dense_fixpoint.cu (where it measured faster), and d/8 = 5 (the main
-// shape) for the single-network one (measured faster, above). Any other
+// dense_fixpoint.cu (where it measured faster), d/8 = 5 (the main shape)
+// for the single-network one (measured faster, above), and d/8 = 4 (d = 32,
+// the production CSP) for the block kernel in either layout. Any other
 // d/8, and d/8 = 2 in the single-network kernel (no driven shape, not
 // timed), is read at run time.
 #include "block_revise.cuh"
@@ -85,6 +91,20 @@ extern "C" int dense_revise_launch(
 extern "C" int dense_block_revise_launch(
     const void* cons, const void* mask, const void* dom_in, const void* seed_in, void* scratch,
     void* viol_out, int rows, int nx, int n, int d, void* stream) {
-  const auto run = d / 8 == 4 ? &block::launch<block::u64, 4> : &block::launch<block::u64, 0>;
+  const auto run = d / 8 == 4 ? &block::launch<block::u64, 4, false>
+                              : &block::launch<block::u64, 0, false>;
   return run(cons, mask, dom_in, seed_in, scratch, viol_out, rows, nx, n, d, d / 8, stream);
+}
+
+// B rows against ONE network in the single-network layout, dense_revise's
+// route from n = 2048 (kernels/launch.py's SINGLE_WIDE_N): block_revise.cuh's
+// kernel on the value-major network cons (n·d, n·d), nx = n; mask (n, n),
+// the domains (B, n·d), seeds (B, n), `scratch` block::Scratch's bytes,
+// out (B, n·d). Widths as dense_block_revise_launch.
+extern "C" int dense_revise_wide_launch(
+    const void* cons, const void* mask, const void* dom_in, const void* seed_in, void* scratch,
+    void* viol_out, int rows, int n, int d, void* stream) {
+  const auto run = d / 8 == 4 ? &block::launch<block::u64, 4, true>
+                              : &block::launch<block::u64, 0, true>;
+  return run(cons, mask, dom_in, seed_in, scratch, viol_out, rows, n, n, d, d / 8, stream);
 }

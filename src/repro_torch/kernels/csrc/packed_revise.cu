@@ -7,18 +7,22 @@
 //   parity oracle of the fused kernel. One CTA a row.
 // - packed_revise (body _revise_packed_kernel): B domains against ONE
 //   network — the single-network path of enforce/enforce_batch and so of
-//   mac_solve, one launch a recurrence; the reference vmaps it. A CTA per
-//   (row, span of variables), the network compiled in as one. On an x-block
-//   of a network, in the reference's pair-major block layout, the sharded
-//   path's local revise is block_revise.cuh's kernel
-//   (packed_block_revise_launch).
+//   mac_solve, one launch a recurrence; the reference vmaps it. Below
+//   n = 2048 a CTA per (row, span of variables), the network compiled in as
+//   one; from n = 2048 block_revise.cuh's kernel on the value-major network
+//   (packed_revise_wide_launch). On an x-block of a network, in the
+//   reference's pair-major block layout, the sharded path's local revise is
+//   block_revise.cuh's kernel too (packed_block_revise_launch).
 // violated[r, x·d+a] = ∃y: seed[r,y] ∧ mask[x,y] ∧ (cons[x·d+a, y·W..] & dom[r, y·W..]) == 0.
 //
 // Both kernels are revise_common.cuh's, with u32 words (W per entry). What
 // bounds them now (an H100, PERF.md): the stacked kernel, the rate of
 // scattered 32-byte sectors of its root rows; the single-network one,
 // latency: 5.4 µs a launch on the calls of one mac_solve (the first design:
-// 11.0), three dependent rounds of loads above a 1.9 µs launch floor.
+// 11.0), three dependent rounds of loads above a 1.9 µs launch floor. From
+// n = 2048 (an H100 80GB HBM3 at 700 W, n=4096, d=32, PERF.md): 0.847 ms at
+// B=512 (a variable a warp, the route it replaced: 32.80), the sectors of
+// the pairs' values; 0.171 ms at B=1 (0.184).
 // Measured and dropped, single network: one CTA a row (11.6 µs), cp.async
 // staging of the seeded mask groups, 8 CTAs an SM; stacked: see
 // revise_common.cuh. The single-network kernel's first design (a block per
@@ -29,9 +33,10 @@
 //
 // An entry of W = 2 words is read as one 8-byte word where the table and
 // the domains are 8-byte aligned; the stacked kernel also compiles W = 1 as
-// a constant (8 tests a lane in flight), as packed_fixpoint.cu does. Any
-// other W, and W = 1 in the single-network kernel (no driven shape, not
-// timed), is read at run time.
+// a constant (8 tests a lane in flight), as packed_fixpoint.cu does, and so
+// does the block kernel in either layout (W = 1 at the production CSP's
+// d = 32). Any other W, and W = 1 in the single-network kernel below
+// n = 2048 (no driven shape, not timed), is read at run time.
 #include "block_revise.cuh"
 #include "revise_common.cuh"
 
@@ -97,8 +102,25 @@ extern "C" int packed_block_revise_launch(
     const void* cons, const void* mask, const void* dom_in, const void* seed_in, void* scratch,
     void* viol_out, int rows, int nx, int n, int d, int w, void* stream) {
   if (wide_words(w, cons, dom_in))
-    return block::launch<block::u64, 1>(cons, mask, dom_in, seed_in, scratch, viol_out, rows,
-                                        nx, n, d, 1, stream);
-  const auto run = w == 1 ? &block::launch<uint32_t, 1> : &block::launch<uint32_t, 0>;
+    return block::launch<block::u64, 1, false>(cons, mask, dom_in, seed_in, scratch, viol_out,
+                                               rows, nx, n, d, 1, stream);
+  const auto run =
+      w == 1 ? &block::launch<uint32_t, 1, false> : &block::launch<uint32_t, 0, false>;
   return run(cons, mask, dom_in, seed_in, scratch, viol_out, rows, nx, n, d, w, stream);
+}
+
+// B rows against ONE network in the single-network layout, packed_revise's
+// route from n = 2048 (kernels/launch.py's SINGLE_WIDE_N): block_revise.cuh's
+// kernel on the value-major network cons (n·d, n·W), nx = n; mask (n, n),
+// the domains (B, n·W), seeds (B, n), `scratch` block::Scratch's bytes,
+// out (B, n·d). Widths as packed_block_revise_launch.
+extern "C" int packed_revise_wide_launch(
+    const void* cons, const void* mask, const void* dom_in, const void* seed_in, void* scratch,
+    void* viol_out, int rows, int n, int d, int w, void* stream) {
+  if (wide_words(w, cons, dom_in))
+    return block::launch<block::u64, 1, true>(cons, mask, dom_in, seed_in, scratch, viol_out,
+                                              rows, n, n, d, 1, stream);
+  const auto run =
+      w == 1 ? &block::launch<uint32_t, 1, true> : &block::launch<uint32_t, 0, true>;
+  return run(cons, mask, dom_in, seed_in, scratch, viol_out, rows, n, n, d, w, stream);
 }

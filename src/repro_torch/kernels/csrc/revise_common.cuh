@@ -73,10 +73,18 @@
 // loads); dense d/8 = 5 read at run time (a round of loads a word: 9.7
 // against 7.9 µs).
 //
-// The sharded path's local revise, on an x-block of a network in the
-// reference's pair-major layout, is block_revise.cuh's kernel: this one,
-// run there on a value-major x-block, took time in proportion to the rows
-// (measured on an H100, PERF.md).
+// This kernel takes n below 2^kPairY = 2048 (a pair's neighbour has 11
+// bits beside its lane). From there the single-network revises run
+// block_revise.cuh's kernel on the network in this value-major layout
+// (packed_revise_wide_launch, dense_revise_wide_launch): a group of 32 rows
+// reads each constrained pair once. It replaced a variable a warp of this
+// kernel, where every row re-read every entry it tested (measured on an
+// H100 80GB HBM3 at 700 W, n=4096, d=32, `chip_smoke.py --against`, PERF.md:
+// packed 32.80 -> 0.847 ms at B=512, 0.184 -> 0.171 at B=1; dense 102.9 ->
+// 4.41 ms at B=512, 0.375 -> 0.208 at B=1). The sharded path's local
+// revise, on an x-block in the reference's pair-major layout, is the same
+// block kernel: this one, run there on a value-major x-block, took time in
+// proportion to the rows.
 #pragma once
 
 #include "fixpoint_common.cuh"
@@ -103,9 +111,10 @@ __host__ __device__ inline int owner_lanes(int n) {
 // to distinct banks) and violation words (lanes × ceil(d/32)); u16: the
 // (variable, neighbour) pairs of its owner lanes (lanes × n). A CTA that
 // owns every variable of a row has owner_lanes(n) lanes a warp; its pairs
-// alone outgrow the shared memory for n ≥ 460. The stacked launchers refuse
+// alone outgrow the shared memory for n ≥ 460. Both launchers refuse
 // n ≥ 2^kPairY, so a pair's neighbour fits its 11 bits; from there the
-// single-network launcher gives each warp one variable (launch_single).
+// single-network revises run block_revise.cuh's kernel on the value-major
+// network (packed_revise_wide_launch, dense_revise_wide_launch).
 struct Smem {
   int seed, nbits, viol, pairs, total;
   __host__ __device__ Smem(int n, int d, int dom_bytes, int lanes) {
@@ -229,7 +238,7 @@ __device__ __forceinline__ int masked_neighbours(const uint32_t* mrow, const uin
 }
 
 // The support tests of a warp's owned variables, all at once: every (value
-// a < d, pair p) of the np `pairs` — (lane l << PY) | y, variable
+// a < d, pair p) of the np `pairs` — (lane l << kPairY) | y, variable
 // x0 + l·kWarps against its seeded neighbour y — pairs fastest, so lanes
 // that share a value read entries of one network row, and with few pairs
 // the lanes run over values. An entry is K words of T at
@@ -241,8 +250,8 @@ __device__ __forceinline__ int masked_neighbours(const uint32_t* mrow, const uin
 // those lanes OR their bits together and one of them stores them. Each lane
 // keeps U tests, K·U loads, in flight: U = 2·kUnrollRevise for one-word
 // entries, kUnrollRevise otherwise; offsets are 32-bit to save registers.
-// KW = 0 reads K at run time; PY is the bits of a pair's neighbour.
-template <typename T, int KW, int PY>
+// KW = 0 reads K at run time.
+template <typename T, int KW>
 __device__ __forceinline__ void test_pairs(const T* __restrict__ net, const T* dom, int x0,
                                            int n, int d, int k_words, const uint16_t* pairs,
                                            int np, uint32_t* viol, int w, int lane) {
@@ -258,7 +267,7 @@ __device__ __forceinline__ void test_pairs(const T* __restrict__ net, const T* d
     for (int u = 0; u < U; ++u) {
       const bool ok = a < d;
       const int e = ok ? pairs[pi] : 0;
-      const int y = e & ((1 << PY) - 1), l = e >> PY;
+      const int y = e & ((1 << kPairY) - 1), l = e >> kPairY;
       dy[u] = static_cast<uint32_t>(y * K);
       src[u] = static_cast<uint32_t>((x0 + l * kWarps) * d + a) * row_stride + dy[u];
       key[u] = ok ? ((l * w + (a >> 5)) << 5) | (a & 31) : -1;
@@ -317,7 +326,7 @@ __device__ __forceinline__ void store_flags(uint8_t* out, const uint32_t* viol, 
 // rows of [x_begin, x_end) as bits, ceil(n/32) words a row, in shared
 // memory) the neighbours come from there; without, from `m`. Network rows,
 // mask rows and `out` are indexed by x; `n` counts the neighbours y.
-template <typename T, int KW, int PY>
+template <typename T, int KW>
 __device__ __forceinline__ void revise_vars(const T* __restrict__ net,
                                             const uint8_t* __restrict__ m,
                                             const uint32_t* mbits, const T* dom,
@@ -340,10 +349,10 @@ __device__ __forceinline__ void revise_vars(const T* __restrict__ net,
     const int np = __shfl_sync(kFull, end, 31);
     for (int j = 0, k = end - c; k < end; ++j)
       for (uint32_t bits = nbits[lanes * j + lane]; bits; bits &= bits - 1)
-        pairs[k++] = static_cast<uint16_t>((lane << PY) | (32 * j + __ffs(bits) - 1));
+        pairs[k++] = static_cast<uint16_t>((lane << kPairY) | (32 * j + __ffs(bits) - 1));
     for (int i = lane; i < lanes * w; i += 32) viol[i] = 0u;
     __syncwarp();
-    if (np) test_pairs<T, KW, PY>(net, dom, x0, n, d, K, pairs, np, viol, w, lane);
+    if (np) test_pairs<T, KW>(net, dom, x0, n, d, K, pairs, np, viol, w, lane);
     __syncwarp();
     for (int l = 0; l < lanes && x0 + l * kWarps < x_end; ++l)
       store_flags(out + static_cast<size_t>(x0 + l * kWarps) * d, viol + l * w, d, lane);
@@ -393,7 +402,7 @@ __global__ void __launch_bounds__(kThreads) revise_stacked_kernel(
   const size_t slot = static_cast<size_t>(slot_r);
   load_row(dom, dom_in + static_cast<size_t>(r) * n * K, dom_bytes);
   __syncthreads();
-  revise_vars<T, KW, kPairY>(cons + slot * static_cast<size_t>(nd) * n * K, mask + slot * n * n,
+  revise_vars<T, KW>(cons + slot * static_cast<size_t>(nd) * n * K, mask + slot * n * n,
                      nullptr, dom, S.seed, S.nbits, S.viol, S.pairs, out, 0, n, n, d, K, lanes,
                      warp, lane);
 }
@@ -409,7 +418,7 @@ __host__ __device__ inline int mbits_bytes(int n, int span) { return 4 * ((n + 3
 // mask rows go to shared memory as bits, each 8 flags one load, and a
 // thread's first load is issued before the seed's, so the two take one
 // round together.
-template <typename T, int KW, int PY>  // KW: words per entry, or 0: k_arg at run time
+template <typename T, int KW>  // KW: words per entry, or 0: k_arg at run time
 __global__ void __launch_bounds__(kThreads) revise_single_kernel(
     const T* __restrict__ net,            // (nx*d, n*K) the network's x-block
     const uint8_t* __restrict__ mask,     // (nx, n)
@@ -453,16 +462,15 @@ __global__ void __launch_bounds__(kThreads) revise_single_kernel(
     mbits[v * nb + b] = static_cast<uint8_t>(f);  // bytes past `groups` are never written:
   }                                               // the seed's bits there are 0
   __syncthreads();
-  revise_vars<T, KW, PY>(net, mask, reinterpret_cast<const uint32_t*>(mbits),
-                         dom_in + static_cast<size_t>(r) * n * K, S.seed, S.nbits, S.viol,
-                         S.pairs, out, x_begin, x_end, n, d, K, lanes, warp, lane);
+  revise_vars<T, KW>(net, mask, reinterpret_cast<const uint32_t*>(mbits),
+                     dom_in + static_cast<size_t>(r) * n * K, S.seed, S.nbits, S.viol, S.pairs,
+                     out, x_begin, x_end, n, d, K, lanes, warp, lane);
 }
 
-// Whether the kernels take (n, d, K): a pair's neighbour has kPairY bits
-// (kPairYWide in a single-network launch), and word offsets into a network
-// are 32-bit.
-inline bool takes(int n, int d, int k, int pair_bits = kPairY) {
-  return n < (1 << pair_bits) && static_cast<double>(n) * d * n * k < 4294967296.0;
+// Whether the kernels take (n, d, K): a pair's neighbour has kPairY bits,
+// and word offsets into a network are 32-bit.
+inline bool takes(int n, int d, int k) {
+  return n < (1 << kPairY) && static_cast<double>(n) * d * n * k < 4294967296.0;
 }
 
 // Launch one CTA per row.
@@ -501,36 +509,19 @@ inline int single_span(int rows, int n) {
   return kWarps * ((blocks + groups - 1) / groups);
 }
 
-// From n = 2^kPairY a pair's neighbour leaves no bits for its lane: a
-// single-network CTA then revises kWarps variables, one a warp, so a warp
-// has one owner lane and a pair is its neighbour alone (kPairYWide bits).
-// Its shared memory is then about 19 bytes a neighbour (77,856 B at n =
-// 4096, d = 32: launch.single_revise_smem), so n up to 12,224 fits.
-// The whole-row layout's pairs alone would outgrow it from n = 460.
-constexpr int kPairYWide = 16;
-
 // Launch rows × ceil(n / span) CTAs against one network. `span` is a tuned
 // schedule (kernels/autotune.py): a multiple of 8, at most n rounded up to
-// 8; 0 takes `single_span`'s rule. From n = 2^kPairY the span is kWarps.
+// 8; 0 takes `single_span`'s rule. Refuses n ≥ 2^kPairY: there the
+// single-network revises run block_revise.cuh's kernel.
 template <typename T, int KW>
 int launch_single(const void* net, const void* mask, const void* dom_in, const void* seed_in,
                   void* viol_out, int rows, int n, int d, int k, int span, void* stream) {
   if (rows <= 0) return 0;
-  if (n >= (1 << kPairY)) {
-    if (!takes(n, d, k, kPairYWide) || (span != 0 && span != kWarps))
-      return static_cast<int>(cudaErrorInvalidValue);
-    return static_cast<int>(fixpoint::launch_rows(
-        revise_single_kernel<T, KW, kPairYWide>, dim3(rows, (n + kWarps - 1) / kWarps),
-        Smem(n, d, mbits_bytes(n, kWarps), 1).total, static_cast<cudaStream_t>(stream),
-        static_cast<const T*>(net), static_cast<const uint8_t*>(mask),
-        static_cast<const T*>(dom_in), static_cast<const uint8_t*>(seed_in),
-        static_cast<uint8_t*>(viol_out), n, n, d, k, kWarps));
-  }
   if (!takes(n, d, k) || span < 0 || span % kWarps != 0 || span > kWarps * ((n + 7) / 8))
     return static_cast<int>(cudaErrorInvalidValue);
   if (span == 0) span = single_span(rows, n);
   return static_cast<int>(fixpoint::launch_rows(
-      revise_single_kernel<T, KW, kPairY>, dim3(rows, (n + span - 1) / span),
+      revise_single_kernel<T, KW>, dim3(rows, (n + span - 1) / span),
       Smem(n, d, mbits_bytes(n, span), owner_lanes(span)).total,
       static_cast<cudaStream_t>(stream),
       static_cast<const T*>(net), static_cast<const uint8_t*>(mask),

@@ -35,13 +35,17 @@ SCHEDULED = {
     "dense_revise": {"dense_revise_stacked_launch": (6, 3), "dense_revise_launch": (5, 3)},
 }
 
-#: library -> {block launcher: (pointer arguments, int arguments)}: an
-#: x-block of one network in the pair-major layout (csrc/block_revise.cuh),
-#: its tensors (network, mask, domains, seeds, the seed pass's scratch,
-#: out), then (rows, nx, n, d[, w]); the launcher picks its own span
+#: library -> {block launcher: (pointer arguments, int arguments)}, the
+#: launchers of csrc/block_revise.cuh's kernel, each picking its own span:
+#: ``*_block_revise_launch`` on an x-block of one network in the pair-major
+#: layout, its tensors (network, mask, domains, seeds, the seed pass's
+#: scratch, out), then (rows, nx, n, d[, w]); ``*_revise_wide_launch`` on a
+#: whole network in the single-network (value-major) layout, the
+#: single-network revises' route from `SINGLE_WIDE_N`, the same tensors,
+#: then (rows, n, d[, w])
 BLOCK = {
-    "packed_revise": {"packed_block_revise_launch": (6, 5)},
-    "dense_revise": {"dense_block_revise_launch": (6, 4)},
+    "packed_revise": {"packed_block_revise_launch": (6, 5), "packed_revise_wide_launch": (6, 4)},
+    "dense_revise": {"dense_block_revise_launch": (6, 4), "dense_revise_wide_launch": (6, 3)},
 }
 
 #: library -> {C launcher: (pointer arguments, int arguments)}; the stream
@@ -79,22 +83,20 @@ def revise_smem(n: int, d: int, dom_bytes: int, lanes: Optional[int] = None) -> 
     return dom_bytes + 4 * CTA_WARPS * (nwn + lanes * (nwn + w)) + 2 * CTA_WARPS * lanes * n
 
 
-#: the n from which a single-network revise CTA revises `CTA_WARPS`
-#: variables, one a warp (``1 << kPairY`` in csrc/revise_common.cuh): a
-#: pair's neighbour no longer fits beside its lane
+#: the n from which the single-network revises run the block revise's
+#: kernel on the whole network in its single-network layout
+#: (``*_revise_wide_launch``; ``1 << kPairY`` in csrc/revise_common.cuh:
+#: below it a pair's neighbour fits beside its lane)
 SINGLE_WIDE_N = 1 << 11
 
 
 def single_revise_smem(n: int, d: int) -> int:
-    """The most shared memory one single-network revise CTA uses: below
-    `SINGLE_WIDE_N`, that of a CTA owning a whole row (a tuned span may be
+    """The most shared memory one single-network revise CTA uses below
+    `SINGLE_WIDE_N`: that of a CTA owning a whole row (a tuned span may be
     any), the stacked layout with, in the domain's place (the domain is
     read in place), its variables' mask rows as bits, ``ceil(n/32)`` u32
-    words a row (``mbits_bytes`` in csrc/revise_common.cuh); from it, the
-    one span the launcher takes, a variable a warp (one owner lane)."""
-    rows = CTA_WARPS if n >= SINGLE_WIDE_N else CTA_WARPS * -(-n // CTA_WARPS)
-    return revise_smem(n, d, 4 * -(-n // 32) * rows,
-                       lanes=1 if n >= SINGLE_WIDE_N else None)
+    words a row (``mbits_bytes`` in csrc/revise_common.cuh)."""
+    return revise_smem(n, d, 4 * -(-n // 32) * CTA_WARPS * -(-n // CTA_WARPS))
 
 
 #: rows a block-revise CTA revises together, the neighbours a warp lists
@@ -184,6 +186,16 @@ def check_block(kernel: str, rows: int, n: int) -> None:
     if -(-rows // BLOCK_GROUP) > 65535:
         raise ValueError(f"{kernel}: {rows} rows make more than 65535 groups of {BLOCK_GROUP}")
     check_smem(kernel, block_smem(n), f"n={n}")
+
+
+def check_wide(kernel: str, rows: int, n: int, sched: Optional[int]) -> None:
+    """Raise where a single-network revise's route from `SINGLE_WIDE_N` (the
+    block revise on the whole network) would refuse: a span it cannot take
+    (``sched`` other than None or 0), or `check_block`'s limits."""
+    if sched not in (None, 0):
+        raise ValueError(f"{kernel}: from n={SINGLE_WIDE_N} the block route takes no span, "
+                         f"got {sched}")
+    check_block(kernel, rows, n)
 
 
 def check_smem(kernel: str, nbytes: int, layout: str) -> None:

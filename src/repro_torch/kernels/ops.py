@@ -73,18 +73,28 @@ def prepare_dense(csp: CSP, block_rx: int = N_MULT, block_ry: int = N_MULT, devi
 
     def build():
         cons, mask, n_p, d_p = pad_network(csp, n_mult, D_MULT)
-        cons2 = cons.to(device).permute(0, 2, 1, 3).reshape(n_p * d_p, n_p * d_p)
-        return (cons2.to(torch.uint8).contiguous(),
+        return (dense_network(cons.to(device), n_p, d_p),
                 mask.to(device=device, dtype=torch.uint8)), (n_p, d_p)
 
     network, (n_p, d_p) = _cached("dense", csp, n_mult, device, build, memo)
     return network, pad_dom(csp.dom.to(device), n_p, d_p), (n_p, d_p)
 
 
-#: network elements a chunk of `pack_network` packs at most, so its int32
-#: temporaries stay near 256 MiB at any n (one pass over the production
-#: CSP's 16 GiB network would need 64 GiB)
+#: network elements a chunk of `pack_network` or `dense_network` moves at
+#: most, so its temporaries stay near 256 MiB at any n (one pass over the
+#: production CSP's 16 GiB network would need 64 GiB packed, and 32 GiB
+#: more than its output dense)
 _PACK_CHUNK = 1 << 25
+
+
+def dense_network(cons: Tensor, n_p: int, d_p: int) -> Tensor:
+    """(n_p,n_p,d_p,d_p) bool -> (n_p*d_p, n_p*d_p) u8, (x, y, a, b) ->
+    (x, a, y, b), in chunks of x-rows."""
+    out = torch.empty((n_p, d_p, n_p, d_p), dtype=torch.uint8, device=cons.device)
+    step = max(1, _PACK_CHUNK // (n_p * d_p * d_p))
+    for x0 in range(0, n_p, step):
+        out[x0:x0 + step] = cons[x0:x0 + step].permute(0, 2, 1, 3)
+    return out.view(n_p * d_p, n_p * d_p)
 
 
 def pack_network(cons: Tensor, n_p: int, d_p: int) -> Tuple[Tensor, int]:

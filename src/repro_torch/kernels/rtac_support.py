@@ -16,10 +16,12 @@ and read each row's network in place — no per-round gathered copy:
   fixpoint's revise);
 - :func:`dense_fixpoint_stacked` — the whole incremental fixpoint of R rows
   in one launch (``csrc/dense_fixpoint.cu``; the fused default);
-- :func:`dense_revise` — one revise step of B domains against ONE network,
-  a CTA per (row, span of variables) (``csrc/dense_revise.cu`` with
-  ``csrc/revise_common.cuh``; the single-network path of
-  ``enforce``/``enforce_batch`` and so of ``mac_solve``);
+- :func:`dense_revise` — one revise step of B domains against ONE network
+  (the single-network path of ``enforce``/``enforce_batch`` and so of
+  ``mac_solve``): below n = 2048 a CTA per (row, span of variables)
+  (``csrc/dense_revise.cu`` with ``csrc/revise_common.cuh``); from it the
+  block revise's row groups on the network as it is
+  (``csrc/block_revise.cuh``, value-major);
 - :func:`dense_revise_block` — one revise step of B domains against an
   x-block of one network in the reference's pair-major layout
   ``(nx, n, d, d)``: this rank's rows of a sharded network against all n
@@ -41,8 +43,9 @@ from typing import Optional
 import torch
 
 from . import autotune
-from .launch import (block_scratch_bytes, check_block, check_operands, check_smem,
-                     fixpoint_smem, launch, revise_smem, single_revise_smem)
+from .launch import (SINGLE_WIDE_N, block_scratch_bytes, check_block, check_operands,
+                     check_smem, check_wide, fixpoint_smem, launch, revise_smem,
+                     single_revise_smem)
 
 Tensor = torch.Tensor
 
@@ -64,6 +67,11 @@ def _check(cons: Tensor, mask: Tensor, idx: Optional[Tensor], dom: Tensor, chang
     return dims
 
 
+#: network bytes a chunk of the plain single-network and block revises
+#: covers at most
+_NET_CHUNK_BYTES = 1 << 28
+
+
 def _revise_chunk_rows(n: int, d: int, nx: Optional[int] = None) -> int:
     """Rows per chunk of the plain revise (bounds its gathered working set:
     one (n·d, n·d) u8 network is 17.3 MB at n=104, d=40)."""
@@ -76,8 +84,11 @@ def _revise_rows_plain(net: Tensor, mask: Tensor, dom: Tensor, changed: Tensor,
     1, nx·d, n·d) with ``mask`` (rows or 1, nx, n); nx = n for a whole
     network."""
     rows, nx = dom.shape[0], mask.shape[-2]
-    net = net.view(-1, nx, d, n, d)  # (rows, x, a, y, b)
-    has = ((net & dom.view(rows, 1, 1, n, d)) != 0).any(dim=-1)  # (rows, x, a, y)
+    # an entry's d bytes as d/8 eight-byte words, as the kernels read them:
+    # some byte of the AND is nonzero iff some word is
+    net = net.view(-1, nx, d, n, d).view(torch.int64)  # (rows, x, a, y, d/8)
+    dom = dom.view(rows, 1, 1, n, d).view(torch.int64)
+    has = ((net & dom) != 0).any(dim=-1)  # (rows, x, a, y)
     has |= mask.bool()[:, :, None, :].logical_not()
     seed = changed.bool()[:, None, None, :]
     return (seed & ~has).any(dim=-1).view(rows, nx * d).to(torch.uint8)
@@ -198,14 +209,18 @@ dense_fixpoint_stacked.launches = 0
 
 def dense_revise_plain(cons: Tensor, mask: Tensor, dom: Tensor, changed: Tensor, *,
                        d: int) -> Tensor:
-    """Plain PyTorch version of `dense_revise`, in chunks of rows."""
+    """Plain PyTorch version of `dense_revise`, in chunks of x-rows and of
+    domains."""
     b, n = _check(cons, mask, None, dom, changed, d)
-    out = torch.empty((b, n * d), dtype=torch.uint8, device=cons.device)
-    step = _revise_chunk_rows(n, d)
-    for s in range(0, b, step):
-        out[s:s + step] = _revise_rows_plain(cons[None], mask[None], dom[s:s + step],
-                                             changed[s:s + step], n, d)
-    return out
+    out = torch.empty((b, n, d), dtype=torch.uint8, device=cons.device)
+    xs = max(1, _NET_CHUNK_BYTES // (d * n * d))
+    for x0 in range(0, n, xs):
+        net, m = cons[x0 * d:(x0 + xs) * d][None], mask[x0:x0 + xs][None]
+        step = _revise_chunk_rows(n, d, m.shape[1])
+        for s in range(0, b, step):
+            out[s:s + step, x0:x0 + xs] = _revise_rows_plain(
+                net, m, dom[s:s + step], changed[s:s + step], n, d).view(-1, m.shape[1], d)
+    return out.view(b, n * d)
 
 
 def dense_revise(cons: Tensor, mask: Tensor, dom: Tensor, changed: Tensor, *,
@@ -217,12 +232,24 @@ def dense_revise(cons: Tensor, mask: Tensor, dom: Tensor, changed: Tensor, *,
     cons (n·d, n·d) u8, mask (n, n) u8, dom (B, n·d) u8, changed (B, n) u8
     -> violated (B, n·d) u8. ``sched`` (CUDA only) is the variables a CTA
     revises, a multiple of 8 (0: the default rule); None takes the tuned one
-    of the shape's bucket, or the default."""
+    of the shape's bucket, or the default. From n = `SINGLE_WIDE_N` the call
+    is the block revise's on the whole network in this layout (a seed pass
+    into a scratch tensor, then the revise), which takes no span: ``sched``
+    must be None or 0."""
     b, n = _check(cons, mask, None, dom, changed, d)
     if cons.device.type == "cpu":
         return dense_revise_plain(cons, mask, dom, changed, d=d)
-    check_smem("dense_revise", single_revise_smem(n, d), f"n={n}, d={d}")
     out = torch.empty((b, n * d), dtype=torch.uint8, device=cons.device)
+    if n >= SINGLE_WIDE_N:
+        check_wide("dense_revise", b, n, sched)
+        if b:
+            scratch = torch.empty(block_scratch_bytes(b, n, d), dtype=torch.uint8,
+                                  device=cons.device)
+            launch("dense_revise", "dense_revise_wide_launch",
+                   [cons, mask, dom, changed, scratch, out], b, n, d)
+            dense_revise.launches += 1
+        return out
+    check_smem("dense_revise", single_revise_smem(n, d), f"n={n}, d={d}")
     if b:
         if sched is None:
             sched = autotune.schedule("dense_single", n, d, 0, b)
@@ -239,17 +266,13 @@ dense_revise.launches = 0
 # One revise step against an x-block of one network (the sharded path)
 # ---------------------------------------------------------------------------
 
-#: network bytes a chunk of the plain block revise covers at most
-_BLOCK_CHUNK_BYTES = 1 << 28
-
-
 def dense_revise_block_plain(cons: Tensor, mask: Tensor, dom: Tensor, changed: Tensor, *,
                              d: int) -> Tensor:
     """Plain PyTorch version of `dense_revise_block`, in chunks of x-rows
     and of domains."""
     b, nx, n = _check(cons, mask, None, dom, changed, d, block=True)
     out = torch.empty((b, nx, d), dtype=torch.uint8, device=cons.device)
-    xs = max(1, _BLOCK_CHUNK_BYTES // (d * n * d))
+    xs = max(1, _NET_CHUNK_BYTES // (d * n * d))
     dom = dom.view(b, 1, n, 1, d)
     seed = changed.bool().view(b, 1, n, 1)
     for x0 in range(0, nx, xs):

@@ -308,33 +308,40 @@ def test_packed_block_kernel_at_production_shape(cuda, nx):
     assert want[0].any() and not want[2].any()
 
 
-#: the single-network revises from n = 2^11, where a CTA revises one
-#: variable a warp: (kind, n, d, B) — the production CSP's n=4096, d=32 (a
-#: 2 GiB packed network; kernel 3 is the oracle of the sharded path there),
-#: packed W = 2 and dense at n=2048
+#: the single-network revises from n = 2^11, where they run the block
+#: revise's row groups on the single-network layout: (kind, n, d, B) — the
+#: production CSP's n=4096, d=32 (a 2 GiB packed, 16 GiB dense network; x6's
+#: full batch B=512, one row, a last group of 1 row), packed W = 2 and dense
+#: d/8 = 1, 2 (read at run time) at n=2048
 WIDE_SINGLE_CASES = [("packed", 4096, 32, 5), ("packed", 4096, 32, 64), ("packed", 2048, 40, 33),
-                     ("dense", 2048, 8, 5), ("dense", 2048, 16, 64)]
+                     ("dense", 2048, 8, 5), ("dense", 2048, 16, 64),
+                     ("packed", 4096, 32, 512), ("packed", 4096, 32, 1), ("dense", 4096, 32, 33)]
 
 
 @pytest.mark.parametrize("kind,n,d,b", WIDE_SINGLE_CASES)
 def test_single_network_kernels_from_n_2048(cuda, kind, n, d, b):
     """`packed_revise` / `dense_revise` at n ≥ 2048 (the network of
     `_production_block` at nx = n, in the single-network layout) bit for bit
-    against their plain versions; the seedless rows, the rows whose seeds
-    miss every neighbour and the variable with an empty mask row violate
-    nothing."""
+    against their plain versions and against the block revise on the same
+    network in the pair-major layout; the seedless rows, the rows whose
+    seeds miss every neighbour and the variable with an empty mask row
+    violate nothing."""
     args, kw = _production_block(n, cuda, b=b, n=n, d=d, kind=kind)
     single = (args[0].permute(0, 2, 1, 3).reshape(n * d, -1).contiguous(), *args[1:])
-    del args
     mod = bs if kind == "packed" else rs
     mod.reset_launches()
     got = getattr(mod, f"{kind}_revise")(*single, **kw)
     want = getattr(mod, f"{kind}_revise_plain")(*single, **kw)
     torch.testing.assert_close(got, want, rtol=0, atol=0)
+    torch.testing.assert_close(getattr(mod, f"{kind}_revise_block")(*args, **kw), want,
+                               rtol=0, atol=0)
     assert getattr(mod, f"{kind}_revise").launches == 1
+    assert getattr(mod, f"{kind}_revise_block").launches == 1
     assert want[0].any()
     assert not want[2::5].any() and not want[4::5].any()
     assert not want.view(b, n, d)[:, 1].any()
+    with pytest.raises(ValueError, match="no span"):  # the route picks its own grid
+        getattr(mod, f"{kind}_revise")(*single, **kw, sched=8)
 
 
 #: block-kernel edge cases at n=4096: (kind, nx, B, d) — row groups cut at
@@ -458,7 +465,7 @@ def test_dense_wrappers_raise_on_a_layout_they_cannot_hold(cuda):
     # (49,272 B stacked, 24,720 B single-network); the stacked revise refuses
     # n=4096, d=8 (2,266,112 B: launch.revise_smem) and the single-network
     # one n=2040, d=8, where a tuned span may own a whole row (1,635,328 B:
-    # single_revise_smem; from n=2048 it revises a variable a warp)
+    # single_revise_smem; from n=2048 it runs the block route)
     cons, mask, idx, dom, seed = _dense_operands(1, 24584, cuda)
     big = _dense_operands(4096, 8, cuda)
     single = _dense_operands(2040, 8, cuda)

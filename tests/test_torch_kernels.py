@@ -87,6 +87,23 @@ def test_prepare_dense_tables_match_reference(n, d, brx, bry):
     assert ops.prepare_dense(csp, brx, bry)[0][0] is cons
 
 
+@pytest.mark.parametrize("kind", ["packed", "dense"])
+def test_network_prepared_in_chunks_equals_one_pass(kind, monkeypatch):
+    """`ops.pack_network` and `ops.dense_network` move the padded network
+    in chunks of x-rows (`ops._PACK_CHUNK` elements), so that the
+    production CSP's 16 GiB network prepares on one card: chunks of 3
+    x-rows, the last one short, give the network one pass gives."""
+    _, csp = _pair(13, 8, 7)  # n_p = 16, padded variables included
+    prepare = getattr(ops, f"prepare_{kind}")
+    (whole, mask), _, dims = prepare(csp, memo=False)
+    n_p, d_p = dims[:2]
+    assert ops._PACK_CHUNK // (n_p * d_p * d_p) >= n_p  # one pass
+    monkeypatch.setattr(ops, "_PACK_CHUNK", 3 * n_p * d_p * d_p)
+    (chunked, chunked_mask), _, chunked_dims = prepare(csp, memo=False)
+    assert chunked_dims == dims
+    assert torch.equal(chunked, whole) and torch.equal(chunked_mask, mask)
+
+
 @pytest.mark.parametrize("shape", [(5, 70), (3, 4, 32), (2, 31), (7, 1)])
 def test_pack_bits_matches_reference(shape):
     bits = np.random.default_rng(sum(shape)).random(shape) < 0.5
@@ -452,28 +469,88 @@ def test_single_revise_smem_pins_the_driven_shapes(n, d):
 
 
 def test_single_revise_from_n_2048_revises_one_variable_a_warp():
-    """From n = 2^11 a pair's neighbour leaves no bits for its lane, so the
-    single-network launcher gives a CTA 8 variables, one a warp (one owner
-    lane), whatever the rows: the wrappers check that layout's shared
-    memory, which fits up to n = 12,224 at d = 32, and autotune's mirror of
-    the span rule and its candidates have that one span."""
+    """From n = 2^11 the single-network revises no longer revise a variable
+    a warp: they run the block revise's kernel on the whole network in the
+    single-network (value-major) layout, through their own launchers, with
+    the block revise's scratch and shared memory, and autotune offers no
+    span there, only the default (0: the route picks its own grid)."""
     from repro_torch.kernels import autotune
 
     assert launch.SINGLE_WIDE_N == 2048
-    # by hand at n=4096, d=32: the 8 variables' mask bits (8 × 128 words ×
-    # 4 B), then per warp its seed bits (128 words), its owner lane's
-    # neighbour bits (128 words) and violation word, and 4,096 pairs of 2 B
-    assert launch.single_revise_smem(4096, 32) == 4096 + 8 * 4 * (128 + 128 + 1) + 8 * 2 * 4096
-    assert launch.single_revise_smem(4096, 32) == 77856
-    assert launch.single_revise_smem(12224, 32) <= launch.SMEM_OPT_IN_LIMIT
-    assert launch.single_revise_smem(12232, 32) > launch.SMEM_OPT_IN_LIMIT
-    assert launch.single_revise_smem(2048, 8) < launch.single_revise_smem(2040, 8)
-    for rows in (1, 32, 512):
-        assert autotune.single_span(rows, 4096, sms=132) == 8
-        assert autotune.default_config("packed_single", 4096, 32, rows).span == 8
+    assert launch.SIGNATURES["packed_revise"]["packed_revise_wide_launch"] == (6, 4)
+    assert launch.SIGNATURES["dense_revise"]["dense_revise_wide_launch"] == (6, 3)
+    # the seed pass's scratch at n=4096, d=32, counted by hand: per group of
+    # 32 rows 4,096 row masks and 128 union words (u32), 16-byte aligned,
+    # then 4,096 × 32 rows' entries a group (4 B packed, W = 1; 32 B dense)
+    for rows, groups in ((1, 1), (512, 16)):
+        head = 4 * groups * (4096 + 128)
+        assert head % 16 == 0
+        assert launch.block_scratch_bytes(rows, 4096, 4) == head + groups * 4096 * 32 * 4
+        assert launch.block_scratch_bytes(rows, 4096, 32) == head + groups * 4096 * 32 * 32
+    assert launch.block_scratch_bytes(1, 4096, 4) == 541184
+    assert launch.block_scratch_bytes(512, 4096, 32) == 67379200  # 64 MiB of domains
+    # a CTA's shared memory: 128 union words, per warp 1,024 u16 neighbours
+    # and 32 u32 row-mask slots, then 8 stages of 2,048 B
+    assert launch.block_smem(4096) == 512 + 8 * 2048 + 8 * 128 + 8 * 2048 == 34304
+    assert launch.block_smem(4096) <= launch.SMEM_OPT_IN_LIMIT
+    for kind in ("packed_single", "dense_single"):
+        for rows in (1, 32, 512):
+            assert autotune.single_span(rows, 4096, sms=132) == 0
+            assert autotune.default_config(kind, 4096, 32, rows) == autotune.TuneConfig(span=0)
+        assert autotune.candidate_configs(kind, 4096, 32, 512) == [autotune.TuneConfig(span=0)]
+        # a cached span from the old route falls back to the default
+        assert autotune._sanitize(kind, autotune.TuneConfig(span=8), 4096, 32, 512) == \
+            autotune.TuneConfig(span=0)
     assert autotune.single_span(512, 2040, sms=132) == 1024  # the rule below 2^11
-    assert autotune.candidate_configs("packed_single", 4096, 32, 512) == [
-        autotune.TuneConfig(span=8)]
+
+
+#: (kind, n, d) of the identity the single-network revises' route from
+#: n = 2048 rests on: packed W = 1 and 2, dense
+WIDE_IDENTITY = [("packed", 24, 32), ("packed", 24, 40), ("dense", 24, 16)]
+
+
+@pytest.mark.parametrize("kind,n,d", WIDE_IDENTITY)
+def test_single_network_plain_equals_the_block_plain_at_nx_n(kind, n, d, monkeypatch):
+    """From n = 2048 `packed_revise` / `dense_revise` run the block
+    revise's kernel on the single-network network: the network
+    `ops.prepare_packed` / `ops.prepare_dense` make is the pair-major block
+    (`core.sharded.block_layout`) permuted (x, y, a, K) -> (x, a, y, K), and
+    the plain single-network revise on it equals the plain block revise on
+    the block at nx = n, row by row, also in chunks of 5 x-rows."""
+    from repro_torch.core.sharded import block_layout
+
+    rng = np.random.default_rng([n, d])
+    mask = np.triu(rng.random((n, n)) < 0.3, 1)
+    mask |= mask.T
+    cons = (rng.random((n, n, d, d)) < 0.3) & mask[:, :, None, None]
+    dom = rng.random((6, n, d)) < 0.4
+    changed = np.zeros((6, n), dtype=bool)
+    changed[0] = True  # a root row
+    changed[1, 5] = True  # one-hot
+    changed[2] = rng.random(n) < 0.3  # row 3 has no seed
+    changed[4] = rng.random(n) < 0.1
+    changed[5, ::2] = True
+    csp = csp_from_numpy(cons, mask, np.ones((n, d), dtype=bool), CPU)
+    ch = torch.from_numpy(changed.astype(np.uint8))
+    if kind == "packed":
+        (net, m), _, (n_p, d_p, w) = ops.prepare_packed(csp, memo=False)
+        block = block_layout(csp.cons, "bitpacked", torch.bfloat16)
+        rows = ref.pack_bits_ref(torch.from_numpy(dom)).reshape(6, n * w)
+        mod, kw, chunk = bs, dict(d=d, w=w), ("_NET_CHUNK_WORDS", d * n * w * 5)
+    else:
+        (net, m), _, (n_p, d_p) = ops.prepare_dense(csp, memo=False)
+        block = block_layout(csp.cons, "einsum", torch.uint8)
+        rows = torch.from_numpy(dom.astype(np.uint8)).reshape(6, n * d)
+        mod, kw, chunk = rs, dict(d=d), ("_NET_CHUNK_BYTES", d * n * d * 5)
+    assert (n_p, d_p) == (n, d)
+    assert torch.equal(block.permute(0, 2, 1, 3).reshape(n * d, -1), net)
+    want = getattr(mod, f"{kind}_revise_block_plain")(block, m, rows, ch, **kw)
+    got = getattr(mod, f"{kind}_revise_plain")(net, m, rows, ch, **kw)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    monkeypatch.setattr(mod, *chunk)
+    torch.testing.assert_close(getattr(mod, f"{kind}_revise_plain")(net, m, rows, ch, **kw),
+                               want, rtol=0, atol=0)
+    assert want[0].any() and want[1].any() and not want[3].any()
 
 
 def test_cpu_wrappers_run_plain_and_count_no_launch():
