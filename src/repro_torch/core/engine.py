@@ -451,10 +451,11 @@ class _PendingFrontierRound:
         self._r = r
 
     def resolve(self) -> RoundMeta:
-        host = [t.to("cpu", non_blocking=True) for t in self._meta]
-        if self._meta[0].is_cuda:
-            torch.cuda.current_stream(self._meta[0].device).synchronize()
-        cons, k, bvar, vrow, *alt = [t.numpy() for t in host]
+        with obs.sync_wait(rows=self._r):
+            host = [t.to("cpu", non_blocking=True) for t in self._meta]
+            if self._meta[0].is_cuda:
+                torch.cuda.current_stream(self._meta[0].device).synchronize()
+            cons, k, bvar, vrow, *alt = [t.numpy() for t in host]
         self._table._count_d2h(cons, k, bvar, vrow, *alt)
         r = self._r
         handles: List[Optional[int]] = []
@@ -612,7 +613,8 @@ class FrontierTable:
 
     def extract(self, key, row: int) -> np.ndarray:
         """Fetch one closure — once per search, at solution extraction."""
-        dom = self._buf[row].cpu().numpy()
+        with obs.sync_wait():
+            dom = self._buf[row].cpu().numpy()
         self.extract_bytes += int(dom.nbytes)
         return dom
 
@@ -659,15 +661,15 @@ class FrontierTable:
         self.rows_padded += r_p
         self.rows_pow2 += next_pow2(r)
         with obs.span("kernel.launch", cat="kernel", rows=r, padded=r_p,
-                      fused=self.fused_fixpoint):
+                      fused=self.fused_fixpoint) as sp:
             faults.inject("kernel.launch", rows=r)
             meta = _frontier_step(
                 self._buf, self._abuf, self._networks(), *args, fix=self._fix,
                 want_alt=self._want_alt,
             )
             obs.fence(meta)
-        obs.REGISTRY.gauge_set("frontier.rows_live", self.rows_live)
-        obs.REGISTRY.gauge_set("frontier.capacity", self.capacity)
+            if sp is not None:
+                sp.args["fenced"] = obs.fencing()
         return _PendingFrontierRound(self, meta, dest, [s.key for s in specs], r)
 
 

@@ -26,6 +26,8 @@ from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
+from repro_torch import obs
+
 Tensor = torch.Tensor
 
 # support_fn(cons, mask, dom) -> has_support bool (..., n, n, d)
@@ -81,20 +83,26 @@ def _fixpoint_rows(step, dom: Tensor, changed0: Tensor) -> EnforceResult:
     over all rows; a row is *active* while ``consistent & any(changed)``, an
     inactive row is frozen (its seed zeroed, its domain kept, its ``k`` not
     counted), so each row's result equals its solo run. One host sync per
-    recurrence (the loop predicate)."""
+    recurrence (the loop predicate), and one before the first: ``max(k) + 1``
+    ``sync.wait`` a call, each of the ``max(k)`` ``fixpoint.recurrence``
+    spans holding its step and the predicate after it."""
     consistent = _alive(dom)  # (R,)
     changed = changed0 & consistent[:, None]
     k = torch.zeros(dom.shape[0], dtype=torch.int32, device=dom.device)
-    while True:
-        active = consistent & changed.any(dim=-1)
-        if not bool(active.any()):
-            break
-        new = step(dom, changed & active[:, None])
-        new = torch.where(active[:, None, None], new, dom)
-        changed = (new != dom).any(dim=-1)
-        consistent = consistent & _alive(new)
-        k += active.to(torch.int32)
-        dom = new
+    active = consistent & changed.any(dim=-1)
+    with obs.sync_wait():
+        go = bool(active.any())
+    while go:
+        with obs.span("fixpoint.recurrence", cat="fixpoint"):
+            new = step(dom, changed & active[:, None])
+            new = torch.where(active[:, None, None], new, dom)
+            changed = (new != dom).any(dim=-1)
+            consistent = consistent & _alive(new)
+            k += active.to(torch.int32)
+            dom = new
+            active = consistent & changed.any(dim=-1)
+            with obs.sync_wait():
+                go = bool(active.any())
     return EnforceResult(dom, consistent, k)
 
 

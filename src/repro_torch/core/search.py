@@ -504,15 +504,18 @@ class HostFrontierStore:
         doms = np.stack(rows)
         if net_idx is None:
             net_idx = np.fromiter((self._net_of[s.key] for s in specs), np.int32, r)
-        # host stores block inside the dispatch (np.asarray below), so this
-        # span IS the enforcement wall-clock, fenced or not
-        with obs.span("kernel.launch", cat="kernel", rows=r):
+        # the enforcement up to its read-back (a host-loop fixpoint blocks on
+        # its predicate inside: its sync.waits are children of this span)
+        with obs.span("kernel.launch", cat="kernel", rows=r) as sp:
             faults.inject("kernel.launch", rows=r)
             res = self._enforce_rows(doms, chs, np.asarray(net_idx, np.int32), roots)
             obs.fence(res.dom)
-        dom_out = to_numpy(res.dom)[:r]
-        cons = np.atleast_1d(to_numpy(res.consistent))[:r]
-        k = np.atleast_1d(to_numpy(res.n_recurrences))[:r]
+            if sp is not None:
+                sp.args["fenced"] = obs.fencing()
+        with obs.sync_wait(rows=r):
+            dom_out = to_numpy(res.dom)[:r]
+            cons = np.atleast_1d(to_numpy(res.consistent))[:r]
+            k = np.atleast_1d(to_numpy(res.n_recurrences))[:r]
 
         d = dom_out.shape[-1]
         handles: List[Optional[int]] = []
@@ -556,49 +559,46 @@ class _SingleSearchStore(HostFrontierStore):
         b = doms.shape[0]
         if b == 1:
             res = self._prepared.enforce(doms[0], None if roots[0] else chs[0])
-            return EnforceResult(
-                to_numpy(res.dom)[None],
-                np.atleast_1d(to_numpy(res.consistent)),
-                np.atleast_1d(to_numpy(res.n_recurrences)),
-            )
+            return EnforceResult(res.dom[None], res.consistent, res.n_recurrences)
         doms, chs = pad_round_rows((doms, chs), _next_pow2(b))
-        res = self._prepared.enforce_batch(doms, chs)
-        return EnforceResult(
-            to_numpy(res.dom)[:b],
-            to_numpy(res.consistent)[:b],
-            to_numpy(res.n_recurrences)[:b],
-        )
+        return self._prepared.enforce_batch(doms, chs)
 
 
-def _drive_single(store: HostFrontierStore, root: int, gen: _MacGen,
+def _drive_single(store: HostFrontierStore, root: int, gen: _MacGen, req: _Request,
                   counts: List[int], stats: SearchStats,
                   collect_stats: bool) -> Optional[List[int]]:
-    """Run one coroutine to completion against a single-search store."""
+    """Run one coroutine, primed to its first request ``req``, to completion
+    against a single-search store. A round has `LockstepDriver.round`'s
+    spans: ``frontier.step`` builds the rows and dispatches them,
+    ``round.resolve`` takes the results and advances the coroutine."""
     try:
-        req = gen.send(None)  # prime: runs to the first yield
         while True:
-            if req.parent is None:
-                specs = [FrontierRow(0, root, -1, 0, req.assigned, 0)]
-            else:
-                specs = [
-                    FrontierRow(0, req.parent, req.var, v, req.assigned, 0)
-                    for v in req.values
-                ]
-            t0 = time.perf_counter()
-            with obs.span("driver.round", cat="driver", rows=len(specs)):
-                with obs.span("frontier.step", cat="driver"):
-                    res = store.dispatch(specs).resolve()
-            obs.REGISTRY.counter_add("driver.rounds")
-            obs.REGISTRY.counter_add("driver.rows", len(specs))
-            obs.REGISTRY.counter_add("driver.launches", res.launches)
-            stats.rounds += 1
-            stats.rows += len(specs)
-            if collect_stats:
-                stats.enforce_seconds.append(time.perf_counter() - t0)
-                counts.extend(int(v) for v in res.k)
-                stats.launches += res.launches
-            req = gen.send(_Reply(res.handles, res.consistent, res.branch_var,
-                                  _value_lists(res.handles, res.value_row)))
+            with obs.span("driver.round", cat="driver"):
+                with obs.span("frontier.step", cat="driver") as sp:
+                    if req.parent is None:
+                        specs = [FrontierRow(0, root, -1, 0, req.assigned, 0)]
+                    else:
+                        specs = [
+                            FrontierRow(0, req.parent, req.var, v, req.assigned, 0)
+                            for v in req.values
+                        ]
+                    if sp is not None:
+                        sp.args["rows"] = len(specs)
+                    t0 = time.perf_counter()
+                    pend = store.dispatch(specs)
+                with obs.span("round.resolve", cat="driver", rows=len(specs)):
+                    res = pend.resolve()
+                    obs.REGISTRY.counter_add("driver.rounds")
+                    obs.REGISTRY.counter_add("driver.rows", len(specs))
+                    obs.REGISTRY.counter_add("driver.launches", res.launches)
+                    stats.rounds += 1
+                    stats.rows += len(specs)
+                    if collect_stats:
+                        stats.enforce_seconds.append(time.perf_counter() - t0)
+                        counts.extend(int(v) for v in res.k)
+                        stats.launches += res.launches
+                    req = gen.send(_Reply(res.handles, res.consistent, res.branch_var,
+                                          _value_lists(res.handles, res.value_row)))
     except StopIteration as stop:
         return stop.value
 
@@ -639,40 +639,44 @@ def mac_solve(
     (SAT/UNSAT) are identical to the oracle's; a budget stop remains
     inconclusive either way. ``device`` places an engine given by name."""
     eng = resolve_engine(engine, support_fn, device)
-    prepared = eng.prepare(csp)  # the ONLY preparation in the whole run
-    if split_budget or portfolio:
+    speculative = bool(split_budget or portfolio)
+    with obs.span("search.prepare", cat="driver"):
+        prepared = eng.prepare(csp)  # the ONLY preparation in the whole run
         store = _SingleSearchStore(prepared)
-        driver = LockstepDriver(store, prepared.n_vars, count_unit=eng.count_unit)
-        stats = driver.admit_group(
-            0, csp,
-            split_budget=split_budget,
-            portfolio=portfolio,
-            portfolio_seed=portfolio_seed,
-            supports_batch=eng.supports_batch,
-            batched_children=batched_children,
-            max_assignments=max_assignments,
-            collect_stats=collect_stats,
-        )
+        if speculative:
+            driver = LockstepDriver(store, prepared.n_vars, count_unit=eng.count_unit)
+            stats = driver.admit_group(
+                0, csp,
+                split_budget=split_budget,
+                portfolio=portfolio,
+                portfolio_seed=portfolio_seed,
+                supports_batch=eng.supports_batch,
+                batched_children=batched_children,
+                max_assignments=max_assignments,
+                collect_stats=collect_stats,
+            )
+        else:
+            stats = SearchStats()
+            root = store.begin(0, 0, to_numpy(csp.dom))  # host store: mask per request
+            gen = _mac_coroutine(
+                csp,
+                functools.partial(store.free, 0),
+                functools.partial(store.extract, 0),
+                eng.supports_batch,
+                batched_children,
+                max_assignments,
+                stats,
+            )
+            req = gen.send(None)  # the root request; always yields first
+    if speculative:
         sol = None
         while driver.has_work:
             for _k, (s, _st) in driver.round().items():
                 sol = s
         return sol, stats
-    stats = SearchStats()
     counts = stats.recurrences if eng.count_unit == "recurrences" else stats.revisions
-    store = _SingleSearchStore(prepared)
-    root = store.begin(0, 0, to_numpy(csp.dom))  # host store: mask per request
-    gen = _mac_coroutine(
-        csp,
-        functools.partial(store.free, 0),
-        functools.partial(store.extract, 0),
-        eng.supports_batch,
-        batched_children,
-        max_assignments,
-        stats,
-    )
     try:
-        sol = _drive_single(store, root, gen, counts, stats, collect_stats)
+        sol = _drive_single(store, root, gen, req, counts, stats, collect_stats)
     except BudgetExceeded:
         stats.exhausted = True
         return None, stats
@@ -1386,41 +1390,44 @@ def solve_many(
             _fill_rounds_histogram(telemetry, stats)
         return sols, stats
 
-    prepared = eng.prepare_many(csps)  # the ONLY preparation in the whole run
-    # speculative members multiply the worst-case live rows per instance
-    n_eff = len(csps) * (1 + max(0, split_budget) + max(0, portfolio))
-    if eng.device_frontier:
-        networks = eng.frontier_networks(prepared)
-        store = eng.open_frontier(
-            lambda: networks, prepared.n_vars, prepared.dom_size,
-            # presize for the worst case a DFS can hold live (every level keeps
-            # its node + unvisited siblings): growth mid-run would recompile
-            # the fused step for every round shape, and rows are n·d bools —
-            # cheap enough that oversizing beats recompiling
-            capacity=frontier_capacity(n_eff, prepared.n_vars, prepared.dom_size),
-        )
-    else:
-        # host store over the stacked/host-routed enforce_many dispatch; pad
-        # rounds only when the dispatch is one stacked program
-        store = HostFrontierStore(
-            prepared.n_vars, prepared.enforce_many, pad_rounds=eng.stacked_many
-        )
-    driver = LockstepDriver(store, prepared.n_vars, count_unit=eng.count_unit)
-    all_stats = [
-        driver.admit_group(
-            i,
-            csp,
-            idx=i,
-            split_budget=split_budget,
-            portfolio=portfolio,
-            portfolio_seed=portfolio_seed + i,
-            supports_batch=eng.supports_batch,
-            batched_children=batched_children,
-            max_assignments=max_assignments,
-            collect_stats=collect_stats,
-        )
-        for i, csp in enumerate(csps)
-    ]
+    # the call's preparation: networks, the frontier store, every search's
+    # admission (its root read and its coroutine's first step)
+    with obs.span("search.prepare", cat="driver"):
+        prepared = eng.prepare_many(csps)  # the ONLY preparation in the whole run
+        # speculative members multiply the worst-case live rows per instance
+        n_eff = len(csps) * (1 + max(0, split_budget) + max(0, portfolio))
+        if eng.device_frontier:
+            networks = eng.frontier_networks(prepared)
+            store = eng.open_frontier(
+                lambda: networks, prepared.n_vars, prepared.dom_size,
+                # presize for the worst case a DFS can hold live (every level keeps
+                # its node + unvisited siblings): growth mid-run would recompile
+                # the fused step for every round shape, and rows are n·d bools —
+                # cheap enough that oversizing beats recompiling
+                capacity=frontier_capacity(n_eff, prepared.n_vars, prepared.dom_size),
+            )
+        else:
+            # host store over the stacked/host-routed enforce_many dispatch; pad
+            # rounds only when the dispatch is one stacked program
+            store = HostFrontierStore(
+                prepared.n_vars, prepared.enforce_many, pad_rounds=eng.stacked_many
+            )
+        driver = LockstepDriver(store, prepared.n_vars, count_unit=eng.count_unit)
+        all_stats = [
+            driver.admit_group(
+                i,
+                csp,
+                idx=i,
+                split_budget=split_budget,
+                portfolio=portfolio,
+                portfolio_seed=portfolio_seed + i,
+                supports_batch=eng.supports_batch,
+                batched_children=batched_children,
+                max_assignments=max_assignments,
+                collect_stats=collect_stats,
+            )
+            for i, csp in enumerate(csps)
+        ]
     sols: List[Optional[List[int]]] = [None] * len(csps)
     while driver.has_work:
         for i, (sol, _st) in driver.round().items():

@@ -33,6 +33,7 @@ import os
 
 import torch
 
+from repro_torch import obs
 from repro_torch.core import rtac
 from repro_torch.core.csp import CSP
 from repro_torch.core.engine import (
@@ -100,8 +101,9 @@ class _HopperEngine(Engine):
         n_p, d_p = dims[0], dims[1]
         n, d = prepared.n_vars, prepared.dom_size
         self._maybe_autotune(dims, 1)
-        dom_p = pad_dom(as_dom(dom, self.device), n_p, d_p)
-        ch_p = pad_changed(changed0, n, n_p, device=self.device)
+        with obs.span("enforce.upload", cat="fixpoint", rows=1):
+            dom_p = pad_dom(as_dom(dom, self.device), n_p, d_p)
+            ch_p = pad_changed(changed0, n, n_p, device=self.device)
         res = rtac.enforce_generic(network, dom_p, ch_p, revise_fn=revise_fn)
         return EnforceResult(res.dom[:n, :d], res.consistent, res.n_recurrences)
 
@@ -109,10 +111,11 @@ class _HopperEngine(Engine):
         network, dims, revise_fn = prepared.payload
         n_p, d_p = dims[0], dims[1]
         n, d = prepared.n_vars, prepared.dom_size
-        doms = as_dom(doms, self.device)
+        with obs.span("enforce.upload", cat="fixpoint", rows=len(doms)):
+            doms = as_dom(doms, self.device)
+            dom_p = pad_dom(doms, n_p, d_p)
+            ch_p = pad_changed(changed0, n, n_p, batch=doms.shape[:-2], device=self.device)
         self._maybe_autotune(dims, doms.shape[0])
-        dom_p = pad_dom(doms, n_p, d_p)
-        ch_p = pad_changed(changed0, n, n_p, batch=doms.shape[:-2], device=self.device)
         res = rtac.enforce_batch_generic(network, dom_p, ch_p, revise_fn=revise_fn)
         return EnforceResult(res.dom[:, :n, :d], res.consistent, res.n_recurrences)
 

@@ -6,7 +6,14 @@ The PyTorch counterpart of `repro.obs`:
   spans in a bounded ring. OFF by default — zero overhead — enabled by
   `enable()` or ``REPRO_TORCH_TRACE=1``; ``timing="fenced"`` makes `fence`
   call ``torch.cuda.synchronize()`` so spans measure device completion
-  instead of the asynchronous launch.
+  instead of the asynchronous launch. While on, the tracer keeps each span
+  name's count and seconds (`Tracer.snapshot_totals`), and a span opened
+  under a recording `torch.profiler` is mirrored into its trace as a
+  ``record_function`` of the same name, on the clock of the kernels. The
+  span names and what each brackets are listed in `obs.tracing`.
+- **syncs** (`obs.sync_wait`): every blocking device→host read of the
+  search and fixpoint paths counts ``sync.count`` (always on) and, tracing
+  on, is a ``sync.wait`` span.
 - **registry** (`obs.REGISTRY`, `obs.counter_add` / `gauge_set` /
   `observe`): named counters/gauges/histograms every subsystem publishes
   into; `snapshot()` is one ``repro-obs/v1`` dict.
@@ -37,19 +44,21 @@ from .tracing import (
     enable_from_env,
     enabled,
     fence,
+    fencing,
     get_tracer,
     now,
     record_complete,
     span,
+    sync_wait,
 )
 
 __all__ = [
     "REGISTRY", "SCHEMA", "Registry", "RegistryScope", "Span", "Tracer",
     "child_coverage", "chrome_trace", "counter_add", "disable", "dump_run",
-    "enable", "enable_from_env", "enabled", "fence", "gauge_set",
+    "enable", "enable_from_env", "enabled", "fence", "fencing", "gauge_set",
     "get_tracer", "load_run", "mean", "now", "observe", "percentile",
     "record_complete", "run_payload", "snapshot", "span", "summarize",
-    "write_trace",
+    "sync_wait", "write_trace",
 ]
 
 # honour REPRO_TORCH_TRACE=1 at first import, wherever that import happens

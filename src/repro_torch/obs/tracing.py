@@ -22,6 +22,47 @@ child (one implicit stack per tracer — the whole repo is single-threaded
 by design, see `service.SolverService`). Request-lifetime spans that
 bracket other work (``service.request``) are filed as pre-timed *complete*
 events via `record_complete` instead of nesting.
+
+Two more views of the same spans, both only while the tracer is on:
+
+- **The profiler's clock.** A span opened while a `torch.profiler` is
+  recording also opens ``torch.profiler.record_function(<its name>)``, so it
+  lands in the profiler's trace as a CPU user annotation on the clock of the
+  kernels and copies, and an idle gap of the card can be named by the span
+  the host was in. The check runs once at span open; nothing is mirrored
+  once the profiler stops.
+- **Per-name totals.** Beside its ring the tracer keeps each span name's
+  count and total seconds (`Tracer.snapshot_totals`), which no ring
+  overwrites: a reader takes two snapshots and subtracts them.
+
+`sync_wait` marks every blocking device→host read of the search and
+fixpoint paths: it counts ``sync.count`` in the always-on registry, tracing
+on or off, and opens a ``sync.wait`` span while the tracer is on.
+
+The spans of the search and fixpoint paths, by what each brackets:
+
+- ``search.prepare``: a `solve_many` or `mac_solve` call's preparation:
+  the networks (`prepare`/`prepare_many`), the frontier store, and the
+  admission of each search (its root read and the coroutine's first step).
+- ``driver.round``: one round of the search driver (`LockstepDriver.round`,
+  `mac_solve`'s loop), holding ``frontier.step`` and ``round.resolve``.
+- ``frontier.step``: the round's rows collected and dispatched.
+- ``round.resolve``: the round's results waited for and read back, and
+  every search's coroutine advanced on them.
+- ``kernel.launch``: the enforcement a dispatch enqueues, up to its read-back
+  (arg ``fenced``: whether `fence` waited for the device inside it). The
+  fused fixpoint enqueues one launch; a host-loop fixpoint (stepped, the
+  single-network engines) holds its ``fixpoint.recurrence`` spans.
+- ``fixpoint.recurrence``: one recurrence of the host-loop fixpoint
+  (`rtac._fixpoint_rows`): its step and the loop predicate's read.
+- ``enforce.upload``: a single-network `enforce`/`enforce_batch` taking its
+  domains onto the device and padding them (a pageable upload blocks).
+- ``sync.wait``: a blocking device→host read (`sync_wait`): a frontier
+  round's metadata (`_PendingFrontierRound.resolve`), a fixpoint's loop
+  predicate, a host store's read-back, a closure's extraction.
+- ``group.spawn``, ``group.cancel``: speculative siblings admitted and
+  cancelled; ``service.*``, ``cache.lookup``, ``slot.install``,
+  ``autotune.search``: the service and autotune (their modules).
 """
 
 from __future__ import annotations
@@ -30,9 +71,11 @@ import itertools
 import os
 import time
 from collections import deque
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+
+from .registry import REGISTRY
 
 #: ``REPRO_TORCH_TRACE=1`` enables tracing at import of `repro_torch.obs`
 TRACE_ENV = "REPRO_TORCH_TRACE"
@@ -94,6 +137,7 @@ class Tracer:
         self.spans: deque = deque(maxlen=self.capacity)
         self.dropped = 0  # spans that rolled off the ring
         self.force_closed = 0  # mismatched exits repaired by `end`
+        self._totals: Dict[str, List[float]] = {}  # name -> [count, seconds]
         self._stack: List[Span] = []
         self._ids = itertools.count(1)
 
@@ -140,6 +184,11 @@ class Tracer:
         if len(self.spans) == self.capacity:
             self.dropped += 1
         self.spans.append(span)
+        total = self._totals.get(span.name)
+        if total is None:
+            total = self._totals[span.name] = [0, 0.0]
+        total[0] += 1
+        total[1] += span.dur
 
     # --- introspection ------------------------------------------------------
 
@@ -150,6 +199,11 @@ class Tracer:
     def snapshot_spans(self) -> List[Dict[str, Any]]:
         """The ring as plain dicts (JSON-ready), oldest first."""
         return [s.to_dict() for s in self.spans]
+
+    def snapshot_totals(self) -> Dict[str, Tuple[int, float]]:
+        """Every span name recorded so far: ``(count, total seconds)``,
+        the ring's overwritten spans included."""
+        return {name: (int(c), s) for name, (c, s) in self._totals.items()}
 
 
 class _NullSpan:
@@ -172,7 +226,7 @@ class _SpanCtx:
     returns the `Span` so call sites can attach result args
     (``s.args["hit"] = True``) before exit."""
 
-    __slots__ = ("_tracer", "_name", "_cat", "_track", "_args", "_span")
+    __slots__ = ("_tracer", "_name", "_cat", "_track", "_args", "_span", "_mirror")
 
     def __init__(self, tracer: Tracer, name: str, cat: str, track: str,
                  args: Dict[str, Any]):
@@ -182,8 +236,13 @@ class _SpanCtx:
         self._track = track
         self._args = args
         self._span: Optional[Span] = None
+        self._mirror = None
 
     def __enter__(self) -> Span:
+        if torch.autograd._profiler_enabled():
+            # the same span on the profiler's clock (a CPU user annotation)
+            self._mirror = torch.profiler.record_function(self._name)
+            self._mirror.__enter__()
         self._span = self._tracer.begin(self._name, self._cat, self._track, self._args)
         return self._span
 
@@ -192,6 +251,8 @@ class _SpanCtx:
         # must not strand the stack
         if self._span is not None:
             self._tracer.end(self._span)
+        if self._mirror is not None:
+            self._mirror.__exit__(None, None, None)
         return False
 
 
@@ -242,6 +303,24 @@ def span(name: str, cat: str = "repro", track: str = "main", **args):
     if t is None:
         return _NULL_SPAN
     return _SpanCtx(t, name, cat, track, args)
+
+
+def sync_wait(**args):
+    """Mark a blocking device→host read: ``with obs.sync_wait(): x.cpu()``.
+    Counts ``sync.count`` in the always-on registry, and opens a
+    ``sync.wait`` span while tracing is on (the shared null context
+    otherwise)."""
+    REGISTRY.counter_add("sync.count")
+    t = _TRACER
+    if t is None:
+        return _NULL_SPAN
+    return _SpanCtx(t, "sync.wait", "sync", "main", args)
+
+
+def fencing() -> bool:
+    """Whether `fence` blocks: tracing on with ``timing="fenced"``."""
+    t = _TRACER
+    return t is not None and t.timing == "fenced"
 
 
 def record_complete(name: str, t0: float, t1: float, cat: str = "repro",
