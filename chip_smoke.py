@@ -16,8 +16,9 @@ Phases (any failure exits non-zero):
               one W=1 dense-mask shape (random_binary n=160, d=10, density
               1.0); the single-network revise kernels (packed and dense) at
               the main shape on one network with 64 one-hot child domains,
-              and on the calls `mac_solve` really makes: every call of one
-              phase-e solve (instance 1) is recorded by wrapping the wrapper,
+              and on the calls `mac_solve` really makes on a stepped engine
+              (a fused one launches kernel 1 or 4 below n = 2048): every call
+              of one phase-e solve (instance 1) is recorded by wrapping the wrapper,
               then replayed back to back, kernel and plain, printed with its
               B histogram, beside the launch floor (an empty launch) and the
               solve's root calls alone. Time kernel and plain version with
@@ -40,8 +41,10 @@ Phases (any failure exits non-zero):
               launched once per round, the stepped path only the dense revise.
 (d) parity  — the same workload at n=30 on `einsum` and on `hopper_packed`.
 (e) mac_solve — a few instances of the (c) shape solved one at a time on
-              `hopper_packed`, `hopper_dense` and `einsum` (the single-network
-              kernels): identical solutions and statistics, ms per round.
+              `hopper_packed` and `hopper_dense`, each fused (the fused
+              kernel once a round) and stepped (the single-network revise
+              once a recurrence), and on `einsum`: identical solutions and
+              statistics, ms per round.
 (s) service — `SolverService` on the card, three parts. (1) A seeded
               Poisson trace (8/s over 3 s) of frb100-40-shaped model_rb
               (bucket 128x64), sudoku with 32 givens (128x16) and 64-queens
@@ -67,8 +70,8 @@ Phases (any failure exits non-zero):
               artifacts/chip_smoke/: one run each of phase c's `solve_many`
               (both Hopper engines, fused) and of phase e's `mac_solve`
               (instance 1) with ``REPRO_TORCH_AUTOTUNE=1``, so every bucket
-              they dispatch (round widths at n_p=104 d_p=40; B = 1-64 of the
-              single-network revises) is tuned on first dispatch, then the
+              they dispatch (round widths at n_p=104 d_p=40; B = 1-64 of
+              `mac_solve`'s fused calls) is tuned on first dispatch, then the
               service bucket 128x64; every candidate's µs a launch and the
               winner, each candidate held bit for bit against the plain
               version on its tuning workload; then each run untuned and
@@ -78,8 +81,9 @@ Phases (any failure exits non-zero):
               artifacts/chip_smoke/sweeps/: `smoke` on einsum and both
               Hopper engines; `recurrence_density` cut to n 40 and 160 and
               density 0.25 and 1.0 on einsum, ac3 and both Hopper engines
-              (calls 1, 4, 16 and 64 of each single-network kernel at each
-              shape held bit for bit against the plain version); one
+              (calls 1, 4, 16 and 64 of each fused fixpoint kernel at each
+              shape, the single-network path's route there, held bit for
+              bit against the plain version); one
               `service_capacity` cell on `hopper_packed` at rates 4 and 16
               over 2 s. The seeded columns are identical across the tensor
               engines; prints per-assignment ms and counts per engine and
@@ -187,12 +191,13 @@ KERNELS = [
      "replay hopper_packed"),
     ("packed_revise_stacked", "packed", "bitpack_support.py:129", "packed stepped",
      "drill hopper_packed"),
-    ("packed_revise", "packed", "bitpack_support.py:64", "mac_solve hopper_packed", None),
+    ("packed_revise", "packed", "bitpack_support.py:64", "mac_solve hopper_packed stepped",
+     None),
     ("dense_fixpoint_stacked", "dense", "rtac_support.py:310", "dense fused",
      "replay hopper_dense"),
     ("dense_revise_stacked", "dense", "rtac_support.py:150", "dense stepped",
      "drill hopper_dense"),
-    ("dense_revise", "dense", "rtac_support.py:71", "mac_solve hopper_dense", None),
+    ("dense_revise", "dense", "rtac_support.py:71", "mac_solve hopper_dense stepped", None),
 ]
 
 #: phase s: the full-size replay's families at the main path's shapes
@@ -206,9 +211,11 @@ SERVICE_DURATION = 3.0
 #: shortened retry backoffs of the fault drills (seconds of trace time)
 FAST_BACKOFF = {"backoff_base_s": 0.01, "backoff_cap_s": 0.05}
 #: what a chaos run may add to the fault-free run's span and counter names
-#: (recovery spans and counters; closures first built on a fallback rung)
+#: (recovery spans and counters; closures first built on a fallback rung; the
+#: recurrences of the stepped rung's host loop, which a fused service never runs)
 RECOVERY_NAMES = ("faults.", "fallback.", "service.recover", "service.retries",
-                  "service.failed", "service.shed", "kernels.fn_builds")
+                  "service.failed", "service.shed", "kernels.fn_builds",
+                  "fixpoint.recurrence")
 #: phase s holds these calls (1-based, per kernel and table shape) of each
 #: service run's stacked kernels against their plain versions
 SERVICE_CHECKED_CALLS = (1, 4, 16, 64)
@@ -603,12 +610,14 @@ REPLAY_CHUNK = 256
 def record_single_calls(device, kind: str, max_assignments: int = MAX_ASSIGNMENTS,
                         spec=MAIN):
     """The operands of every `packed_revise` or `dense_revise` call of one
-    phase-e `mac_solve` (instance `REPLAY_INSTANCE`), recorded by wrapping
+    phase-e `mac_solve` (instance `REPLAY_INSTANCE`) on the stepped engine
+    (the fused one runs the fused kernel at this shape), recorded by wrapping
     the wrapper in its module for that solve (the wrapper counts its
     launches on the module's name, so the recorder carries the count):
     (calls, kw), each call a (network, mask, rows, seed) tuple with rows and
     seed copied."""
     from repro_torch.core import mac_solve
+    from repro_torch.engines import get_engine
     from repro_torch.problems import generate
 
     mod, name = kernel_module(kind), f"{kind}_revise"
@@ -623,7 +632,8 @@ def record_single_calls(device, kind: str, max_assignments: int = MAX_ASSIGNMENT
     record.launches = wrapper.launches
     setattr(mod, name, record)
     try:
-        mac_solve(csp, engine=f"hopper_{kind}", device=device, max_assignments=max_assignments)
+        mac_solve(csp, engine=get_engine(f"hopper_{kind}", fixpoint="stepped", device=device),
+                  max_assignments=max_assignments)
     finally:
         setattr(mod, name, wrapper)
         wrapper.launches = record.launches
@@ -867,17 +877,23 @@ def run_mac(csps, engine: str, max_assignments: int, device):
 def mac_path(device, max_assignments: int = MAX_ASSIGNMENTS, n_instances: int = MAC_INSTANCES,
              spec=MAIN):
     """(e): `mac_solve` on a few instances of the main shape, one at a time,
-    on the two Hopper engines (single-network kernels) and on `einsum`."""
+    on the two Hopper engines, fused (the fused kernel once a round) and
+    stepped (the single-network revise once a recurrence), and on `einsum`."""
     from repro_torch.core import check_solution
+    from repro_torch.engines import get_engine
 
     csps = mac_instances(device, n_instances, spec)
     n, d = csps[0].dom.shape
     print(f"[e] mac_solve on {n_instances} model_rb instances n={n} d={d} "
           f"max_assignments={max_assignments}", flush=True)
     runs = {}
-    for name in ("hopper_packed", "hopper_dense", "einsum"):
-        out, seconds, rounds, counts = run_mac(csps, name, max_assignments, device)
-        runs[name] = (out, counts)
+    engines = {f"{name} {fixpoint}": get_engine(name, fixpoint=fixpoint, device=device)
+               for name in ("hopper_packed", "hopper_dense") for fixpoint in ("fused", "stepped")}
+    labels = list(engines)
+    engines["einsum"] = get_engine("einsum", device=device)
+    for name, eng in engines.items():
+        out, seconds, rounds, counts = run_mac(csps, eng, max_assignments, device)
+        runs[name] = (out, counts, rounds)
         print(f"    {name}: {seconds:.3f} s, rounds={rounds} "
               f"ms/round={1e3 * seconds / max(rounds, 1):.3f} "
               f"rows={sum(st.rows for _, st in out)} "
@@ -886,19 +902,24 @@ def mac_path(device, max_assignments: int = MAX_ASSIGNMENTS, n_instances: int = 
               f"exhausted={sum(st.exhausted for _, st in out)} "
               f"kernel counts={launched(counts)}", flush=True)
     want = [(sol, stats_key(st)) for sol, st in runs["einsum"][0]]
-    for name in ("hopper_packed", "hopper_dense"):
+    for name in labels:
         check([(sol, stats_key(st)) for sol, st in runs[name][0]] == want,
               f"mac_solve on {name} differs from einsum")
     for csp, (sol, _) in zip(csps, runs["einsum"][0]):
         if sol is not None:
             check(check_solution(csp, sol), "a mac_solve solution is wrong")
-    check(set(launched(runs["hopper_packed"][1])) == {"packed_revise"},
-          f"hopper_packed mac_solve launched {launched(runs['hopper_packed'][1])}")
-    check(set(launched(runs["hopper_dense"][1])) == {"dense_revise"},
-          f"hopper_dense mac_solve launched {launched(runs['hopper_dense'][1])}")
+    for kind in ("packed", "dense"):
+        fused = launched(runs[f"hopper_{kind} fused"][1])
+        check(fused == {f"{kind}_fixpoint_stacked": runs[f"hopper_{kind} fused"][2]},
+              f"hopper_{kind} fused mac_solve launched {fused}, not its fused kernel once a "
+              f"round")
+        stepped = launched(runs[f"hopper_{kind} stepped"][1])
+        check(set(stepped) == {f"{kind}_revise"},
+              f"hopper_{kind} stepped mac_solve launched {stepped}")
     check(not launched(runs["einsum"][1]), "einsum launched a kernel")
-    print("[e] mac_solve hopper_packed == hopper_dense == einsum: solutions and search "
-          "statistics identical; every solution checks", flush=True)
+    print("[e] mac_solve hopper_packed == hopper_dense == einsum, fused and stepped: solutions "
+          "and search statistics identical; every solution checks; the fused engines launch "
+          "their fused kernel once a round", flush=True)
     return runs
 
 
@@ -1110,8 +1131,8 @@ def check_recorded_calls(phase: str, label: str, recorder: "StackedCalls"):
         err = max_err(getattr(mod, name)(*args, **kw), getattr(mod, f"{name}_plain")(*args, **kw))
         check(err == 0, f"{label}: {name} call {i} at {key[1:]} differs from its plain version "
                         f"(max abs err {err})")
-        checked[key].append(f"{i} ({args[3].shape[0]} rows)")
-        n_of[key] = args[3].shape[-1]  # the seeds' width
+        checked[key].append(f"{i} ({args[-1].shape[0]} rows)")
+        n_of[key] = args[-1].shape[-1]  # the seeds' width
     for key, calls in checked.items():
         name, shape, kw = key[0], key[1], dict(key[2])
         n_p = n_of[key]
@@ -1443,11 +1464,11 @@ def phase_sweeps(device):
     from repro_torch.sweeps import load_cells, report, run_spec
 
     shutil.rmtree(SWEEP_DIR, ignore_errors=True)
-    singles = [(name, kind) for name, kind, *_ in KERNELS if not name.endswith("_stacked")]
+    fused = [(name, kind) for name, kind, *_ in KERNELS if "_fixpoint" in name]
     records = {}
     for spec in sweep_specs():
         t0 = time.perf_counter()
-        recorder = StackedCalls(singles)
+        recorder = StackedCalls(fused)
         with recorder if spec.mode == "assignments" else contextlib.nullcontext():
             d = run_spec(spec, out_root=SWEEP_DIR, progress=None, device=device)
         records[spec.name] = (spec, load_cells(d / "cells.jsonl"))
@@ -1456,7 +1477,8 @@ def phase_sweeps(device):
               flush=True)
         if spec.mode == "assignments":
             shapes = {key[:2] for key, *_ in recorder.calls}
-            check(len(shapes) == 4, f"[w] recorded single-network calls at {sorted(shapes)}")
+            check(len(shapes) == 4, f"[w] recorded fused single-network calls at "
+                                    f"{sorted(shapes)}")
             check_recorded_calls("w", spec.name, recorder)
         if spec.mode in DETERMINISTIC:
             same, cells = same_across_engines(records[spec.name][1], DETERMINISTIC[spec.mode])
@@ -2429,8 +2451,8 @@ def main(argv) -> int:
 
         counts = {"packed fused": run_f[4], "packed stepped": run_s[4],
                   "dense fused": run_df[4], "dense stepped": run_ds[4],
-                  "mac_solve hopper_packed": macs["hopper_packed"][1],
-                  "mac_solve hopper_dense": macs["hopper_dense"][1]}
+                  "mac_solve hopper_packed stepped": macs["hopper_packed stepped"][1],
+                  "mac_solve hopper_dense stepped": macs["hopper_dense stepped"][1]}
         service_counts = {f"{part} {name}": run[3]
                           for part, runs in service.items() for name, run in runs.items()}
         kernels = []
@@ -2441,6 +2463,7 @@ def main(argv) -> int:
                 source=f"src/repro_torch/kernels/csrc/{name.replace('_stacked', '')}.cu",
                 replaces=f"src/repro/kernels/{line}",
                 launches=counts[run][name], max_abs_err=m["max_abs_err"], ms=m["ms"],
+                mac_solve_launches=macs[f"hopper_{kind} fused"][1][name],
                 plain_ms=m["plain_ms"], bound_ms=m["bound"][0], bound_by=m["bound"][1],
                 library_ms=None,
                 service_launches=service_counts[service_run][name] if service_run else 0,

@@ -99,8 +99,9 @@ class SearchStats:
     revisions: List[int] = dataclasses.field(default_factory=list)
     enforce_seconds: List[float] = dataclasses.field(default_factory=list)
     #: kernel launches billed to this search's enforcement rounds (a fused
-    #: in-kernel fixpoint bills 1 per round; the stepped path bills the
-    #: round's max recurrence depth). Host engines leave it 0.
+    #: in-kernel fixpoint on the device frontier bills 1 per round; the
+    #: stepped path and the host stores of ``mac_solve`` bill the round's max
+    #: recurrence depth, the reference's bill). Host engines leave it 0.
     launches: int = 0
     #: True iff the search stopped on its ``max_assignments`` budget — a
     #: (None, stats) result with ``exhausted=True`` is *inconclusive*, NOT a
@@ -535,9 +536,9 @@ class HostFrontierStore:
             if avar is not None:
                 avar[i] = _select_var_anti(dom_out[i], s.assigned)
                 arow[i] = dom_out[i][avar[i]]
-        # host stores run the stepped recurrence: one enforcement dispatch per
-        # iteration of the deepest row (same launch model as the stepped
-        # device frontier — `core.engine._PendingFrontierRound.resolve`)
+        # the reference's bill for a host store: one enforcement dispatch per
+        # iteration of the deepest row, whichever route the engine took (the
+        # stepped device frontier's model — `core.engine._PendingFrontierRound.resolve`)
         launches = max(1, int(k.max())) if k.size else 1
         return _SyncRound(RoundMeta(handles, cons, k, bvar, vrow, launches,
                                     avar, arow))

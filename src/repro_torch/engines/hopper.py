@@ -5,10 +5,15 @@ The counterparts of `repro.engines.pallas.PallasDenseEngine` and
 [/ bitpack] of the constraint tensor once per CSP; the hot path pads only
 the O(n·d) domains into kernel coordinates and un-pads the result.
 
-- ``enforce``/``enforce_batch`` (and so ``mac_solve``) run the host-loop
-  fixpoint of `rtac.enforce_generic` / `enforce_batch_generic` with one
+- ``enforce``/``enforce_batch`` (and so ``mac_solve``) take one of two
+  routes, chosen by the padded shape (`ops.single_fused`): on a fused
+  engine below `launch.SINGLE_WIDE_N`, where its CTA fits, one launch of the
+  fused fixpoint kernel (`*_fixpoint_stacked`) for all the call's rows, the
+  network read as a one-slot table; otherwise (stepped engines, and from
+  n = 2048) the host-loop fixpoint of `rtac.enforce_batch_generic` with one
   single-network revise launch per recurrence (`dense_revise` /
-  `packed_revise`).
+  `packed_revise`). The always-on counters ``fixpoint.one_launch`` and
+  ``fixpoint.host_loop`` count the calls of each route.
 - ``prepare_many`` stacks the per-instance networks into slot tables —
   ``(B, n_p·d_p, n_p·d_p)`` u8 dense, ``(B, n_p·d_p, n_p·W)`` int32 packed —
   and each frontier round or ``enforce_many`` call runs the stacked kernels,
@@ -96,27 +101,40 @@ class _HopperEngine(Engine):
         autotune.maybe_tune(f"{self.kind}_single", dims[0], dims[1],
                             autotune.entry_words(self.kind, dims[1]), rows, device=self.device)
 
+    def _fixpoint(self, payload, dom_p, ch_p) -> EnforceResult:
+        """B padded rows (B, n_p, d_p) with their seeds (B, n_p) against the
+        prepared network, by the route `ops.single_fused` picks: one launch
+        of the fused fixpoint kernel, the network a one-slot view and every
+        row routed to slot 0; or the host loop over the single-network
+        revise, one launch and one predicate sync a recurrence."""
+        network, dims, revise_fn = payload
+        if self.fused_fixpoint and ops.single_fused(self.kind, dims[0], dims[1]):
+            obs.counter_add("fixpoint.one_launch")
+            cons, mask = network
+            idx = torch.zeros(dom_p.shape[0], dtype=torch.int32, device=dom_p.device)
+            return ops.enforce_rows(self.kind, True, (cons[None], mask[None]), dom_p, ch_p, idx,
+                                    dims)
+        obs.counter_add("fixpoint.host_loop")
+        self._maybe_autotune(dims, dom_p.shape[0])
+        return rtac.enforce_batch_generic(network, dom_p, ch_p, revise_fn=revise_fn)
+
     def enforce(self, prepared: PreparedNetwork, dom, changed0=None) -> EnforceResult:
-        network, dims, revise_fn = prepared.payload
-        n_p, d_p = dims[0], dims[1]
+        n_p, d_p = prepared.payload[1][:2]
         n, d = prepared.n_vars, prepared.dom_size
-        self._maybe_autotune(dims, 1)
         with obs.span("enforce.upload", cat="fixpoint", rows=1):
             dom_p = pad_dom(as_dom(dom, self.device), n_p, d_p)
             ch_p = pad_changed(changed0, n, n_p, device=self.device)
-        res = rtac.enforce_generic(network, dom_p, ch_p, revise_fn=revise_fn)
-        return EnforceResult(res.dom[:n, :d], res.consistent, res.n_recurrences)
+        res = self._fixpoint(prepared.payload, dom_p[None], ch_p[None])
+        return EnforceResult(res.dom[0, :n, :d], res.consistent[0], res.n_recurrences[0])
 
     def enforce_batch(self, prepared: PreparedNetwork, doms, changed0=None) -> EnforceResult:
-        network, dims, revise_fn = prepared.payload
-        n_p, d_p = dims[0], dims[1]
+        n_p, d_p = prepared.payload[1][:2]
         n, d = prepared.n_vars, prepared.dom_size
         with obs.span("enforce.upload", cat="fixpoint", rows=len(doms)):
             doms = as_dom(doms, self.device)
             dom_p = pad_dom(doms, n_p, d_p)
             ch_p = pad_changed(changed0, n, n_p, batch=doms.shape[:-2], device=self.device)
-        self._maybe_autotune(dims, doms.shape[0])
-        res = rtac.enforce_batch_generic(network, dom_p, ch_p, revise_fn=revise_fn)
+        res = self._fixpoint(prepared.payload, dom_p, ch_p)
         return EnforceResult(res.dom[:, :n, :d], res.consistent, res.n_recurrences)
 
     # --- stacked workload path (R rows, each against its OWN network) -------

@@ -9,7 +9,9 @@ for the dense u8 kernels and (n_p, d_p, W) for the packed ones.
 - Network preparation (pad + transpose [+ bitpack] of the O(n²d²)
   constraint tensor) is memoized per CSP identity and device.
 - The single-network closures (`_dense_revise_fn`, `_packed_revise_fn`)
-  follow `rtac.ReviseFn`: B domains against one network per launch.
+  follow `rtac.ReviseFn`: B domains against one network per launch (the
+  host-loop route; `single_fused` decides when the fused kernel takes a
+  single network's rows instead).
 - The rows functions take the slot tables and the row→slot map, never
   gathered networks: the kernels read ``tables[idx[r]]`` in place.
 - Factories are ``lru_cache``-d on shapes so each closure is built once.
@@ -27,7 +29,7 @@ from repro_torch import faults, obs
 from repro_torch.core import rtac
 from repro_torch.core.csp import CSP
 from repro_torch.core.engine import pad_dom, pad_network, padded_shape
-from . import autotune, bitpack_support, ref, rtac_support
+from . import autotune, bitpack_support, launch, ref, rtac_support
 
 Tensor = torch.Tensor
 
@@ -282,6 +284,21 @@ def dims(kind: str, n_p: int, d_p: int) -> tuple:
     """Kernel coordinates of a padded (n_p, d_p) shape: (n_p, d_p) for
     ``"dense"``, (n_p, d_p, W) for ``"packed"``."""
     return (n_p, d_p) if kind == "dense" else (n_p, d_p, -(-d_p // 32))
+
+
+def single_fused(kind: str, n_p: int, d_p: int) -> bool:
+    """Whether a fused engine's single-network path (``enforce`` /
+    ``enforce_batch``) runs a call's fixpoint as one launch of the fused
+    kernel on the padded (n_p, d_p) network, read as a one-slot table: where
+    the kernel's CTA fits in shared memory and n_p is below
+    `launch.SINGLE_WIDE_N`. From there the host loop's single-network revise
+    takes the block route, which reads each constrained pair once for a
+    group of rows; the fused kernel would read the network once a row. The
+    padded shape alone decides, on every device."""
+    w = -(-d_p // 32)
+    dom_bytes = 4 * n_p * w if kind == "packed" else n_p * d_p
+    return (n_p < launch.SINGLE_WIDE_N
+            and launch.fixpoint_smem(n_p, d_p, dom_bytes) <= launch.SMEM_OPT_IN_LIMIT)
 
 
 _ROWS_FNS = {"dense": (_dense_rows_fn, _dense_fixpoint_rows_fn),

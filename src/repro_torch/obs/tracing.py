@@ -51,8 +51,8 @@ The spans of the search and fixpoint paths, by what each brackets:
   every search's coroutine advanced on them.
 - ``kernel.launch``: the enforcement a dispatch enqueues, up to its read-back
   (arg ``fenced``: whether `fence` waited for the device inside it). The
-  fused fixpoint enqueues one launch; a host-loop fixpoint (stepped, the
-  single-network engines) holds its ``fixpoint.recurrence`` spans.
+  fused fixpoint enqueues one launch; a host-loop fixpoint (stepped, or a
+  single network from n = 2048) holds its ``fixpoint.recurrence`` spans.
 - ``fixpoint.recurrence``: one recurrence of the host-loop fixpoint
   (`rtac._fixpoint_rows`): its step and the loop predicate's read.
 - ``enforce.upload``: a single-network `enforce`/`enforce_batch` taking its

@@ -496,19 +496,54 @@ def test_solve_many_fused_equals_stepped_on_card(cuda, name):
             assert check_solution(csp, sol)
 
 
+def _mac_key(run):
+    sol, st = run
+    return (sol, st.n_assignments, st.n_backtracks, st.recurrences, st.rounds, st.rows,
+            st.exhausted)
+
+
 def test_mac_solve_on_hopper_engines_equals_einsum_on_card(cuda):
+    """Both Hopper engines on both routes of the single-network path (the
+    fused kernel, the stepped host loop over the single-network revise)
+    equal `einsum`."""
     csps = [generate("model_rb", seed=i, device=cuda, n=30, hardness=0.9) for i in range(2)]
+    engines = [get_engine("einsum", device=cuda)] + [
+        get_engine(name, fixpoint=fixpoint, device=cuda)
+        for name in ("hopper_packed", "hopper_dense") for fixpoint in ("fused", "stepped")]
     bs.reset_launches()
     rs.reset_launches()
     for csp in csps:
-        runs = [mac_solve(csp, engine=name, device=cuda, max_assignments=300)
-                for name in ("einsum", "hopper_packed", "hopper_dense")]
-        keys = [(sol, st.n_assignments, st.n_backtracks, st.recurrences, st.rounds, st.rows,
-                 st.exhausted) for sol, st in runs]
-        assert keys[1] == keys[0] and keys[2] == keys[0]
+        runs = [mac_solve(csp, engine=eng, max_assignments=300) for eng in engines]
+        assert all(_mac_key(run) == _mac_key(runs[0]) for run in runs[1:])
         if runs[0][0] is not None:
             assert check_solution(csp, runs[0][0])
     assert bs.packed_revise.launches > 0 and rs.dense_revise.launches > 0
+    assert bs.packed_fixpoint_stacked.launches > 0 and rs.dense_fixpoint_stacked.launches > 0
+
+
+@pytest.mark.parametrize("kind", ["packed", "dense"])
+def test_mac_solve_fused_launches_once_a_round_on_card(cuda, kind):
+    """`mac_solve` at frb100-40 sizes (n_p=104, d_p=40) on the fused engine
+    launches the fused fixpoint kernel (1 or 4) exactly once a round and the
+    single-network revise (3 or 6) never; the stepped engine launches the
+    revise once a billed recurrence and the fused kernel never; both equal
+    `einsum`."""
+    family, knobs = FULL_WIDTH[0]
+    csp = generate(family, seed=1, device=cuda, **knobs)
+    mod = bs if kind == "packed" else rs
+    want = _mac_key(mac_solve(csp, engine=get_engine("einsum", device=cuda),
+                              max_assignments=300))
+    for fixpoint in ("fused", "stepped"):
+        mod.reset_launches()
+        run = mac_solve(csp, engine=get_engine(f"hopper_{kind}", fixpoint=fixpoint, device=cuda),
+                        max_assignments=300)
+        assert _mac_key(run) == want
+        fused_n = getattr(mod, f"{kind}_fixpoint_stacked").launches
+        revise_n = getattr(mod, f"{kind}_revise").launches
+        if fixpoint == "fused":
+            assert (fused_n, revise_n) == (run[1].rounds, 0)
+        else:
+            assert (fused_n, revise_n) == (0, run[1].launches)
 
 
 #: the service's bucket shapes on the main path: frb100-40 → (128, 64),

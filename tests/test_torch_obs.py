@@ -222,10 +222,15 @@ def test_solve_many_round_spans_and_syncs(tracer, monkeypatch, name, opts):
     assert totals["sync.wait"][0] == tel["rounds"] + solved + loop
 
 
-@pytest.mark.parametrize("name", ["einsum", "hopper_packed", "hopper_dense"])
-def test_mac_solve_round_spans_and_syncs(tracer, monkeypatch, name):
+@pytest.mark.parametrize("name,fixpoint", [
+    ("einsum", None), ("hopper_packed", "fused"), ("hopper_dense", "fused"),
+    ("hopper_packed", "stepped"), ("hopper_dense", "stepped"),
+], ids=["einsum", "hopper_packed", "hopper_dense", "hopper_packed-stepped",
+        "hopper_dense-stepped"])
+def test_mac_solve_round_spans_and_syncs(tracer, monkeypatch, name, fixpoint):
     csps = generate_batch("model_rb", 2, device=CPU, **WORKLOAD)
-    eng = get_engine(name, device=CPU)
+    eng = get_engine(name, device=CPU) if fixpoint is None else get_engine(
+        name, fixpoint=fixpoint, device=CPU)
     stacks = _spy_extract(monkeypatch, tracer, search.HostFrontierStore)
     n_rounds = n_launches = solved = 0
     before = _count("sync.count")
@@ -241,10 +246,14 @@ def test_mac_solve_round_spans_and_syncs(tracer, monkeypatch, name):
     totals = tracer.snapshot_totals()
     assert totals["search.prepare"][0] == len(csps)
     assert totals["frontier.step"][0] == totals["round.resolve"][0] == n_rounds
-    # a round: the fixpoint's predicate once a recurrence of its deepest row
-    # (`launches`) and once more, then the read-back
-    assert _count("sync.count") - before == n_launches + 2 * n_rounds
-    assert totals["sync.wait"][0] == n_launches + 2 * n_rounds
+    # a round: its read-back; the host-loop fixpoint (einsum, stepped) also
+    # reads its predicate once a recurrence of the deepest row (`launches`)
+    # and once more, each recurrence a span; the fused kernel neither
+    one_launch = fixpoint == "fused"
+    loop = 0 if one_launch else n_launches + n_rounds
+    assert _count("sync.count") - before == n_rounds + loop
+    assert totals["sync.wait"][0] == n_rounds + loop
+    assert totals.get("fixpoint.recurrence", (0,))[0] == (0 if one_launch else n_launches)
     if name != "einsum":
         assert totals["enforce.upload"][0] == n_rounds
 

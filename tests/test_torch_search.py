@@ -112,15 +112,20 @@ def test_mac_solve_on_hopper_waits_for_the_single_network_kernel():
     assert stats_key(st) == stats_key(ref_st)
 
 
-@pytest.mark.parametrize("name,ref_name", [("hopper_packed", "pallas_packed"),
-                                           ("hopper_dense", "pallas_dense")])
+@pytest.mark.parametrize("name,ref_name,fixpoint", [
+    ("hopper_packed", "pallas_packed", "fused"), ("hopper_dense", "pallas_dense", "fused"),
+    ("hopper_packed", "pallas_packed", "stepped"), ("hopper_dense", "pallas_dense", "stepped"),
+], ids=["hopper_packed-pallas_packed", "hopper_dense-pallas_dense",
+        "hopper_packed-pallas_packed-stepped", "hopper_dense-pallas_dense-stepped"])
 @pytest.mark.parametrize("seed", [0, 1])
-def test_mac_solve_on_hopper_matches_reference(name, ref_name, seed):
+def test_mac_solve_on_hopper_matches_reference(name, ref_name, fixpoint, seed):
     """Batched children, one child at a time and a budget stop, on two
-    solvable instances that backtrack (24 and 6 backtracks)."""
+    solvable instances that backtrack (24 and 6 backtracks), on both routes
+    of the single-network path: the fused kernel, one launch a round, and
+    the stepped host loop. The launch bill is the reference's either way."""
     ref_csp = ref_generate_batch("model_rb", 1, n=12, hardness=0.8, seed=seed)[0]
     csp = generate_batch("model_rb", 1, n=12, hardness=0.8, seed=seed, device=CPU)[0]
-    eng = get_engine(name, device=CPU)
+    eng = get_engine(name, fixpoint=fixpoint, device=CPU)
     for kw in ({"max_assignments": 60}, {"batched_children": False, "max_assignments": 60},
                {"max_assignments": 15}):
         ref_sol, ref_st = ref_mac_solve(ref_csp, engine=ref_name, **kw)
