@@ -53,9 +53,12 @@ while the host admits work, retires requests, and drives other buckets.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import itertools
+import sys
+import threading
 import time
 import warnings
 from typing import (
@@ -271,6 +274,37 @@ class _Reply(NamedTuple):
 _MacGen = Generator[_Request, _Reply, Optional[List[int]]]
 
 
+#: frames a search's callers may take beyond its own nesting
+_DEPTH_MARGIN = 1000
+#: the recursion limit the live searches found, and what each of them needs
+_DEPTH_LOCK = threading.Lock()
+_DEPTH_BASE = [0]
+_DEPTH_NEEDS: List[int] = []
+
+
+@contextlib.contextmanager
+def _allow_depth(n_vars: int):
+    """Let the interpreter nest a search over ``n_vars`` variables while it
+    runs: its `dfs` nests one generator a branching level, at most one a
+    variable, and resuming the chain counts every level against the
+    recursion limit (a quasigroup with holes of order 40, n = 1,600, goes
+    deeper than the default 1,000). The limit is raised to what the live
+    searches need and goes back to the one they found when the last of
+    them ends."""
+    need = 2 * n_vars + _DEPTH_MARGIN
+    with _DEPTH_LOCK:
+        if not _DEPTH_NEEDS:
+            _DEPTH_BASE[0] = sys.getrecursionlimit()
+        _DEPTH_NEEDS.append(need)
+        sys.setrecursionlimit(max([_DEPTH_BASE[0], *_DEPTH_NEEDS]))
+    try:
+        yield
+    finally:
+        with _DEPTH_LOCK:
+            _DEPTH_NEEDS.remove(need)
+            sys.setrecursionlimit(max([_DEPTH_BASE[0], *_DEPTH_NEEDS]))
+
+
 def _mac_coroutine(
     csp: CSP,
     free_fn,
@@ -388,16 +422,24 @@ def _mac_coroutine(
         finally:
             assigned[var] = False
 
-    if root_spec is not None:
-        parent_h, var0, values0 = root_spec
-        return (yield from dfs(parent_h, var0, tuple(values0)))
+    with _allow_depth(n):
+        try:
+            if root_spec is not None:
+                parent_h, var0, values0 = root_spec
+                return (yield from dfs(parent_h, var0, tuple(values0)))
 
-    # Root propagation (Alg. 2 line 3).
-    reply = yield _Request(None, -1, (), assigned.copy())
-    if not bool(reply.consistent[0]):
-        return None
-    var0, values0 = decide(reply, 0)
-    return (yield from dfs(reply.handles[0], var0, values0))
+            # Root propagation (Alg. 2 line 3).
+            reply = yield _Request(None, -1, (), assigned.copy())
+            if not bool(reply.consistent[0]):
+                return None
+            var0, values0 = decide(reply, 0)
+            return (yield from dfs(reply.handles[0], var0, values0))
+        finally:
+            # `dfs` refers to itself through its closure, and the closure
+            # holds the store's hooks: without this the cycle would keep the
+            # store, and with it the prepared network and the CSP (3.8 GiB
+            # on the card at n = 1,600), until the cycle collector ran
+            dfs = None  # noqa: F841
 
 
 

@@ -9,11 +9,14 @@ the O(n·d) domains into kernel coordinates and un-pads the result.
   routes, chosen by the padded shape (`ops.single_fused`): on a fused
   engine below `launch.SINGLE_WIDE_N`, where its CTA fits, one launch of the
   fused fixpoint kernel (`*_fixpoint_stacked`) for all the call's rows, the
-  network read as a one-slot table; otherwise (stepped engines, and from
-  n = 2048) the host-loop fixpoint of `rtac.enforce_batch_generic` with one
-  single-network revise launch per recurrence (`dense_revise` /
-  `packed_revise`). The always-on counters ``fixpoint.one_launch`` and
-  ``fixpoint.host_loop`` count the calls of each route.
+  network read as a one-slot table; otherwise (stepped engines, from
+  n = 2048, and where the fused CTA does not fit) the host-loop fixpoint
+  of `rtac.enforce_batch_generic` with one single-network revise launch
+  per recurrence (`dense_revise` / `packed_revise`), narrow or wide as
+  `launch.single_wide` decides from the padded shape. The always-on
+  counters ``fixpoint.one_launch`` and ``fixpoint.host_loop`` count the
+  calls of each route, ``revise.narrow`` and ``revise.wide`` the revise
+  launches of each.
 - ``prepare_many`` stacks the per-instance networks into slot tables —
   ``(B, n_p·d_p, n_p·d_p)`` u8 dense, ``(B, n_p·d_p, n_p·W)`` int32 packed —
   and each frontier round or ``enforce_many`` call runs the stacked kernels,
@@ -54,7 +57,7 @@ from repro_torch.core.engine import (
     resolve_instance_idx,
 )
 from repro_torch.core.rtac import EnforceResult
-from repro_torch.kernels import autotune, ops
+from repro_torch.kernels import autotune, launch, ops
 from . import register
 
 FIXPOINT_ENV = "REPRO_TORCH_FIXPOINT"
@@ -97,7 +100,10 @@ class _HopperEngine(Engine):
     def _maybe_autotune(self, dims, rows: int) -> None:
         """Env-gated (``REPRO_TORCH_AUTOTUNE=1``) tune-on-first-use of the
         single-network revise's bucket before a dispatch of ``rows`` rows,
-        as `ops.enforce_rows` does for the stacked kernels."""
+        as `ops.enforce_rows` does for the stacked kernels; the wide route
+        (`launch.single_wide`) has no schedule to tune."""
+        if launch.single_wide(dims[0], dims[1]):
+            return
         autotune.maybe_tune(f"{self.kind}_single", dims[0], dims[1],
                             autotune.entry_words(self.kind, dims[1]), rows, device=self.device)
 

@@ -14,8 +14,9 @@ compiled instantiation runs and the shape of its grid:
   ``dense_single``): the variables one CTA revises, a multiple of 8 and at
   most n_p rounded up to 8, so a row's variables go to ceil(n_p/span) CTAs.
   Each CTA writes the bytes of its own variables, from the same tests.
-  From n_p = ``launch.SINGLE_WIDE_N`` these revises run the block route,
-  which picks its own grid: the one schedule there is 0, the default.
+  Where ``launch.single_wide`` holds (from n_p = 2048, or where a narrow
+  CTA owning a row would not fit) these revises run the block route, which
+  picks its own grid: the one schedule there is 0, the default.
 
 This module picks the fastest schedule per shape bucket, once, and persists
 the choice.
@@ -62,7 +63,7 @@ import torch
 from repro_torch import obs
 from repro_torch.core.engine import next_pow2
 from repro_torch.device import Device, resolve_device
-from repro_torch.kernels.launch import SINGLE_WIDE_N
+from repro_torch.kernels.launch import single_wide
 
 SCHEMA = "repro-torch-autotune/v1"
 CACHE_ENV = "REPRO_TORCH_AUTOTUNE_CACHE"
@@ -206,10 +207,9 @@ def single_span(rows: int, n: int, sms: Optional[int] = None) -> int:
     """`revise::single_span` (csrc/revise_common.cuh): the fewest variables
     a CTA (a multiple of 8) that still give the card `CTAS_PER_SM` CTAs an
     SM over ``rows`` rows, and at least one variable a warp. ``sms``
-    defaults to the card's SM count, or an H100's without a card. From
-    `SINGLE_WIDE_N`, 0: the block route there takes no span."""
-    if n >= SINGLE_WIDE_N:
-        return 0
+    defaults to the card's SM count, or an H100's without a card. The
+    narrow route's rule alone: where `launch.single_wide` holds the block
+    route takes no span (`default_config`)."""
     sms = _sm_count() if sms is None else sms
     blocks = -(-n // 8)  # groups of 8 variables
     groups = max(1, min(-(-(CTAS_PER_SM * sms) // rows), blocks))
@@ -218,8 +218,11 @@ def single_span(rows: int, n: int, sms: Optional[int] = None) -> int:
 
 def default_config(kind: str, n_p: int, d_p: int, r: int) -> TuneConfig:
     """The schedule of an untuned bucket, exactly the unscheduled launch: the
-    compiled width where there is one, or `single_span`'s rule."""
+    compiled width where there is one, or `single_span`'s rule (0 on the
+    wide route, `single_wide`)."""
     if kind in SPAN_KINDS:
+        if single_wide(n_p, d_p):
+            return TuneConfig(span=0)
         return TuneConfig(span=single_span(next_pow2(max(r, 1)), n_p))
     return TuneConfig(width=WIDTHS[0] if compiled_width(kind, d_p) else WIDTHS[1])
 
@@ -232,7 +235,7 @@ def _sanitize(kind: str, cfg: TuneConfig, n_p: int, d_p: int, r: int) -> TuneCon
     default = default_config(kind, n_p, d_p, r)
     if kind in SPAN_KINDS:
         span = cfg.span
-        ok = span == default.span or (span is not None and n_p < SINGLE_WIDE_N
+        ok = span == default.span or (span is not None and not single_wide(n_p, d_p)
                                       and 0 < span <= 8 * -(-n_p // 8) and span % 8 == 0)
         return TuneConfig(span=span if ok else default.span)
     ok = cfg.width == "runtime" or (cfg.width == "compiled" and compiled_width(kind, d_p))
@@ -266,10 +269,10 @@ def schedule(kind: str, n_p: int, d_p: int, w: int, r: int) -> Optional[int]:
 def candidate_configs(kind: str, n_p: int, d_p: int, r: int) -> List[TuneConfig]:
     """Both widths where a compiled one exists (else the run-time one
     alone); for the single-network kinds the smallest span of each distinct
-    count of CTAs a row, widest first (7 at n_p = 104 or 128), and from
-    `SINGLE_WIDE_N` the default alone."""
+    count of CTAs a row, widest first (7 at n_p = 104 or 128), and on the
+    wide route (`single_wide`) the default alone."""
     if kind in SPAN_KINDS:
-        if n_p >= SINGLE_WIDE_N:
+        if single_wide(n_p, d_p):
             return [default_config(kind, n_p, d_p, r)]
         blocks = -(-n_p // 8)
         spans = sorted({8 * -(-blocks // g) for g in range(1, blocks + 1)}, reverse=True)

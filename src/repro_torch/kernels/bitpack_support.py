@@ -18,10 +18,11 @@ each row's network in place — no per-round gathered copy of the networks:
   in one launch (``csrc/packed_fixpoint.cu``; the fused default);
 - :func:`packed_revise` — one revise step of B domains against ONE network
   (the single-network path of ``enforce``/``enforce_batch`` and so of
-  ``mac_solve``): below n = 2048 a CTA per (row, span of variables)
-  (``csrc/packed_revise.cu`` with ``csrc/revise_common.cuh``); from it the
-  block revise's row groups on the network as it is
-  (``csrc/block_revise.cuh``, value-major);
+  ``mac_solve``): where a CTA owning a row fits, below n = 2048, a CTA
+  per (row, span of variables) (``csrc/packed_revise.cu`` with
+  ``csrc/revise_common.cuh``); elsewhere (`launch.single_wide`) the block
+  revise's row groups on the network as it is (``csrc/block_revise.cuh``,
+  value-major);
 - :func:`packed_revise_block` — one revise step of B domains against an
   x-block of one network in the reference's pair-major layout
   ``(nx, n, d, W)``: this rank's rows of a sharded network against all n
@@ -40,10 +41,11 @@ from typing import Optional
 
 import torch
 
+from repro_torch import obs
+
 from . import autotune
-from .launch import (SINGLE_WIDE_N, block_scratch_bytes, check_block, check_operands,
-                     check_smem, check_wide, fixpoint_smem, launch, revise_smem,
-                     single_revise_smem)
+from .launch import (block_scratch_bytes, check_block, check_operands, check_smem, check_wide,
+                     fixpoint_smem, launch, revise_smem, single_wide)
 from .ref import pack_bits_ref, unpack_bits_ref
 
 Tensor = torch.Tensor
@@ -224,15 +226,18 @@ def packed_revise(cons: Tensor, mask: Tensor, dom_words: Tensor, changed: Tensor
     cons (n·d, n·W) int32, mask (n, n) u8, dom_words (B, n·W) int32,
     changed (B, n) u8 -> violated (B, n·d) u8. ``sched`` (CUDA only) is the
     variables a CTA revises, a multiple of 8 (0: the default rule); None
-    takes the tuned one of the shape's bucket, or the default. From
-    n = `SINGLE_WIDE_N` the call is the block revise's on the whole network
-    in this layout (a seed pass into a scratch tensor, then the revise),
-    which takes no span: ``sched`` must be None or 0."""
+    takes the tuned one of the shape's bucket, or the default. Where
+    `launch.single_wide` says so (from n = 2048, or where a narrow CTA owning
+    a row would not fit in shared memory) the call is the block revise's on
+    the whole network in this layout (a seed pass into a scratch tensor,
+    then the revise), which takes no span: ``sched`` must be None or 0. The
+    always-on counters ``revise.narrow`` and ``revise.wide`` tick once a
+    launch of each route."""
     b, n = _check(cons, mask, None, dom_words, changed, d, w)
     if cons.device.type == "cpu":
         return packed_revise_plain(cons, mask, dom_words, changed, d=d, w=w)
     out = torch.empty((b, n * d), dtype=torch.uint8, device=cons.device)
-    if n >= SINGLE_WIDE_N:
+    if single_wide(n, d):
         check_wide("packed_revise", b, n, sched)
         if b:
             scratch = torch.empty(block_scratch_bytes(b, n, 4 * w), dtype=torch.uint8,
@@ -240,14 +245,15 @@ def packed_revise(cons: Tensor, mask: Tensor, dom_words: Tensor, changed: Tensor
             launch("packed_revise", "packed_revise_wide_launch",
                    [cons, mask, dom_words, changed, scratch, out], b, n, d, w)
             packed_revise.launches += 1
+            obs.counter_add("revise.wide")
         return out
-    check_smem("packed_revise", single_revise_smem(n, d), f"n={n}, d={d}")
     if b:
         if sched is None:
             sched = autotune.schedule("packed_single", n, d, w, b)
         launch("packed_revise", "packed_revise_launch", [cons, mask, dom_words, changed, out],
                b, n, d, w, sched=sched)
         packed_revise.launches += 1
+        obs.counter_add("revise.narrow")
     return out
 
 

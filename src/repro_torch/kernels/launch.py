@@ -41,7 +41,7 @@ SCHEDULED = {
 #: layout, its tensors (network, mask, domains, seeds, the seed pass's
 #: scratch, out), then (rows, nx, n, d[, w]); ``*_revise_wide_launch`` on a
 #: whole network in the single-network (value-major) layout, the
-#: single-network revises' route from `SINGLE_WIDE_N`, the same tensors,
+#: single-network revises' wide route (`single_wide`), the same tensors,
 #: then (rows, n, d[, w])
 BLOCK = {
     "packed_revise": {"packed_block_revise_launch": (6, 5), "packed_revise_wide_launch": (6, 4)},
@@ -97,6 +97,16 @@ def single_revise_smem(n: int, d: int) -> int:
     read in place), its variables' mask rows as bits, ``ceil(n/32)`` u32
     words a row (``mbits_bytes`` in csrc/revise_common.cuh)."""
     return revise_smem(n, d, 4 * -(-n // 32) * CTA_WARPS * -(-n // CTA_WARPS))
+
+
+def single_wide(n: int, d: int) -> bool:
+    """Whether a single-network revise of the padded (n, d) shape takes the
+    wide launch (``*_revise_wide_launch``: the block revise's kernel on the
+    whole network, any n up to `BLOCK_MAX_N`) rather than the narrow CTA
+    a (row, span of variables): from `SINGLE_WIDE_N`, or where a narrow CTA
+    owning a whole row (`single_revise_smem`) would not fit in shared
+    memory (from n = 392 at d = 40). The padded shape alone decides."""
+    return n >= SINGLE_WIDE_N or single_revise_smem(n, d) > SMEM_OPT_IN_LIMIT
 
 
 #: rows a block-revise CTA revises together, the neighbours a warp lists
@@ -189,12 +199,11 @@ def check_block(kernel: str, rows: int, n: int) -> None:
 
 
 def check_wide(kernel: str, rows: int, n: int, sched: Optional[int]) -> None:
-    """Raise where a single-network revise's route from `SINGLE_WIDE_N` (the
+    """Raise where a single-network revise's wide route (`single_wide`: the
     block revise on the whole network) would refuse: a span it cannot take
     (``sched`` other than None or 0), or `check_block`'s limits."""
     if sched not in (None, 0):
-        raise ValueError(f"{kernel}: from n={SINGLE_WIDE_N} the block route takes no span, "
-                         f"got {sched}")
+        raise ValueError(f"{kernel}: at n={n} the block route takes no span, got {sched}")
     check_block(kernel, rows, n)
 
 

@@ -11,7 +11,8 @@ for the dense u8 kernels and (n_p, d_p, W) for the packed ones.
 - The single-network closures (`_dense_revise_fn`, `_packed_revise_fn`)
   follow `rtac.ReviseFn`: B domains against one network per launch (the
   host-loop route; `single_fused` decides when the fused kernel takes a
-  single network's rows instead).
+  single network's rows instead, and `launch.single_wide` which launch a
+  revise takes).
 - The rows functions take the slot tables and the row→slot map, never
   gathered networks: the kernels read ``tables[idx[r]]`` in place.
 - Factories are ``lru_cache``-d on shapes so each closure is built once.
@@ -293,8 +294,10 @@ def single_fused(kind: str, n_p: int, d_p: int) -> bool:
     the kernel's CTA fits in shared memory and n_p is below
     `launch.SINGLE_WIDE_N`. From there the host loop's single-network revise
     takes the block route, which reads each constrained pair once for a
-    group of rows; the fused kernel would read the network once a row. The
-    padded shape alone decides, on every device."""
+    group of rows; the fused kernel would read the network once a row. Where
+    the fused CTA does not fit below it, the host loop's revise takes the
+    block route too (`launch.single_wide`: the narrow CTA fits only to
+    n_p = 384 at d_p = 40). The padded shape alone decides, on every device."""
     w = -(-d_p // 32)
     dom_bytes = 4 * n_p * w if kind == "packed" else n_p * d_p
     return (n_p < launch.SINGLE_WIDE_N

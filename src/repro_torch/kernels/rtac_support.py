@@ -18,10 +18,11 @@ and read each row's network in place — no per-round gathered copy:
   in one launch (``csrc/dense_fixpoint.cu``; the fused default);
 - :func:`dense_revise` — one revise step of B domains against ONE network
   (the single-network path of ``enforce``/``enforce_batch`` and so of
-  ``mac_solve``): below n = 2048 a CTA per (row, span of variables)
-  (``csrc/dense_revise.cu`` with ``csrc/revise_common.cuh``); from it the
-  block revise's row groups on the network as it is
-  (``csrc/block_revise.cuh``, value-major);
+  ``mac_solve``): where a CTA owning a row fits, below n = 2048, a CTA
+  per (row, span of variables) (``csrc/dense_revise.cu`` with
+  ``csrc/revise_common.cuh``); elsewhere (`launch.single_wide`) the block
+  revise's row groups on the network as it is (``csrc/block_revise.cuh``,
+  value-major);
 - :func:`dense_revise_block` — one revise step of B domains against an
   x-block of one network in the reference's pair-major layout
   ``(nx, n, d, d)``: this rank's rows of a sharded network against all n
@@ -42,10 +43,11 @@ from typing import Optional
 
 import torch
 
+from repro_torch import obs
+
 from . import autotune
-from .launch import (SINGLE_WIDE_N, block_scratch_bytes, check_block, check_operands,
-                     check_smem, check_wide, fixpoint_smem, launch, revise_smem,
-                     single_revise_smem)
+from .launch import (block_scratch_bytes, check_block, check_operands, check_smem, check_wide,
+                     fixpoint_smem, launch, revise_smem, single_wide)
 
 Tensor = torch.Tensor
 
@@ -232,15 +234,18 @@ def dense_revise(cons: Tensor, mask: Tensor, dom: Tensor, changed: Tensor, *,
     cons (n·d, n·d) u8, mask (n, n) u8, dom (B, n·d) u8, changed (B, n) u8
     -> violated (B, n·d) u8. ``sched`` (CUDA only) is the variables a CTA
     revises, a multiple of 8 (0: the default rule); None takes the tuned one
-    of the shape's bucket, or the default. From n = `SINGLE_WIDE_N` the call
-    is the block revise's on the whole network in this layout (a seed pass
-    into a scratch tensor, then the revise), which takes no span: ``sched``
-    must be None or 0."""
+    of the shape's bucket, or the default. Where `launch.single_wide` says
+    so (from n = 2048, or where a narrow CTA owning a row would not fit in
+    shared memory) the call is the block revise's on the whole network in
+    this layout (a seed pass into a scratch tensor, then the revise), which
+    takes no span: ``sched`` must be None or 0. The always-on counters
+    ``revise.narrow`` and ``revise.wide`` tick once a launch of each
+    route."""
     b, n = _check(cons, mask, None, dom, changed, d)
     if cons.device.type == "cpu":
         return dense_revise_plain(cons, mask, dom, changed, d=d)
     out = torch.empty((b, n * d), dtype=torch.uint8, device=cons.device)
-    if n >= SINGLE_WIDE_N:
+    if single_wide(n, d):
         check_wide("dense_revise", b, n, sched)
         if b:
             scratch = torch.empty(block_scratch_bytes(b, n, d), dtype=torch.uint8,
@@ -248,14 +253,15 @@ def dense_revise(cons: Tensor, mask: Tensor, dom: Tensor, changed: Tensor, *,
             launch("dense_revise", "dense_revise_wide_launch",
                    [cons, mask, dom, changed, scratch, out], b, n, d)
             dense_revise.launches += 1
+            obs.counter_add("revise.wide")
         return out
-    check_smem("dense_revise", single_revise_smem(n, d), f"n={n}, d={d}")
     if b:
         if sched is None:
             sched = autotune.schedule("dense_single", n, d, 0, b)
         launch("dense_revise", "dense_revise_launch", [cons, mask, dom, changed, out], b, n, d,
                sched=sched)
         dense_revise.launches += 1
+        obs.counter_add("revise.narrow")
     return out
 
 

@@ -15,11 +15,12 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch import obs
 from repro_torch.core import check_solution, mac_solve, solve_many
 from repro_torch.core.csp import CSP
 from repro_torch.core.engine import pad_changed, pad_dom
 from repro_torch.engines import get_engine
-from repro_torch.kernels import bitpack_support as bs, ops, ref, rtac_support as rs
+from repro_torch.kernels import bitpack_support as bs, launch, ops, ref, rtac_support as rs
 from repro_torch.problems import generate
 from repro_torch.service import SolverService, bucket_for, pad_csp
 
@@ -318,19 +319,21 @@ WIDE_SINGLE_CASES = [("packed", 4096, 32, 5), ("packed", 4096, 32, 64), ("packed
                      ("packed", 4096, 32, 512), ("packed", 4096, 32, 1), ("dense", 4096, 32, 33)]
 
 
-@pytest.mark.parametrize("kind,n,d,b", WIDE_SINGLE_CASES)
-def test_single_network_kernels_from_n_2048(cuda, kind, n, d, b):
-    """`packed_revise` / `dense_revise` at n ≥ 2048 (the network of
+def _check_wide_single(device, kind, n, d, b):
+    """`packed_revise` / `dense_revise` on their wide route (the network of
     `_production_block` at nx = n, in the single-network layout) bit for bit
     against their plain versions and against the block revise on the same
     network in the pair-major layout; the seedless rows, the rows whose
     seeds miss every neighbour and the variable with an empty mask row
-    violate nothing."""
-    args, kw = _production_block(n, cuda, b=b, n=n, d=d, kind=kind)
+    violate nothing; the launch ticks ``revise.wide``, never
+    ``revise.narrow``."""
+    args, kw = _production_block(n, device, b=b, n=n, d=d, kind=kind)
     single = (args[0].permute(0, 2, 1, 3).reshape(n * d, -1).contiguous(), *args[1:])
     mod = bs if kind == "packed" else rs
     mod.reset_launches()
+    before = _revise_routes()
     got = getattr(mod, f"{kind}_revise")(*single, **kw)
+    assert _revise_routes() == (before[0], before[1] + 1)
     want = getattr(mod, f"{kind}_revise_plain")(*single, **kw)
     torch.testing.assert_close(got, want, rtol=0, atol=0)
     torch.testing.assert_close(getattr(mod, f"{kind}_revise_block")(*args, **kw), want,
@@ -342,6 +345,36 @@ def test_single_network_kernels_from_n_2048(cuda, kind, n, d, b):
     assert not want.view(b, n, d)[:, 1].any()
     with pytest.raises(ValueError, match="no span"):  # the route picks its own grid
         getattr(mod, f"{kind}_revise")(*single, **kw, sched=8)
+
+
+def _revise_routes():
+    return obs.REGISTRY.counter("revise.narrow"), obs.REGISTRY.counter("revise.wide")
+
+
+@pytest.mark.parametrize("kind,n,d,b", WIDE_SINGLE_CASES)
+def test_single_network_kernels_from_n_2048(cuda, kind, n, d, b):
+    """The wide route from n = 2048 (`_check_wide_single`)."""
+    assert launch.single_wide(n, d)
+    _check_wide_single(cuda, kind, n, d, b)
+
+
+#: the single-network revises below n = 2^11 where a narrow CTA owning a row
+#: would not fit in shared memory (`launch.single_wide`): (kind, n, d, B) —
+#: the first such n at d = 40 past the fused CTA (1,224), QWH order 40's
+#: (1,600, `mac_solve`'s one and two rows, a last group of one row) and the
+#: last below 2^11 (2,040: n not a multiple of 16, so the mask read a byte at
+#: a time; dense at d = 8, a 266 MB network)
+WIDE_BELOW_CASES = [("packed", 1224, 40, 5), ("packed", 1600, 40, 1), ("packed", 1600, 40, 2),
+                    ("packed", 1600, 40, 33), ("packed", 2040, 40, 5),
+                    ("dense", 1224, 40, 5), ("dense", 1600, 40, 2), ("dense", 2040, 8, 33)]
+
+
+@pytest.mark.parametrize("kind,n,d,b", WIDE_BELOW_CASES)
+def test_single_network_kernels_on_the_wide_route_below_n_2048(cuda, kind, n, d, b):
+    """The wide route where a narrow CTA would not fit (`_check_wide_single`),
+    which the wrappers refused before it."""
+    assert launch.single_wide(n, d) and n < 2048
+    _check_wide_single(cuda, kind, n, d, b)
 
 
 #: block-kernel edge cases at n=4096: (kind, nx, B, d) — row groups cut at
@@ -463,20 +496,24 @@ def _dense_operands(n, d, device):
 def test_dense_wrappers_raise_on_a_layout_they_cannot_hold(cuda):
     # n=1, d=24584: > 227 KB for the fixpoint's lists; both revises hold it
     # (49,272 B stacked, 24,720 B single-network); the stacked revise refuses
-    # n=4096, d=8 (2,266,112 B: launch.revise_smem) and the single-network
-    # one n=2040, d=8, where a tuned span may own a whole row (1,635,328 B:
-    # single_revise_smem; from n=2048 it runs the block route)
+    # n=4096, d=8 (2,266,112 B: launch.revise_smem). The single-network one
+    # at n=2040, d=8, where a narrow CTA owning a whole row would need
+    # 1,635,328 B (single_revise_smem), takes the wide route instead
+    # (launch.single_wide) and agrees with its plain version
     cons, mask, idx, dom, seed = _dense_operands(1, 24584, cuda)
     big = _dense_operands(4096, 8, cuda)
-    single = _dense_operands(2040, 8, cuda)
     rs.reset_launches()
     for call in (lambda: rs.dense_fixpoint_stacked(cons, mask, idx, dom, seed, d=24584),
-                 lambda: rs.dense_revise_stacked(*big, d=8),
-                 lambda: rs.dense_revise(single[0][0], single[1][0], *single[3:], d=8)):
+                 lambda: rs.dense_revise_stacked(*big, d=8)):
         with pytest.raises(ValueError, match="shared memory"):
             call()
     assert (rs.dense_fixpoint_stacked.launches, rs.dense_revise_stacked.launches,
             rs.dense_revise.launches) == (0, 0, 0)
+    single, _ = _production_block(2040, cuda, b=1, n=2040, d=8, kind="dense")
+    single = (single[0].permute(0, 2, 1, 3).reshape(2040 * 8, -1).contiguous(), *single[1:])
+    got = rs.dense_revise(*single, d=8)
+    torch.testing.assert_close(got, rs.dense_revise_plain(*single, d=8), rtol=0, atol=0)
+    assert rs.dense_revise.launches == 1 and got.any()
 
 
 @pytest.mark.parametrize("name", ["hopper_packed", "hopper_dense"])
@@ -519,6 +556,31 @@ def test_mac_solve_on_hopper_engines_equals_einsum_on_card(cuda):
             assert check_solution(csp, runs[0][0])
     assert bs.packed_revise.launches > 0 and rs.dense_revise.launches > 0
     assert bs.packed_fixpoint_stacked.launches > 0 and rs.dense_fixpoint_stacked.launches > 0
+
+
+def test_mac_solve_at_qwh_order_40_equals_the_plain_search_on_card(cuda):
+    """`mac_solve` on a quasigroup with holes of order 40 (n = 1,600,
+    d = 40, 672 holes; the benchmark's generator, fewer chain moves) on the
+    fused `hopper_packed` engine: the fused CTA does not fit, so every round
+    runs the host loop over kernel 3's wide launch, and the solve equals the
+    benchmark's plain MAC search exactly over 200 assignments."""
+    from rtacbench.lib import qwh as lib_qwh
+    from rtacbench.lib import searches
+    from rtacbench.reference import mac, qwh
+
+    dr = qwh.qwh_draws(5, 40, 672, moves=1600)
+    csp = CSP(*lib_qwh.on_device(dr, cuda))
+    names = ("fixpoint.one_launch", "fixpoint.host_loop", "revise.narrow", "revise.wide")
+    before = [obs.REGISTRY.counter(k) for k in names]
+    bs.reset_launches()
+    sol, st = mac_solve(csp, engine=get_engine("hopper_packed", device=cuda),
+                        max_assignments=200)
+    one, loop, narrow, wide = (obs.REGISTRY.counter(k) - v for k, v in zip(names, before))
+    assert (one, narrow) == (0, 0) and loop == st.rounds and wide == st.launches > 0
+    assert bs.packed_revise.launches == wide and bs.packed_fixpoint_stacked.launches == 0
+    want = mac.solve(lib_qwh.network(dr), torch.as_tensor(qwh.root(dr)), 200)
+    assert searches.record(sol, st) == want.key()
+    assert st.exhausted
 
 
 @pytest.mark.parametrize("kind", ["packed", "dense"])

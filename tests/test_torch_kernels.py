@@ -423,7 +423,7 @@ def test_revise_smem_pins_the_driven_shapes(kind, n, d):
     """The stacked revises' shared memory (`launch.revise_smem`, ``Smem`` in
     csrc/revise_common.cuh) at both full-width shapes and the W=3 edge
     shape, within the opt-in limit; the shapes the GPU tests expect the
-    dense wrappers to refuse still exceed their limits."""
+    dense wrappers to refuse, or to route wide, still exceed their limits."""
     dom_bytes = 4 * n * -(-d // 32) if kind == "packed" else n * d
     assert launch.revise_smem(n, d, dom_bytes) == REVISE_SMEM[kind, n, d]
     assert REVISE_SMEM[kind, n, d] <= launch.SMEM_OPT_IN_LIMIT
@@ -450,8 +450,8 @@ def test_single_revise_smem_pins_the_driven_shapes(n, d):
     """The single-network revises read the domain in place and keep their
     variables' mask rows as bits in its place, so their layout is the
     stacked one with the mask bits for the domain; it fits the opt-in limit
-    at the driven shapes, and the shape the GPU test expects the wrappers to
-    refuse does not fit."""
+    at the driven shapes, and the shape at which the GPU test expects the
+    wrappers to take the wide route below n = 2048 does not fit."""
     assert launch.single_revise_smem(n, d) == SINGLE_REVISE_SMEM[n, d]
     assert SINGLE_REVISE_SMEM[n, d] <= launch.SMEM_OPT_IN_LIMIT
     if (n, d) == (104, 40):
@@ -493,15 +493,15 @@ def test_single_revise_from_n_2048_revises_one_variable_a_warp():
     # and 32 u32 row-mask slots, then 8 stages of 2,048 B
     assert launch.block_smem(4096) == 512 + 8 * 2048 + 8 * 128 + 8 * 2048 == 34304
     assert launch.block_smem(4096) <= launch.SMEM_OPT_IN_LIMIT
+    assert launch.single_wide(4096, 32)
     for kind in ("packed_single", "dense_single"):
         for rows in (1, 32, 512):
-            assert autotune.single_span(rows, 4096, sms=132) == 0
             assert autotune.default_config(kind, 4096, 32, rows) == autotune.TuneConfig(span=0)
         assert autotune.candidate_configs(kind, 4096, 32, 512) == [autotune.TuneConfig(span=0)]
         # a cached span from the old route falls back to the default
         assert autotune._sanitize(kind, autotune.TuneConfig(span=8), 4096, 32, 512) == \
             autotune.TuneConfig(span=0)
-    assert autotune.single_span(512, 2040, sms=132) == 1024  # the rule below 2^11
+    assert autotune.single_span(512, 2040, sms=132) == 1024  # the narrow route's rule
 
 
 #: (kind, n, d) of the identity the single-network revises' route from
