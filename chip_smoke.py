@@ -31,6 +31,10 @@ Phases (any failure exits non-zero):
               rows frozen, their seeds zero). Per kind, the stepped fixpoint
               (`ops.enforce_rows`, one revise launch a sweep) is timed beside
               the fused kernel on the 7:1 rows, with identical results.
+              The word loop's epilogue kernel (csrc/word_epilogue.cu) is
+              held against its plain version at `mac_solve`'s rows of QWH
+              order 40 (B = 1, 2 of n_p = 1,600, d_p = 40), at 512 rows of
+              the production CSP's shape and at the main shape, and timed.
 (c) main path — `solve_many` on 32 model_rb instances (seeds 0-31, n=100,
               alpha=0.8, r=0.7, hardness=0.9, so d=40) with ``max_assignments``
               per instance, on `hopper_packed` fused, then stepped: identical
@@ -599,6 +603,89 @@ def check_single_kernels(csp, label: str, device, reps: int = 20):
 # ---------------------------------------------------------------------------
 # (b) the single-network revise calls of one mac_solve, replayed
 # ---------------------------------------------------------------------------
+
+#: phase b's shapes of the word loop's epilogue (rows, n_p, d_p):
+#: `mac_solve` at QWH order 40 (1-2 rows of n_p = 1,600, d_p = 40), an
+#: `enforce_batch` of 512 search nodes on the production CSP (n_p = 4,096,
+#: d_p = 32), and the main path's padded shape
+EPILOGUE_SHAPES = [(1, 1600, 40), (2, 1600, 40), (512, 4096, 32), (64, 104, 40)]
+
+
+def epilogue_operands(b: int, n: int, d: int, device, seed: int = 0):
+    """The word loop's epilogue operands (`packed_word_epilogue`): domain
+    words with half the bits of the d values set, 2 % of the values
+    violated, seeds on two rows in three (the third seedless), row 1 (if
+    any) with an empty domain and seeds, row 0 wiping out its variable 1,
+    zero counts."""
+    import torch
+
+    from repro_torch.kernels import ref
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    w = -(-d // 32)
+    bits = torch.rand((b, n, 32 * w), generator=g, device=device) < 0.5
+    bits[..., d:] = False
+    if b > 1:
+        bits[1, 2] = False
+    words = ref.pack_bits_ref(bits).reshape(b, n * w).contiguous()
+    viol = (torch.rand((b, n * d), generator=g, device=device) < 0.02).to(torch.uint8)
+    viol.view(b, n, d)[0, 1] = 1
+    seeded = torch.arange(b, device=device) % 3 != 2
+    seed_ = ((torch.rand((b, n), generator=g, device=device) < 0.3)
+             & seeded[:, None]).to(torch.uint8)
+    return [words, viol, seed_, torch.zeros(b, dtype=torch.uint8, device=device),
+            torch.zeros(b, dtype=torch.int32, device=device),
+            torch.zeros(2, dtype=torch.int32, device=device)]
+
+
+def check_word_epilogue(device, reps: int = 50):
+    """The word loop's epilogue kernel (csrc/word_epilogue.cu) against its
+    plain version on the card at `EPILOGUE_SHAPES`, every operand bit for
+    bit after the call; device µs a call of each (CUDA events around each
+    call, queued behind a device sleep, the operands restored between
+    calls) beside the kernel's byte bound at `HBM_BYTES_PER_S`: the seeds
+    and words of every row read, the violations of the active rows read,
+    their words and seeds written, and the seeds of a seeded row that is
+    not active cleared."""
+    import torch
+
+    from repro_torch.kernels import bitpack_support
+
+    def device_us(fn, operands, pristine):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        total, wait = 0.0, int(2 * sleep_cycles_per_ms(device))
+        for _ in range(reps):
+            for t, p in zip(operands, pristine):
+                t.copy_(p)
+            torch.cuda._sleep(wait)  # the call is queued before the device reaches it
+            start.record()
+            fn(*operands, d=d, w=w)
+            end.record()
+            end.synchronize()
+            total += start.elapsed_time(end)
+        return 1e3 * total / reps
+
+    for b, n, d in EPILOGUE_SHAPES:
+        w = -(-d // 32)
+        pristine = epilogue_operands(b, n, d, device, seed=b + n)
+        got, want = [t.clone() for t in pristine], [t.clone() for t in pristine]
+        bitpack_support.packed_word_epilogue(*got, d=d, w=w)
+        bitpack_support.packed_word_epilogue_plain(*want, d=d, w=w)
+        err = max_err(tuple(got), tuple(want))
+        check(err == 0, f"word epilogue B={b} n_p={n} d_p={d}: max_abs_err={err}")
+        kernel_us = device_us(bitpack_support.packed_word_epilogue, got, pristine)
+        plain_us = device_us(bitpack_support.packed_word_epilogue_plain, want, pristine)
+        seeded = pristine[2].bool().any(dim=1)
+        alive = (pristine[0].view(b, n, w) != 0).any(dim=-1).all(dim=-1)
+        active, idle = int((seeded & alive).sum()), int((seeded & ~alive).sum())
+        # every row: seeds and words read; an active row: its violations
+        # read, its words and seeds written; a seeded row that is not
+        # active: its seeds cleared
+        nbytes = n * (b * (1 + 4 * w) + active * (d + 4 * w + 1) + idle)
+        print(f"[b] word epilogue B={b} n_p={n} d_p={d} W={w}: bit-identical to plain; "
+              f"kernel_us={kernel_us:.2f} plain_us={plain_us:.2f} "
+              f"bound_us={1e6 * nbytes / HBM_BYTES_PER_S:.3f} ({nbytes} B)", flush=True)
+
 
 #: the phase-e instance whose single-network revise calls phase b replays
 REPLAY_INSTANCE = 1
@@ -1909,16 +1996,22 @@ def x6_first_calls(device, kinds=("packed", "dense")):
     """Yield, for each of ``kinds``, `hopper_{kind}` on x6's network and
     batch (x1's network at B=512) in this process: (kind, result of its
     `enforce_batch`, the single-network wrapper's launches, counted from 0
-    just before and read just after, the operands and keywords of its first
-    call, and the prepare's bytes: allocated before it and at its peak).
+    just before and read just after, the route's numbers over the same call
+    (``word_loop`` and ``spec``: the ticks of ``fixpoint.word_loop`` and
+    ``fixpoint.spec_recurrences``; ``epilogue``: the word loop's epilogue
+    launches), the operands and keywords of its first call, and the
+    prepare's bytes: allocated before it and at its peak).
     The CSP (its 16 GiB dense network) is dropped once the last engine is
     prepared; each engine is dropped before the next is prepared, its
     first call's network kept."""
     import torch
 
+    from repro_torch import obs
     from repro_torch.engines import get_engine
+    from repro_torch.kernels import bitpack_support
 
     csp, doms = x_network({**X_FULL, "batch": X_FULL_BATCH}, device)
+    counters = ("fixpoint.word_loop", "fixpoint.spec_recurrences")
     for i, kind in enumerate(kinds):
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats(device)
@@ -1930,14 +2023,18 @@ def x6_first_calls(device, kinds=("packed", "dense")):
             del csp
         name = f"{kind}_revise"
         reset_launches()
+        before = [obs.REGISTRY.counter(c) for c in counters]
         with StackedCalls([(name, kind)], (1,), shared=(0, 1)) as rec:
             res = prepared.enforce_batch(doms)
             torch.cuda.synchronize()
         launches = getattr(kernel_module(kind), name).launches
+        route = dict(zip(("word_loop", "spec"),
+                         (obs.REGISTRY.counter(c) - v for c, v in zip(counters, before))),
+                     epilogue=bitpack_support.packed_word_epilogue.launches)
         del prepared
         _key, _i, args, kw = rec.calls[0]
         del rec
-        yield kind, res, launches, args, kw, memory
+        yield kind, res, launches, route, args, kw, memory
         del res, args
 
 
@@ -1974,9 +2071,12 @@ def phase_x_oracle(device, want) -> dict:
     revise's row groups on the single-network layout: `hopper_packed` and
     `hopper_dense` on x6's network and batch in this process
     (`x6_first_calls`), each result against x6's record ``want``, each
-    wrapper launched once a recurrence; each first call against its plain
-    version and against the block revise on the same call in the pair-major
-    layout (3b, 6b at nx = n), bit for bit, timed beside its bound; then the
+    wrapper launched once a billed recurrence (the packed engine takes the
+    word loop: kernel 3 and its epilogue once a recurrence, in chunks, those
+    launched past the fixpoint not billed; the dense one the host loop);
+    each first call against its plain version and against the block revise
+    on the same call in the pair-major layout (3b, 6b at nx = n), bit for
+    bit, timed beside its bound; then the
     call cut to `X_ORACLE_ROWS` rows, timed beside the block revise.
     Returns {wrapper: numbers}."""
     import numpy as np
@@ -1984,13 +2084,18 @@ def phase_x_oracle(device, want) -> dict:
 
     k_max = int(want["k"].max())
     out = {}
-    for kind, res, launches, args, kw, memory in x6_first_calls(device):
+    for kind, res, launches, route, args, kw, memory in x6_first_calls(device):
         t0 = time.perf_counter()
         name = f"{kind}_revise"
         check(all(np.array_equal(t.cpu().numpy(), want[f])
                   for t, f in zip(res, ("dom", "consistent", "k"))),
               f"[x6] hopper_{kind} in this process differs from x6's sharded run")
-        check(launches == k_max, f"[x6] {launches} {name} launches for {k_max} recurrences")
+        word = kind == "packed"
+        check(route["word_loop"] == word and launches - route["spec"] == k_max
+              and route["epilogue"] == (launches if word else 0),
+              f"[x6] {launches} {name} launches ({route['spec']} past the fixpoint, "
+              f"{route['epilogue']} epilogues, word loop {route['word_loop']}) for {k_max} "
+              f"recurrences")
         mod = kernel_module(kind)
         fn, plain, block = (getattr(mod, name), getattr(mod, f"{name}_plain"),
                             getattr(mod, f"{name}_block"))
@@ -2211,7 +2316,7 @@ def compare_wide(libs, use, fmt, device):
     import torch
 
     use("this")
-    for kind, _res, _launches, args, kw, _memory in x6_first_calls(device):
+    for kind, _res, _launches, _route, args, kw, _memory in x6_first_calls(device):
         fn = getattr(kernel_module(kind), f"{kind}_revise")
         for b in (X_FULL_BATCH, *X_ORACLE_ROWS):
             cut = cut_rows(args, b)
@@ -2417,6 +2522,8 @@ def main(argv) -> int:
         stamp("phase b, single-network kernels")
         check_single_kernels(main_csps[0], f"main n_p=104 d_p=40 B={CHILD_ROWS} one network",
                              device)
+        stamp("phase b, the word loop's epilogue")
+        check_word_epilogue(device)
         floor_ms = launch_floor_ms(device)
         print(f"[b] launch floor: {1e3 * floor_ms:.3f} us a launch (torch.cuda._sleep(0), "
               f"{REPLAY_CHUNK} back to back on the same stream)", flush=True)

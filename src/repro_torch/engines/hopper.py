@@ -5,18 +5,23 @@ The counterparts of `repro.engines.pallas.PallasDenseEngine` and
 [/ bitpack] of the constraint tensor once per CSP; the hot path pads only
 the O(n·d) domains into kernel coordinates and un-pads the result.
 
-- ``enforce``/``enforce_batch`` (and so ``mac_solve``) take one of two
-  routes, chosen by the padded shape (`ops.single_fused`): on a fused
-  engine below `launch.SINGLE_WIDE_N`, where its CTA fits, one launch of the
-  fused fixpoint kernel (`*_fixpoint_stacked`) for all the call's rows, the
-  network read as a one-slot table; otherwise (stepped engines, from
-  n = 2048, and where the fused CTA does not fit) the host-loop fixpoint
-  of `rtac.enforce_batch_generic` with one single-network revise launch
-  per recurrence (`dense_revise` / `packed_revise`), narrow or wide as
+- ``enforce``/``enforce_batch`` (and so ``mac_solve``) take one of three
+  routes, chosen by the engine and the padded shape (`ops.single_fused`):
+  on a fused engine below `launch.SINGLE_WIDE_N`, where its CTA fits, one
+  launch of the fused fixpoint kernel (`*_fixpoint_stacked`) for all the
+  call's rows, the network read as a one-slot table; on a fused packed
+  engine elsewhere (from n = 2048, and where the fused CTA does not fit)
+  the word loop (`ops.packed_word_fixpoint`): the domains kept on the card
+  as packed words, a `packed_revise` launch and an epilogue launch a
+  recurrence, one predicate read a chunk of recurrences; otherwise
+  (stepped engines, and the dense kind where the fused CTA does not fit)
+  the host-loop fixpoint of `rtac.enforce_batch_generic` with one
+  single-network revise launch and one predicate read per recurrence
+  (`dense_revise` / `packed_revise`). A revise is narrow or wide as
   `launch.single_wide` decides from the padded shape. The always-on
-  counters ``fixpoint.one_launch`` and ``fixpoint.host_loop`` count the
-  calls of each route, ``revise.narrow`` and ``revise.wide`` the revise
-  launches of each.
+  counters ``fixpoint.one_launch``, ``fixpoint.word_loop`` and
+  ``fixpoint.host_loop`` count the calls of each route, ``revise.narrow``
+  and ``revise.wide`` the revise launches of each.
 - ``prepare_many`` stacks the per-instance networks into slot tables —
   ``(B, n_p·d_p, n_p·d_p)`` u8 dense, ``(B, n_p·d_p, n_p·W)`` int32 packed —
   and each frontier round or ``enforce_many`` call runs the stacked kernels,
@@ -109,10 +114,13 @@ class _HopperEngine(Engine):
 
     def _fixpoint(self, payload, dom_p, ch_p) -> EnforceResult:
         """B padded rows (B, n_p, d_p) with their seeds (B, n_p) against the
-        prepared network, by the route `ops.single_fused` picks: one launch
-        of the fused fixpoint kernel, the network a one-slot view and every
-        row routed to slot 0; or the host loop over the single-network
-        revise, one launch and one predicate sync a recurrence."""
+        prepared network, by the route the engine and `ops.single_fused`
+        pick: one launch of the fused fixpoint kernel, the network a
+        one-slot view and every row routed to slot 0; the word loop over
+        the single-network revise (a fused packed engine where the fused
+        kernel cannot take the shape), one predicate sync a chunk of
+        recurrences; or the host loop over it, one launch and one predicate
+        sync a recurrence."""
         network, dims, revise_fn = payload
         if self.fused_fixpoint and ops.single_fused(self.kind, dims[0], dims[1]):
             obs.counter_add("fixpoint.one_launch")
@@ -120,8 +128,11 @@ class _HopperEngine(Engine):
             idx = torch.zeros(dom_p.shape[0], dtype=torch.int32, device=dom_p.device)
             return ops.enforce_rows(self.kind, True, (cons[None], mask[None]), dom_p, ch_p, idx,
                                     dims)
-        obs.counter_add("fixpoint.host_loop")
         self._maybe_autotune(dims, dom_p.shape[0])
+        if self.fused_fixpoint and self.kind == "packed":
+            obs.counter_add("fixpoint.word_loop")
+            return ops.packed_word_fixpoint(network, dom_p, ch_p, dims)
+        obs.counter_add("fixpoint.host_loop")
         return rtac.enforce_batch_generic(network, dom_p, ch_p, revise_fn=revise_fn)
 
     def enforce(self, prepared: PreparedNetwork, dom, changed0=None) -> EnforceResult:

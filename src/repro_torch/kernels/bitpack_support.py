@@ -28,7 +28,12 @@ each row's network in place — no per-round gathered copy of the networks:
   ``(nx, n, d, W)``: this rank's rows of a sharded network against all n
   variables (the local revise of `repro_torch.core.sharded`), up to
   n = 65535 (``csrc/block_revise.cuh``, a CTA per (span of variables, group
-  of 32 rows)).
+  of 32 rows));
+- :func:`packed_word_epilogue` — one recurrence's bookkeeping after a
+  `packed_revise` launch in the word loop (`ops.packed_word_fixpoint`):
+  the violations applied to the active rows' words in place, the next seed,
+  the verdicts, ``k`` and a device count of the rows left to revise
+  (``csrc/word_epilogue.cu``, a CTA a row).
 
 Device rule: a wrapper given CPU tensors computes the plain version; given
 CUDA tensors it launches its kernel or raises — it never falls back. Each
@@ -261,6 +266,65 @@ packed_revise.launches = 0
 
 
 # ---------------------------------------------------------------------------
+# The word loop's epilogue (after each `packed_revise` of the loop)
+# ---------------------------------------------------------------------------
+
+
+def packed_word_epilogue_plain(words: Tensor, viol: Tensor, seed: Tensor, consistent: Tensor,
+                               k: Tensor, counts: Tensor, *, d: int, w: int) -> None:
+    """Plain PyTorch version of `packed_word_epilogue`, in place on the same
+    operands."""
+    b, n = seed.shape
+    old = words.view(b, n, w)
+    alive0 = (old != 0).any(dim=-1).all(dim=-1)
+    act = seed.bool().any(dim=-1) & alive0
+    new = torch.where(act[:, None, None], old & ~pack_bits_ref(viol.view(b, n, d).bool()), old)
+    changed = (new != old).any(dim=-1)
+    alive = (new != 0).any(dim=-1).all(dim=-1)
+    nxt = act & alive & changed.any(dim=-1)
+    k += act.to(torch.int32)
+    consistent.copy_(alive)
+    counts += torch.stack([act.sum(), nxt.sum()]).to(torch.int32)
+    seed.copy_(changed & nxt[:, None])
+    words.copy_(new.view(b, n * w))
+
+
+def packed_word_epilogue(words: Tensor, viol: Tensor, seed: Tensor, consistent: Tensor,
+                         k: Tensor, counts: Tensor, *, d: int, w: int) -> None:
+    """One recurrence's bookkeeping after a `packed_revise` launch of the
+    word loop, in place. A row is active iff it has a seed and no empty
+    domain. An active row's words lose the values ``viol`` marks, ``seed``
+    becomes the variables whose domains changed (zero once the row is no
+    longer active: wiped out, or nothing changed), ``k`` counts the
+    recurrence; any other row keeps its words and ``k`` and gets a zero
+    seed. ``consistent`` becomes whether no domain of the row is empty, and
+    ``counts`` gains (rows revised, rows still active). Row for row the host
+    loop's recurrence (`rtac._fixpoint_rows`), its first seeds those given.
+
+    words (B, n·W) int32, viol (B, n·d) u8, seed (B, n) u8, consistent (B,)
+    u8, k (B,) int32, counts (2,) int32; d a multiple of 8.
+    """
+    b, n = seed.shape
+    expect = ((words, torch.int32, (b, n * w)), (viol, torch.uint8, (b, n * d)),
+              (consistent, torch.uint8, (b,)), (k, torch.int32, (b,)),
+              (counts, torch.int32, (2,)))
+    if seed.dtype != torch.uint8 or d % 8 or w != -(-d // 32) or any(
+            t.dtype != dtype or t.shape != shape or t.device != seed.device
+            or not t.is_contiguous() for t, dtype, shape in expect):
+        raise ValueError(f"packed_word_epilogue: operands do not fit B={b}, n={n}, d={d}, W={w}")
+    if seed.device.type == "cpu":
+        return packed_word_epilogue_plain(words, viol, seed, consistent, k, counts, d=d, w=w)
+    if b:
+        launch("word_epilogue", "packed_word_epilogue_launch",
+               [words, viol, seed, consistent, k, counts], b, n, d, w)
+        packed_word_epilogue.launches += 1
+    return None
+
+
+packed_word_epilogue.launches = 0
+
+
+# ---------------------------------------------------------------------------
 # One revise step against an x-block of one network (the sharded path)
 # ---------------------------------------------------------------------------
 
@@ -314,4 +378,5 @@ def reset_launches() -> None:
     packed_fixpoint_stacked.launches = 0
     packed_revise.launches = 0
     packed_revise_block.launches = 0
+    packed_word_epilogue.launches = 0
 

@@ -48,13 +48,21 @@ BLOCK = {
     "dense_revise": {"dense_block_revise_launch": (6, 4), "dense_revise_wide_launch": (6, 3)},
 }
 
+#: library -> {C launcher: (pointer arguments, int arguments)} of the
+#: launchers that take no schedule: the word loop's epilogue
+#: (csrc/word_epilogue.cu), its tensors (words, violations, seeds,
+#: consistent, k, counts), then (rows, n, d, w)
+UNSCHEDULED = {"word_epilogue": {"packed_word_epilogue_launch": (6, 4)}}
+
 #: library -> {C launcher: (pointer arguments, int arguments)}; the stream
 #: follows
 SIGNATURES = {
-    library: {**launchers,
-              **{f"{name}_sched": (ptrs, ints + 1) for name, (ptrs, ints) in launchers.items()},
-              **BLOCK.get(library, {})}
-    for library, launchers in SCHEDULED.items()
+    **{library: {**launchers,
+                 **{f"{name}_sched": (ptrs, ints + 1)
+                    for name, (ptrs, ints) in launchers.items()},
+                 **BLOCK.get(library, {})}
+       for library, launchers in SCHEDULED.items()},
+    **UNSCHEDULED,
 }
 
 #: warps of one fused-fixpoint or stacked-revise CTA (``kWarps`` in

@@ -13,6 +13,10 @@ for the dense u8 kernels and (n_p, d_p, W) for the packed ones.
   host-loop route; `single_fused` decides when the fused kernel takes a
   single network's rows instead, and `launch.single_wide` which launch a
   revise takes).
+- `packed_word_fixpoint` is a fused packed engine's single-network route
+  where `single_fused` refuses the shape: kernel 3 and an epilogue kernel
+  a recurrence on the domains kept as packed words, one predicate read a
+  chunk of recurrences.
 - The rows functions take the slot tables and the row→slot map, never
   gathered networks: the kernels read ``tables[idx[r]]`` in place.
 - Factories are ``lru_cache``-d on shapes so each closure is built once.
@@ -176,6 +180,24 @@ def _words(doms: Tensor, n_p: int, w: int) -> Tensor:
 
 
 @functools.lru_cache(maxsize=None)
+def _byte_weights(device: torch.device) -> Tensor:
+    return torch.tensor([1 << q for q in range(8)], dtype=torch.uint8, device=device)
+
+
+def _byte_words(doms: Tensor, w: int) -> Tensor:
+    """`ref.pack_bits_ref` of (..., d_p) bool domains with d_p a multiple of
+    8, in three ops: each run of 8 values summed into one byte (the bits are
+    distinct, so the sum is their OR), the bytes padded to 4·W and read as W
+    little-endian int32 words. -> (..., W) int32."""
+    *lead, d_p = doms.shape
+    runs = doms.contiguous().view(torch.uint8).view(*lead, d_p // 8, 8)
+    by = (runs * _byte_weights(doms.device)).sum(dim=-1, dtype=torch.uint8)
+    if d_p // 8 != 4 * w:
+        by = torch.nn.functional.pad(by, (0, 4 * w - d_p // 8))
+    return by.view(torch.int32)
+
+
+@functools.lru_cache(maxsize=None)
 def _dense_revise_fn(n_p: int, d_p: int):
     """Single-network revise closure (rtac.ReviseFn): B domains (B, n_p, d_p)
     against one dense network, one `dense_revise` launch per call."""
@@ -302,6 +324,58 @@ def single_fused(kind: str, n_p: int, d_p: int) -> bool:
     dom_bytes = 4 * n_p * w if kind == "packed" else n_p * d_p
     return (n_p < launch.SINGLE_WIDE_N
             and launch.fixpoint_smem(n_p, d_p, dom_bytes) <= launch.SMEM_OPT_IN_LIMIT)
+
+
+#: recurrences the word loop enqueues between two reads of its predicate: a
+#: `mac_solve` call at QWH's shape takes 1.57 on average, an
+#: `enforce_batch` of 512 search nodes at the production CSP's 4.75
+WORD_CHUNK = 2
+
+
+def packed_word_fixpoint(network, dom_p: Tensor, ch_p: Tensor,
+                         kdims: tuple) -> rtac.EnforceResult:
+    """B padded rows' fixpoints against ONE packed network, the state kept
+    on the card as packed words between recurrences: a fused engine's route
+    where `single_fused` refuses the shape. The domains are packed once
+    (`_byte_words`) and unpacked once; each recurrence is one
+    `packed_revise` launch (kernel 3, by the route `launch.single_wide`
+    picks) and one `packed_word_epilogue` launch, which finds the active
+    rows, applies their violations, writes the next seed and the verdicts
+    and counts the rows still active, all on the card. Recurrences go in
+    chunks of `WORD_CHUNK`, the count
+    read once a chunk (one ``sync.wait``, in a ``fixpoint.chunk`` span). A
+    recurrence past a row's fixpoint has a zero seed and changes nothing, so
+    each row's closure, verdict and ``k`` equal the host loop's
+    (`rtac._fixpoint_rows`) at any chunk length. The always-on counter
+    ``fixpoint.spec_recurrences`` counts the recurrences launched past the
+    call's ``max(k)``."""
+    cons_p2, mask = network
+    n_p, d_p, w = kdims
+    b = dom_p.shape[0]
+    words = _byte_words(dom_p, w).view(b, n_p * w)
+    # the seeds as given: the first epilogue ignores those of a row that
+    # starts with an empty domain, and clears them
+    seed = ch_p.to(torch.uint8, memory_format=torch.contiguous_format, copy=True)
+    consistent = torch.empty(b, dtype=torch.uint8, device=dom_p.device)
+    k = torch.zeros(b, dtype=torch.int32, device=dom_p.device)
+    launched = needed = 0
+    while True:
+        with obs.span("fixpoint.chunk", cat="fixpoint", recurrences=WORD_CHUNK):
+            counts = torch.zeros((WORD_CHUNK, 2), dtype=torch.int32, device=dom_p.device)
+            for i in range(WORD_CHUNK):
+                viol = bitpack_support.packed_revise(cons_p2, mask, words, seed, d=d_p, w=w)
+                bitpack_support.packed_word_epilogue(words, viol, seed, consistent, k, counts[i],
+                                                     d=d_p, w=w)
+            with obs.sync_wait():
+                got = counts.tolist()
+        launched += WORD_CHUNK
+        needed += sum(revised > 0 for revised, _ in got)
+        if got[-1][1] == 0:
+            break
+    obs.counter_add("fixpoint.spec_recurrences", launched - needed)
+    runs = words.view(torch.uint8).view(b, n_p, 4 * w)[..., :d_p // 8, None]
+    dom = (runs & _byte_weights(dom_p.device)) != 0
+    return rtac.EnforceResult(dom.view(b, n_p, d_p), consistent.view(torch.bool), k)
 
 
 _ROWS_FNS = {"dense": (_dense_rows_fn, _dense_fixpoint_rows_fn),

@@ -51,10 +51,15 @@ The spans of the search and fixpoint paths, by what each brackets:
   every search's coroutine advanced on them.
 - ``kernel.launch``: the enforcement a dispatch enqueues, up to its read-back
   (arg ``fenced``: whether `fence` waited for the device inside it). The
-  fused fixpoint enqueues one launch; a host-loop fixpoint (stepped, or a
-  single network from n = 2048) holds its ``fixpoint.recurrence`` spans.
+  fused fixpoint enqueues one launch; a host-loop fixpoint (a stepped
+  engine) holds its ``fixpoint.recurrence`` spans, the word loop (a fused
+  packed engine on a single network the fused kernel cannot take) its
+  ``fixpoint.chunk`` spans.
 - ``fixpoint.recurrence``: one recurrence of the host-loop fixpoint
   (`rtac._fixpoint_rows`): its step and the loop predicate's read.
+- ``fixpoint.chunk``: one chunk of the word loop's recurrences
+  (`kernels.ops.packed_word_fixpoint`; arg ``recurrences``): their launches
+  and the one read of the count of rows left active.
 - ``enforce.upload``: a single-network `enforce`/`enforce_batch` taking its
   domains onto the device and padding them (a pageable upload blocks).
 - ``sync.wait``: a blocking device→host read (`sync_wait`): a frontier

@@ -67,8 +67,13 @@ def test_launchers_have_scheduled_variants_and_obs_names_are_the_references():
 
     from repro_torch.kernels import launch
 
-    assert set(launch.SIGNATURES) == set(launch.SCHEDULED) >= set(launch.BLOCK)
-    for library, launchers in launch.SIGNATURES.items():
+    assert set(launch.SIGNATURES) == set(launch.SCHEDULED) | set(launch.UNSCHEDULED)
+    assert set(launch.SCHEDULED) >= set(launch.BLOCK)
+    assert not set(launch.SCHEDULED) & set(launch.UNSCHEDULED)
+    for library, launchers in launch.UNSCHEDULED.items():  # no schedule, no variant
+        assert launch.SIGNATURES[library] == launchers
+    for library in launch.SCHEDULED:
+        launchers = launch.SIGNATURES[library]
         plain = launch.SCHEDULED[library]
         block = launch.BLOCK.get(library, {})
         assert plain and len(launchers) == 2 * len(plain) + len(block), library

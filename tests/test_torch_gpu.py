@@ -562,22 +562,29 @@ def test_mac_solve_at_qwh_order_40_equals_the_plain_search_on_card(cuda):
     """`mac_solve` on a quasigroup with holes of order 40 (n = 1,600,
     d = 40, 672 holes; the benchmark's generator, fewer chain moves) on the
     fused `hopper_packed` engine: the fused CTA does not fit, so every round
-    runs the host loop over kernel 3's wide launch, and the solve equals the
-    benchmark's plain MAC search exactly over 200 assignments."""
+    runs the word loop over kernel 3's wide launch (the epilogue kernel once
+    a launch): the recurrences billed, and past a call's fixpoint at most
+    the rest of its last chunk, and the solve equals the benchmark's plain
+    MAC search exactly over 200 assignments."""
     from rtacbench.lib import qwh as lib_qwh
     from rtacbench.lib import searches
     from rtacbench.reference import mac, qwh
 
     dr = qwh.qwh_draws(5, 40, 672, moves=1600)
     csp = CSP(*lib_qwh.on_device(dr, cuda))
-    names = ("fixpoint.one_launch", "fixpoint.host_loop", "revise.narrow", "revise.wide")
+    names = ("fixpoint.one_launch", "fixpoint.host_loop", "fixpoint.word_loop",
+             "revise.narrow", "revise.wide", "fixpoint.spec_recurrences")
     before = [obs.REGISTRY.counter(k) for k in names]
     bs.reset_launches()
     sol, st = mac_solve(csp, engine=get_engine("hopper_packed", device=cuda),
                         max_assignments=200)
-    one, loop, narrow, wide = (obs.REGISTRY.counter(k) - v for k, v in zip(names, before))
-    assert (one, narrow) == (0, 0) and loop == st.rounds and wide == st.launches > 0
-    assert bs.packed_revise.launches == wide and bs.packed_fixpoint_stacked.launches == 0
+    one, loop, word, narrow, wide, spec = (obs.REGISTRY.counter(k) - v
+                                           for k, v in zip(names, before))
+    assert (one, loop, narrow) == (0, 0, 0) and word == st.rounds
+    assert wide - spec == st.launches
+    assert 0 <= spec <= st.rounds * (ops.WORD_CHUNK - 1)
+    assert bs.packed_revise.launches == bs.packed_word_epilogue.launches == wide
+    assert bs.packed_fixpoint_stacked.launches == 0
     want = mac.solve(lib_qwh.network(dr), torch.as_tensor(qwh.root(dr)), 200)
     assert searches.record(sol, st) == want.key()
     assert st.exhausted

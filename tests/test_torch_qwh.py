@@ -4,8 +4,9 @@ The benchmark's generator (`rtacbench/reference/qwh.py`: the
 Jacobson-Matthews chain, then the holes) gives Latin-square completion
 instances; `mac_solve` on the Hopper engines and on `einsum` must equal the
 benchmark's plain MAC search on them exactly, and the single-network path's
-two shape gates must route the order-40 shape (n_p = 1,600, d_p = 40) to the
-host loop over the wide revise. On the CPU each kernel wrapper computes its
+two shape gates must keep the order-40 shape (n_p = 1,600, d_p = 40) off the
+fused kernel and on the wide revise (the word loop's on a fused packed
+engine, the host loop's elsewhere). On the CPU each kernel wrapper computes its
 plain version, so the gates are tested on the shapes alone.
 """
 
