@@ -215,11 +215,10 @@ SERVICE_DURATION = 3.0
 #: shortened retry backoffs of the fault drills (seconds of trace time)
 FAST_BACKOFF = {"backoff_base_s": 0.01, "backoff_cap_s": 0.05}
 #: what a chaos run may add to the fault-free run's span and counter names
-#: (recovery spans and counters; closures first built on a fallback rung; the
-#: recurrences of the stepped rung's host loop, which a fused service never runs)
+#: (recovery spans and counters; the recurrences of the stepped rung's host
+#: loop, which a fused service never runs)
 RECOVERY_NAMES = ("faults.", "fallback.", "service.recover", "service.retries",
-                  "service.failed", "service.shed", "kernels.fn_builds",
-                  "fixpoint.recurrence")
+                  "service.failed", "service.shed", "fixpoint.recurrence")
 #: phase s holds these calls (1-based, per kernel and table shape) of each
 #: service run's stacked kernels against their plain versions
 SERVICE_CHECKED_CALLS = (1, 4, 16, 64)
@@ -548,7 +547,7 @@ def child_inputs(csp, device, kind: str):
 
     b = CHILD_ROWS
     n, d = csp.dom.shape
-    (cons, mask), dims, _ = get_engine(f"hopper_{kind}", device=device).prepare(csp).payload
+    (cons, mask), dims = get_engine(f"hopper_{kind}", device=device).prepare(csp).payload
     n_p, d_p = dims[:2]
     var = torch.zeros(b, dtype=torch.long, device=device)
     val = torch.arange(b, device=device) % d

@@ -5,37 +5,24 @@ The counterparts of `repro.engines.pallas.PallasDenseEngine` and
 [/ bitpack] of the constraint tensor once per CSP; the hot path pads only
 the O(n·d) domains into kernel coordinates and un-pads the result.
 
-- ``enforce``/``enforce_batch`` (and so ``mac_solve``) take one of three
-  routes, chosen by the engine and the padded shape (`ops.single_fused`):
-  on a fused engine below `launch.SINGLE_WIDE_N`, where its CTA fits, one
-  launch of the fused fixpoint kernel (`*_fixpoint_stacked`) for all the
-  call's rows, the network read as a one-slot table; on a fused packed
-  engine elsewhere (from n = 2048, and where the fused CTA does not fit)
-  the word loop (`ops.packed_word_fixpoint`): the domains kept on the card
-  as packed words, a `packed_revise` launch and an epilogue launch a
-  recurrence, one predicate read a chunk of recurrences; otherwise
-  (stepped engines, and the dense kind where the fused CTA does not fit)
-  the host-loop fixpoint of `rtac.enforce_batch_generic` with one
-  single-network revise launch and one predicate read per recurrence
-  (`dense_revise` / `packed_revise`). A revise is narrow or wide as
-  `launch.single_wide` decides from the padded shape. The always-on
-  counters ``fixpoint.one_launch``, ``fixpoint.word_loop`` and
-  ``fixpoint.host_loop`` count the calls of each route, ``revise.narrow``
-  and ``revise.wide`` the revise launches of each.
+An engine decides only its kind (``"dense"`` | ``"packed"``) and whether it
+is fused; `kernels.ops` decides the rest from those and the padded shape:
+
+- ``enforce``/``enforce_batch`` (and so ``mac_solve``) hand each call to
+  `ops.fixpoint_single`, which picks one of three routes (one fused launch,
+  the word loop, or the host loop over the single-network revise) and
+  counts it.
 - ``prepare_many`` stacks the per-instance networks into slot tables —
   ``(B, n_p·d_p, n_p·d_p)`` u8 dense, ``(B, n_p·d_p, n_p·W)`` int32 packed —
-  and each frontier round or ``enforce_many`` call runs the stacked kernels,
-  which read every row's network in place from those tables:
-  ``fixpoint="fused"`` (default) one `*_fixpoint_stacked` launch per round
-  runs the whole recurrence; ``fixpoint="stepped"`` is a host loop with one
-  `*_revise_stacked` launch per recurrence — the fallback rung and the
-  parity oracle.
+  and each frontier round (`ops.frontier_fix`) or ``enforce_many`` call runs
+  the stacked kernels through `ops.enforce_rows`, which read every row's
+  network in place from those tables: ``fixpoint="fused"`` (default) one
+  `*_fixpoint_stacked` launch per round runs the whole recurrence;
+  ``fixpoint="stepped"`` is a host loop with one `*_revise_stacked` launch
+  per recurrence — the fallback rung and the parity oracle.
 - ``open_slot_pool`` preallocates the same tables for the service, with
   zeros, and installs each admitted network into its slot in place; every
   service round reads the networks through their slot ids, as above.
-- With ``REPRO_TORCH_AUTOTUNE=1`` each dispatch first tunes its bucket's
-  launch schedule on first use (`kernels.autotune.maybe_tune`: here for the
-  single-network revise, in `ops.enforce_rows` for the stacked kernels).
 
 The env default of ``fixpoint`` reads ``REPRO_TORCH_FIXPOINT``.
 """
@@ -47,7 +34,6 @@ import os
 import torch
 
 from repro_torch import obs
-from repro_torch.core import rtac
 from repro_torch.core.csp import CSP
 from repro_torch.core.engine import (
     Engine,
@@ -62,7 +48,7 @@ from repro_torch.core.engine import (
     resolve_instance_idx,
 )
 from repro_torch.core.rtac import EnforceResult
-from repro_torch.kernels import autotune, launch, ops
+from repro_torch.kernels import ops
 from . import register
 
 FIXPOINT_ENV = "REPRO_TORCH_FIXPOINT"
@@ -71,12 +57,10 @@ FIXPOINT_ENV = "REPRO_TORCH_FIXPOINT"
 class _HopperEngine(Engine):
     """Shared prepare/enforce plumbing; subclasses pick the kernel family.
 
-    Subclass hooks: ``kind`` (``"dense"`` | ``"packed"``, the key of the
-    `kernels.ops` closures), ``_prepare_net(csp, memo)`` (the padded
-    network on the engine's device, memoized per CSP unless ``memo`` is
-    False), ``_revise_fn(*dims)`` (the
-    single-network revise closure), ``_empty_tables(dims, capacity)`` (a
-    slot pool's zeroed tables) and the two frontier entries."""
+    Subclass hooks: ``kind`` (``"dense"`` | ``"packed"``, what `kernels.ops`
+    dispatches on), ``_prepare_net(csp, memo)`` (the padded network on the
+    engine's device, memoized per CSP unless ``memo`` is False) and
+    ``_empty_tables(dims, capacity)`` (a slot pool's zeroed tables)."""
 
     kind: str
     stacked_many = True
@@ -99,41 +83,13 @@ class _HopperEngine(Engine):
     # --- single-network path (one search, many domains) ---------------------
 
     def _prepare_payload(self, csp: CSP):
-        dims = self._dims(*csp.dom.shape)
-        return self._prepare_net(csp), dims, self._revise_fn(*dims)
-
-    def _maybe_autotune(self, dims, rows: int) -> None:
-        """Env-gated (``REPRO_TORCH_AUTOTUNE=1``) tune-on-first-use of the
-        single-network revise's bucket before a dispatch of ``rows`` rows,
-        as `ops.enforce_rows` does for the stacked kernels; the wide route
-        (`launch.single_wide`) has no schedule to tune."""
-        if launch.single_wide(dims[0], dims[1]):
-            return
-        autotune.maybe_tune(f"{self.kind}_single", dims[0], dims[1],
-                            autotune.entry_words(self.kind, dims[1]), rows, device=self.device)
+        return self._prepare_net(csp), self._dims(*csp.dom.shape)
 
     def _fixpoint(self, payload, dom_p, ch_p) -> EnforceResult:
         """B padded rows (B, n_p, d_p) with their seeds (B, n_p) against the
-        prepared network, by the route the engine and `ops.single_fused`
-        pick: one launch of the fused fixpoint kernel, the network a
-        one-slot view and every row routed to slot 0; the word loop over
-        the single-network revise (a fused packed engine where the fused
-        kernel cannot take the shape), one predicate sync a chunk of
-        recurrences; or the host loop over it, one launch and one predicate
-        sync a recurrence."""
-        network, dims, revise_fn = payload
-        if self.fused_fixpoint and ops.single_fused(self.kind, dims[0], dims[1]):
-            obs.counter_add("fixpoint.one_launch")
-            cons, mask = network
-            idx = torch.zeros(dom_p.shape[0], dtype=torch.int32, device=dom_p.device)
-            return ops.enforce_rows(self.kind, True, (cons[None], mask[None]), dom_p, ch_p, idx,
-                                    dims)
-        self._maybe_autotune(dims, dom_p.shape[0])
-        if self.fused_fixpoint and self.kind == "packed":
-            obs.counter_add("fixpoint.word_loop")
-            return ops.packed_word_fixpoint(network, dom_p, ch_p, dims)
-        obs.counter_add("fixpoint.host_loop")
-        return rtac.enforce_batch_generic(network, dom_p, ch_p, revise_fn=revise_fn)
+        prepared network, by the route `ops.fixpoint_single` picks."""
+        network, dims = payload
+        return ops.fixpoint_single(self.kind, self.fused_fixpoint, network, dom_p, ch_p, dims)
 
     def enforce(self, prepared: PreparedNetwork, dom, changed0=None) -> EnforceResult:
         n_p, d_p = prepared.payload[1][:2]
@@ -201,8 +157,7 @@ class _HopperEngine(Engine):
     # --- device-resident frontiers ------------------------------------------
 
     def frontier_fix(self):
-        fn = self._frontier_fused_fn if self.fused_fixpoint else self._frontier_fn
-        return fn()
+        return ops.frontier_fix(self.kind, self.fused_fixpoint)
 
     def frontier_networks(self, prepared: PreparedMany):
         return prepared.payload[0]
@@ -214,9 +169,6 @@ class HopperDenseEngine(_HopperEngine):
 
     name = "hopper_dense"
     kind = "dense"
-    _revise_fn = staticmethod(ops._dense_revise_fn)
-    _frontier_fn = staticmethod(ops._dense_frontier_fn)
-    _frontier_fused_fn = staticmethod(ops._dense_frontier_fused_fn)
 
     def _prepare_net(self, csp: CSP, memo: bool = True):
         return ops.prepare_dense(csp, device=self.device, memo=memo)[0]
@@ -238,9 +190,6 @@ class HopperPackedEngine(_HopperEngine):
 
     name = "hopper_packed"
     kind = "packed"
-    _revise_fn = staticmethod(ops._packed_revise_fn)
-    _frontier_fn = staticmethod(ops._packed_frontier_fn)
-    _frontier_fused_fn = staticmethod(ops._packed_frontier_fused_fn)
 
     def _prepare_net(self, csp: CSP, memo: bool = True):
         return ops.prepare_packed(csp, device=self.device, memo=memo)[0]

@@ -3,23 +3,25 @@
 The counterpart of `repro.kernels.ops`. It handles the shape contract
 between the algorithm (n vars × d values, any sizes) and the kernels
 (padded, flattened, optionally bitpacked); the padding contract itself lives
-in `repro_torch.core.engine`. Kernel coordinates (``dims``) are (n_p, d_p)
+in `repro_torch.core.engine`. Kernel coordinates (``kdims``) are (n_p, d_p)
 for the dense u8 kernels and (n_p, d_p, W) for the packed ones.
 
-- Network preparation (pad + transpose [+ bitpack] of the O(n²d²)
-  constraint tensor) is memoized per CSP identity and device.
-- The single-network closures (`_dense_revise_fn`, `_packed_revise_fn`)
-  follow `rtac.ReviseFn`: B domains against one network per launch (the
-  host-loop route; `single_fused` decides when the fused kernel takes a
-  single network's rows instead, and `launch.single_wide` which launch a
-  revise takes).
-- `packed_word_fixpoint` is a fused packed engine's single-network route
-  where `single_fused` refuses the shape: kernel 3 and an epilogue kernel
-  a recurrence on the domains kept as packed words, one predicate read a
-  chunk of recurrences.
-- The rows functions take the slot tables and the row→slot map, never
-  gathered networks: the kernels read ``tables[idx[r]]`` in place.
-- Factories are ``lru_cache``-d on shapes so each closure is built once.
+This module owns two decisions; the engines (`engines.hopper`) only name
+their kind and whether they are fused:
+
+- which route a single network's fixpoint takes (`fixpoint_single`): one
+  fused launch, the word loop (`packed_word_fixpoint`) or the host loop
+  over the single-network revise; a revise's narrow or wide launch is
+  `launch.single_wide`'s. The autotune hooks (`autotune.maybe_tune`) run
+  here, before a dispatch, for both the single-network and the stacked
+  kernels.
+- the packed-word format: `pack_words` and `unpack_words` are its only
+  encoder and decoder, for domains and networks alike.
+
+Network preparation (pad + transpose [+ bitpack] of the O(n²d²) constraint
+tensor) is memoized per CSP identity and device. The rows functions take the
+slot tables and the row→slot map, never gathered networks: the kernels read
+``tables[idx[r]]`` in place.
 """
 
 from __future__ import annotations
@@ -34,15 +36,9 @@ from repro_torch import faults, obs
 from repro_torch.core import rtac
 from repro_torch.core.csp import CSP
 from repro_torch.core.engine import pad_dom, pad_network, padded_shape
-from . import autotune, bitpack_support, launch, ref, rtac_support
+from . import autotune, bitpack_support, launch, rtac_support
 
 Tensor = torch.Tensor
-
-
-def _count_build(name: str) -> None:
-    """Registry tick for one kernel-closure construction."""
-    obs.counter_add("kernels.fn_builds")
-    obs.counter_add(f"kernels.fn_builds.{name}")
 
 
 #: variable-axis multiple n is padded to (the reference's default tile)
@@ -67,6 +63,53 @@ def _cached(kind: str, csp: CSP, n_mult: int, device, build, memo: bool = True):
     return value
 
 
+# ---------------------------------------------------------------------------
+# The packed-word format
+# ---------------------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=None)
+def _byte_weights(device: torch.device) -> Tensor:
+    return torch.tensor([1 << q for q in range(8)], dtype=torch.uint8, device=device)
+
+
+def _check_width(name: str, d_p: int, w: int) -> None:
+    if d_p % 8 or not 0 < d_p <= 32 * w:
+        raise ValueError(f"{name}: d_p={d_p} must be a positive multiple of 8 "
+                         f"that W={w} words hold")
+
+
+def pack_words(doms: Tensor) -> Tensor:
+    """(..., d_p) bool -> (..., W) int32, W = ceil(d_p / 32): value j in bit
+    j % 32 of word j // 32, the padding bits clear (`ref.pack_bits_ref`'s
+    words). d_p must be a multiple of 8 (every padded shape's is, `D_MULT`):
+    each run of 8 values is summed into one byte (the bits are distinct, so
+    the sum is their OR), the bytes padded to 4·W and read as W
+    little-endian words."""
+    *lead, d_p = doms.shape
+    w = -(-d_p // 32)
+    _check_width("pack_words", d_p, w)
+    runs = doms.contiguous().view(torch.uint8).view(*lead, d_p // 8, 8)
+    by = (runs * _byte_weights(doms.device)).sum(dim=-1, dtype=torch.uint8)
+    if d_p // 8 != 4 * w:
+        by = torch.nn.functional.pad(by, (0, 4 * w - d_p // 8))
+    return by.view(torch.int32)
+
+
+def unpack_words(words: Tensor, d_p: int) -> Tensor:
+    """The inverse of `pack_words`: (..., W) int32 -> (..., d_p) bool, d_p a
+    multiple of 8 that the W words hold; bits past d_p are not read."""
+    *lead, w = words.shape
+    _check_width("unpack_words", d_p, w)
+    runs = words.contiguous().view(torch.uint8)[..., :d_p // 8, None]
+    return ((runs & _byte_weights(words.device)) != 0).view(*lead, d_p)
+
+
+# ---------------------------------------------------------------------------
+# Network preparation
+# ---------------------------------------------------------------------------
+
+
 def prepare_dense(csp: CSP, block_rx: int = N_MULT, block_ry: int = N_MULT, device=None,
                   memo: bool = True):
     """-> (network, dom_padded, (n_p, d_p)); network = (cons2 u8, mask u8) on
@@ -88,8 +131,8 @@ def prepare_dense(csp: CSP, block_rx: int = N_MULT, block_ry: int = N_MULT, devi
 
 
 #: network elements a chunk of `pack_network` or `dense_network` moves at
-#: most, so its temporaries stay near 256 MiB at any n (one pass over the
-#: production CSP's 16 GiB network would need 64 GiB packed, and 32 GiB
+#: most, so its temporaries stay under 256 MiB at any n (one pass over the
+#: production CSP's 16 GiB network would need 16 GiB more packed, and 32 GiB
 #: more than its output dense)
 _PACK_CHUNK = 1 << 25
 
@@ -111,7 +154,7 @@ def pack_network(cons: Tensor, n_p: int, d_p: int) -> Tuple[Tensor, int]:
     out = torch.empty((n_p, d_p, n_p, w), dtype=torch.int32, device=cons.device)
     step = max(1, _PACK_CHUNK // (n_p * d_p * d_p))
     for x0 in range(0, n_p, step):  # (x, y, a, W) -> (x, a, y, W)
-        out[x0:x0 + step] = ref.pack_bits_ref(cons[x0:x0 + step]).permute(0, 2, 1, 3)
+        out[x0:x0 + step] = pack_words(cons[x0:x0 + step]).permute(0, 2, 1, 3)
     return out.view(n_p * d_p, n_p * w), w
 
 
@@ -163,7 +206,7 @@ def assign_padded_rows(dom_p: Tensor, var: Tensor, val: Tensor) -> Tensor:
 
 
 # ---------------------------------------------------------------------------
-# Single-network revise closures (enforce / enforce_batch, so mac_solve)
+# One launch of a kernel on B padded rows
 # ---------------------------------------------------------------------------
 
 
@@ -175,132 +218,53 @@ def _idx32(idx: Tensor) -> Tensor:
     return idx.to(torch.int32).contiguous()
 
 
-def _words(doms: Tensor, n_p: int, w: int) -> Tensor:
-    return ref.pack_bits_ref(doms).reshape(doms.shape[0], n_p * w)
+def _operands(kind: str, kdims: tuple, doms: Tensor):
+    """(B, n_p, d_p) bool domains as ``kind``'s kernels read them, (B,
+    n_p·d_p) u8 or (B, n_p·W) packed words, and the kernels' widths."""
+    b = doms.shape[0]
+    if kind == "dense":
+        return _u8(doms).view(b, -1), dict(d=kdims[1])
+    return pack_words(doms).view(b, -1), dict(d=kdims[1], w=kdims[2])
 
 
-@functools.lru_cache(maxsize=None)
-def _byte_weights(device: torch.device) -> Tensor:
-    return torch.tensor([1 << q for q in range(8)], dtype=torch.uint8, device=device)
+def revise_single(kind: str, kdims: tuple, network, dom: Tensor, changed: Tensor) -> Tensor:
+    """B domains (B, n_p, d_p) against one network, one `dense_revise` /
+    `packed_revise` launch; ``functools.partial(revise_single, kind,
+    kdims)`` is an `rtac.ReviseFn`."""
+    cons, mask = network
+    rows, kw = _operands(kind, kdims, dom)
+    revise = rtac_support.dense_revise if kind == "dense" else bitpack_support.packed_revise
+    return revise(cons, mask, rows, _u8(changed), **kw).view(dom.shape).bool()
 
 
-def _byte_words(doms: Tensor, w: int) -> Tensor:
-    """`ref.pack_bits_ref` of (..., d_p) bool domains with d_p a multiple of
-    8, in three ops: each run of 8 values summed into one byte (the bits are
-    distinct, so the sum is their OR), the bytes padded to 4·W and read as W
-    little-endian int32 words. -> (..., W) int32."""
-    *lead, d_p = doms.shape
-    runs = doms.contiguous().view(torch.uint8).view(*lead, d_p // 8, 8)
-    by = (runs * _byte_weights(doms.device)).sum(dim=-1, dtype=torch.uint8)
-    if d_p // 8 != 4 * w:
-        by = torch.nn.functional.pad(by, (0, 4 * w - d_p // 8))
-    return by.view(torch.int32)
+def revise_rows(kind: str, kdims: tuple, tables, idx: Tensor, doms: Tensor,
+                changed: Tensor) -> Tensor:
+    """R domains, row i against ``tables[idx[i]]``, one `*_revise_stacked`
+    launch; ``functools.partial(revise_rows, kind, kdims)`` is an
+    `rtac.ReviseRowsFn`."""
+    cons_t, mask_t = tables
+    rows, kw = _operands(kind, kdims, doms)
+    revise = (rtac_support.dense_revise_stacked if kind == "dense"
+              else bitpack_support.packed_revise_stacked)
+    return revise(cons_t, mask_t, _idx32(idx), rows, _u8(changed), **kw).view(doms.shape).bool()
 
 
-@functools.lru_cache(maxsize=None)
-def _dense_revise_fn(n_p: int, d_p: int):
-    """Single-network revise closure (rtac.ReviseFn): B domains (B, n_p, d_p)
-    against one dense network, one `dense_revise` launch per call."""
-    _count_build("dense_revise")
-
-    def revise(network, dom, changed):
-        cons2, mask = network
-        b = dom.shape[0]
-        viol = rtac_support.dense_revise(cons2, mask, _u8(dom).view(b, n_p * d_p),
-                                         _u8(changed), d=d_p)
-        return viol.view(b, n_p, d_p).bool()
-
-    return revise
-
-
-@functools.lru_cache(maxsize=None)
-def _packed_revise_fn(n_p: int, d_p: int, w: int):
-    """Single-network revise closure (rtac.ReviseFn): B domains, packed fresh
-    each recurrence, against one packed network; one `packed_revise` launch
-    per call."""
-    _count_build("packed_revise")
-
-    def revise(network, dom, changed):
-        cons_p2, mask = network
-        viol = bitpack_support.packed_revise(cons_p2, mask, _words(dom, n_p, w), _u8(changed),
-                                             d=d_p, w=w)
-        return viol.view(-1, n_p, d_p).bool()
-
-    return revise
+def fixpoint_rows(kind: str, kdims: tuple, tables, doms: Tensor, changed: Tensor,
+                  idx: Tensor) -> rtac.EnforceResult:
+    """R fixpoints, row i against ``tables[idx[i]]``, the whole recurrence in
+    one `*_fixpoint_stacked` launch (the domains packed once on entry for
+    the packed kind)."""
+    cons_t, mask_t = tables
+    rows, kw = _operands(kind, kdims, doms)
+    fixpoint = (rtac_support.dense_fixpoint_stacked if kind == "dense"
+                else bitpack_support.packed_fixpoint_stacked)
+    dom, consistent, k = fixpoint(cons_t, mask_t, _idx32(idx), rows, _u8(changed), **kw)
+    return rtac.EnforceResult(dom.view(doms.shape).bool(), consistent.bool(), k)
 
 
 # ---------------------------------------------------------------------------
-# Stacked revise (stepped) and fused fixpoint rows functions
+# The routes of a fixpoint
 # ---------------------------------------------------------------------------
-
-
-@functools.lru_cache(maxsize=None)
-def _dense_rows_fn(n_p: int, d_p: int):
-    """Stacked revise-rows closure (rtac.ReviseRowsFn) for the dense u8
-    kernel: one `dense_revise_stacked` launch per call."""
-    _count_build("dense_rows")
-
-    def revise_rows(tables, idx, doms, changed):
-        cons_t, mask_t = tables
-        r = doms.shape[0]
-        viol = rtac_support.dense_revise_stacked(cons_t, mask_t, _idx32(idx),
-                                                 _u8(doms).view(r, n_p * d_p), _u8(changed),
-                                                 d=d_p)
-        return viol.view(r, n_p, d_p).bool()
-
-    return revise_rows
-
-
-@functools.lru_cache(maxsize=None)
-def _dense_fixpoint_rows_fn(n_p: int, d_p: int):
-    """Stacked one-launch fixpoint for the dense u8 kernel: the whole
-    recurrence runs inside one `dense_fixpoint_stacked` launch, reading each
-    row's network in place. Takes the arguments of `rtac.enforce_rows_generic`
-    minus the revise closure, so callers route between the two with a flag."""
-    _count_build("dense_fixpoint_rows")
-
-    def fixpoint_rows(tables, doms, changed, idx):
-        cons_t, mask_t = tables
-        r = doms.shape[0]
-        dom, consistent, k = rtac_support.dense_fixpoint_stacked(
-            cons_t, mask_t, _idx32(idx), _u8(doms).view(r, n_p * d_p), _u8(changed), d=d_p
-        )
-        return rtac.EnforceResult(dom.view(r, n_p, d_p).bool(), consistent.bool(), k)
-
-    return fixpoint_rows
-
-
-@functools.lru_cache(maxsize=None)
-def _packed_rows_fn(n_p: int, d_p: int, w: int):
-    """Stacked revise-rows closure (rtac.ReviseRowsFn): row domains are packed
-    fresh each recurrence; one `packed_revise_stacked` launch per call."""
-    _count_build("packed_rows")
-
-    def revise_rows(tables, idx, doms, changed):
-        cons_t, mask_t = tables
-        viol = bitpack_support.packed_revise_stacked(cons_t, mask_t, _idx32(idx),
-                                                     _words(doms, n_p, w), _u8(changed),
-                                                     d=d_p, w=w)
-        return viol.view(-1, n_p, d_p).bool()
-
-    return revise_rows
-
-
-@functools.lru_cache(maxsize=None)
-def _packed_fixpoint_rows_fn(n_p: int, d_p: int, w: int):
-    """Stacked one-launch fixpoint: row domains are packed ONCE on entry; the
-    whole recurrence runs inside one `packed_fixpoint_stacked` launch, reading
-    each row's network in place. Same arguments as `_dense_fixpoint_rows_fn`."""
-    _count_build("packed_fixpoint_rows")
-
-    def fixpoint_rows(tables, doms, changed, idx):
-        cons_t, mask_t = tables
-        dom, consistent, k = bitpack_support.packed_fixpoint_stacked(
-            cons_t, mask_t, _idx32(idx), _words(doms, n_p, w), _u8(changed), d=d_p, w=w
-        )
-        return rtac.EnforceResult(dom.view(-1, n_p, d_p).bool(), consistent.bool(), k)
-
-    return fixpoint_rows
 
 
 def dims(kind: str, n_p: int, d_p: int) -> tuple:
@@ -337,7 +301,7 @@ def packed_word_fixpoint(network, dom_p: Tensor, ch_p: Tensor,
     """B padded rows' fixpoints against ONE packed network, the state kept
     on the card as packed words between recurrences: a fused engine's route
     where `single_fused` refuses the shape. The domains are packed once
-    (`_byte_words`) and unpacked once; each recurrence is one
+    and unpacked once; each recurrence is one
     `packed_revise` launch (kernel 3, by the route `launch.single_wide`
     picks) and one `packed_word_epilogue` launch, which finds the active
     rows, applies their violations, writes the next seed and the verdicts
@@ -352,7 +316,7 @@ def packed_word_fixpoint(network, dom_p: Tensor, ch_p: Tensor,
     cons_p2, mask = network
     n_p, d_p, w = kdims
     b = dom_p.shape[0]
-    words = _byte_words(dom_p, w).view(b, n_p * w)
+    words = pack_words(dom_p).view(b, n_p * w)
     # the seeds as given: the first epilogue ignores those of a row that
     # starts with an empty domain, and clears them
     seed = ch_p.to(torch.uint8, memory_format=torch.contiguous_format, copy=True)
@@ -373,13 +337,8 @@ def packed_word_fixpoint(network, dom_p: Tensor, ch_p: Tensor,
         if got[-1][1] == 0:
             break
     obs.counter_add("fixpoint.spec_recurrences", launched - needed)
-    runs = words.view(torch.uint8).view(b, n_p, 4 * w)[..., :d_p // 8, None]
-    dom = (runs & _byte_weights(dom_p.device)) != 0
-    return rtac.EnforceResult(dom.view(b, n_p, d_p), consistent.view(torch.bool), k)
-
-
-_ROWS_FNS = {"dense": (_dense_rows_fn, _dense_fixpoint_rows_fn),
-             "packed": (_packed_rows_fn, _packed_fixpoint_rows_fn)}
+    dom = unpack_words(words.view(b, n_p, w), d_p)
+    return rtac.EnforceResult(dom, consistent.view(torch.bool), k)
 
 
 def enforce_rows(kind: str, fused: bool, tables, dom_p: Tensor, ch_p: Tensor, idx: Tensor,
@@ -388,13 +347,44 @@ def enforce_rows(kind: str, fused: bool, tables, dom_p: Tensor, ch_p: Tensor, id
     one fused kernel launch, or the stepped host loop with one stacked revise
     launch per recurrence. Before it, `autotune.maybe_tune` (gated by
     ``REPRO_TORCH_AUTOTUNE=1``) tunes the bucket on first use."""
-    rows_fn, fixpoint_rows_fn = _ROWS_FNS[kind]
     autotune.maybe_tune(kind if fused else f"{kind}_revise", kdims[0], kdims[1],
                         autotune.entry_words(kind, kdims[1]), dom_p.shape[0],
                         device=dom_p.device)
     if fused:
-        return fixpoint_rows_fn(*kdims)(tables, dom_p, ch_p, idx)
-    return rtac.enforce_rows_generic(tables, dom_p, ch_p, idx, revise_rows_fn=rows_fn(*kdims))
+        return fixpoint_rows(kind, kdims, tables, dom_p, ch_p, idx)
+    return rtac.enforce_rows_generic(tables, dom_p, ch_p, idx,
+                                     revise_rows_fn=functools.partial(revise_rows, kind, kdims))
+
+
+def fixpoint_single(kind: str, fused: bool, network, dom_p: Tensor, ch_p: Tensor,
+                    kdims: tuple) -> rtac.EnforceResult:
+    """B padded rows (B, n_p, d_p) with their seeds (B, n_p) against ONE
+    prepared network, by the route that ``kind``, ``fused`` and the padded
+    shape pick: where `single_fused` holds on a fused engine, one launch of
+    the fused kernel (`enforce_rows` on the network as a one-slot table,
+    every row routed to slot 0); on another fused packed engine, the word
+    loop (`packed_word_fixpoint`), one predicate read a chunk of
+    recurrences; otherwise the host loop (`rtac.enforce_batch_generic`) over
+    `revise_single`, one launch and one predicate read a recurrence. The
+    always-on counters ``fixpoint.one_launch``, ``fixpoint.word_loop`` and
+    ``fixpoint.host_loop`` tick once a call of each route. Before a revise's
+    narrow launch, `autotune.maybe_tune` tunes its bucket (the wide launch
+    has no schedule to tune)."""
+    n_p, d_p = kdims[0], kdims[1]
+    if fused and single_fused(kind, n_p, d_p):
+        obs.counter_add("fixpoint.one_launch")
+        cons, mask = network
+        idx = torch.zeros(dom_p.shape[0], dtype=torch.int32, device=dom_p.device)
+        return enforce_rows(kind, True, (cons[None], mask[None]), dom_p, ch_p, idx, kdims)
+    if not launch.single_wide(n_p, d_p):
+        autotune.maybe_tune(f"{kind}_single", n_p, d_p, autotune.entry_words(kind, d_p),
+                            dom_p.shape[0], device=dom_p.device)
+    if fused and kind == "packed":
+        obs.counter_add("fixpoint.word_loop")
+        return packed_word_fixpoint(network, dom_p, ch_p, kdims)
+    obs.counter_add("fixpoint.host_loop")
+    return rtac.enforce_batch_generic(network, dom_p, ch_p,
+                                      revise_fn=functools.partial(revise_single, kind, kdims))
 
 
 # ---------------------------------------------------------------------------
@@ -402,45 +392,18 @@ def enforce_rows(kind: str, fused: bool, tables, dom_p: Tensor, ch_p: Tensor, id
 # ---------------------------------------------------------------------------
 
 
-def _frontier_entry(kind: str, fused: bool):
-    def assign_enforce_rows(tables, doms, var, val, idx):
-        r, n, d = doms.shape
-        n_p, d_p = padded_shape(n, d, N_MULT, D_MULT)
-        dom_p = assign_padded_rows(pad_dom(doms, n_p, d_p), var, val)
-        ch_p = _padded_seed(var, n, n_p)
-        res = enforce_rows(kind, fused, tables, dom_p, ch_p, idx, dims(kind, n_p, d_p))
-        return rtac.EnforceResult(res.dom[:, :n, :d], res.consistent, res.n_recurrences)
-
-    return assign_enforce_rows
+def _assign_enforce_rows(kind: str, fused: bool, tables, doms: Tensor, var: Tensor,
+                         val: Tensor, idx: Tensor) -> rtac.EnforceResult:
+    r, n, d = doms.shape
+    n_p, d_p = padded_shape(n, d, N_MULT, D_MULT)
+    dom_p = assign_padded_rows(pad_dom(doms, n_p, d_p), var, val)
+    ch_p = _padded_seed(var, n, n_p)
+    res = enforce_rows(kind, fused, tables, dom_p, ch_p, idx, dims(kind, n_p, d_p))
+    return rtac.EnforceResult(res.dom[:, :n, :d], res.consistent, res.n_recurrences)
 
 
-@functools.lru_cache(maxsize=None)
-def _dense_frontier_fn():
-    """Stepped dense frontier round: pad, batched Alg. 2 assignment, seed,
-    then the host-loop fixpoint with one revise launch per recurrence."""
-    _count_build("dense_frontier")
-    return _frontier_entry("dense", fused=False)
-
-
-@functools.lru_cache(maxsize=None)
-def _dense_frontier_fused_fn():
-    """One-launch-per-round dense frontier entry: pad, assign, seed, then a
-    single fused fixpoint launch."""
-    _count_build("dense_frontier_fused")
-    return _frontier_entry("dense", fused=True)
-
-
-@functools.lru_cache(maxsize=None)
-def _packed_frontier_fn():
-    """Stepped packed frontier round: pad, batched Alg. 2 assignment, seed,
-    then the host-loop fixpoint with one revise launch per recurrence."""
-    _count_build("packed_frontier")
-    return _frontier_entry("packed", fused=False)
-
-
-@functools.lru_cache(maxsize=None)
-def _packed_frontier_fused_fn():
-    """One-launch-per-round packed frontier entry: pad, assign, seed, then a
-    single fused fixpoint launch."""
-    _count_build("packed_frontier_fused")
-    return _frontier_entry("packed", fused=True)
+def frontier_fix(kind: str, fused: bool):
+    """A Hopper engine's frontier round ``(tables, doms, var, val, idx)``:
+    pad, the batched Alg. 2 assignment, the seed, then `enforce_rows`
+    (one fused launch, or the stepped host loop of stacked revises)."""
+    return functools.partial(_assign_enforce_rows, kind, fused)

@@ -4,7 +4,7 @@ Where the tracer (`obs.tracing`) answers "where did the wall-clock go",
 the registry answers "how much of everything happened": every subsystem
 publishes into ONE process-wide table under dotted names
 (``driver.rounds``, ``cache.hits``, ``speculation.split_granted``,
-``kernels.fn_builds``, ...) and `snapshot()` reduces it to one JSON-ready
+``fixpoint.one_launch``, ...) and `snapshot()` reduces it to one JSON-ready
 dict with the stable schema ``repro-obs/v1`` that the benchmarks, the
 tracker history, and the CLI all consume.
 

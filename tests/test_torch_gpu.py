@@ -70,7 +70,7 @@ def _rows(csps, n_rows, device, kind="packed"):
 def _children(csp, b, device, kind):
     """One network and ``b`` children of its root, as `mac_solve` enforces
     them: variable 0 assigned each value in turn, one-hot seeds."""
-    network, dims, _ = get_engine(f"hopper_{kind}", device=device).prepare(csp).payload
+    network, dims = get_engine(f"hopper_{kind}", device=device).prepare(csp).payload
     n_p, d_p = dims[:2]
     n, d = csp.dom.shape
     var = torch.zeros(b, dtype=torch.long, device=device)
@@ -166,7 +166,7 @@ def _single_rows(csp, rows, device, kind, unpadded=False):
         prepare = ops.prepare_packed if kind == "packed" else ops.prepare_dense
         network, _, dims = prepare(csp, 1, 1, device)
     else:
-        network, dims, _ = get_engine(f"hopper_{kind}", device=device).prepare(csp).payload
+        network, dims = get_engine(f"hopper_{kind}", device=device).prepare(csp).payload
     n_p, d_p = dims[:2]
     n, d = csp.dom.shape
     b = int(rows.rsplit("_b", 1)[1])

@@ -7,14 +7,17 @@
   row by row (the single-network ones also on `mac_solve`'s rows: several
   seeds a row, seedless duplicates);
 - the plain `packed_fixpoint_stacked` and `dense_fixpoint_stacked` equal the
-  reference *stepped* chain (`rtac.enforce_rows_generic` over
-  `ops._packed_rows_fn` / `_dense_rows_fn`) on domains, verdicts and per-row
+  reference *stepped* chain (`rtac.enforce_rows_generic` over the
+  reference's `ops._packed_rows_fn` / `_dense_rows_fn`; the port's own over
+  `ops.revise_rows`) on domains, verdicts and per-row
   recurrence counts. The reference fused kernels are not the oracle: they
   fail under jax 0.9.0, and DESIGN.md §4 defines them as bit-identical to
   stepped.
 
 All comparisons are exact: the arithmetic is boolean and integer.
 """
+
+import functools
 
 import numpy as np
 import pytest
@@ -247,8 +250,9 @@ def test_plain_fixpoint_matches_reference_stepped_chain(n, d, brx, bry, case):
     # the port's own stepped chain (revise rows fn under enforce_rows_generic)
     from repro_torch.core import rtac
 
+    rows = functools.partial(ops.revise_rows, "packed", (n_p, d_p, w))
     stepped = rtac.enforce_rows_generic(tables, dom, ch, torch.as_tensor(idx),
-                                        revise_rows_fn=ops._packed_rows_fn(n_p, d_p, w))
+                                        revise_rows_fn=rows)
     np.testing.assert_array_equal(stepped.n_recurrences.numpy(), got_k.numpy())
     np.testing.assert_array_equal(stepped.dom.numpy(), np.asarray(want.dom))
 
@@ -289,8 +293,9 @@ def test_plain_dense_fixpoint_matches_reference_stepped_chain(n, d, brx, bry, ca
     _check_case(case, got_ok.numpy(), got_k.numpy())
     from repro_torch.core import rtac
 
+    rows = functools.partial(ops.revise_rows, "dense", (n_p, d_p))
     stepped = rtac.enforce_rows_generic(tables, dom, ch, torch.as_tensor(idx),
-                                        revise_rows_fn=ops._dense_rows_fn(n_p, d_p))
+                                        revise_rows_fn=rows)
     np.testing.assert_array_equal(stepped.n_recurrences.numpy(), got_k.numpy())
     np.testing.assert_array_equal(stepped.dom.numpy(), np.asarray(want.dom))
 

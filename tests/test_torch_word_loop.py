@@ -17,6 +17,8 @@ The ``gpu`` tests hold the epilogue kernel against its plain version and
 the route against the stepped engine's host loop on the card.
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -25,7 +27,7 @@ from repro_torch import obs
 from repro_torch.core import rtac
 from repro_torch.core.engine import pad_changed, pad_dom
 from repro_torch.engines import get_engine
-from repro_torch.kernels import bitpack_support as bs, ops
+from repro_torch.kernels import bitpack_support as bs, ops, ref, rtac_support as rs
 from repro_torch.problems import generate
 from rtacbench.lib import qwh as lib_qwh
 from rtacbench.reference import fixpoint as fx
@@ -114,7 +116,7 @@ def _epilogue_operands(b, n, d, seed=0):
     bits[..., 0] = True
     if b > 1:
         bits[1, 2] = False
-    words = ops.ref.pack_bits_ref(bits).reshape(b, n * w).contiguous()
+    words = ref.pack_bits_ref(bits).reshape(b, n * w).contiguous()
     viol = (torch.rand((b, n * d), generator=g) < 0.02).to(torch.uint8)
     seeded = torch.arange(b) % 3 != 2
     seed_ = ((torch.rand((b, n), generator=g) < 0.3) & seeded[:, None]).to(torch.uint8)
@@ -138,14 +140,14 @@ def test_epilogue_plain_is_one_recurrence_of_the_host_loop(b, n, d):
     viol.view(b, n, d)[0, 3] = 1  # row 0 (active) wipes out variable 3
     viol.view(b, n, d)[3] = 0  # row 3 (active) changes nothing
     args[1] = viol
-    dom = ops.ref.unpack_bits_ref(words.view(b, n, w), d)
+    dom = ref.unpack_bits_ref(words.view(b, n, w), d)
     act = seed.bool().any(dim=-1) & rtac._alive(dom)
     new = torch.where(act[:, None, None], dom & ~viol.view(b, n, d).bool(), dom)
     changed = (new != dom).any(dim=-1)
     alive = rtac._alive(new)
     nxt = act & alive & changed.any(dim=-1)
     bs.packed_word_epilogue(*args, d=d, w=w)
-    assert torch.equal(ops.ref.unpack_bits_ref(args[0].view(b, n, w), d), new)
+    assert torch.equal(ref.unpack_bits_ref(args[0].view(b, n, w), d), new)
     assert torch.equal(args[2], (changed & nxt[:, None]).to(torch.uint8))
     assert torch.equal(args[3], alive.to(torch.uint8))
     assert torch.equal(args[4], k + act.to(torch.int32))
@@ -171,13 +173,23 @@ def test_epilogue_refuses_operands_it_cannot_hold(bad):
         bs.packed_word_epilogue(*args, **kw)
 
 
-@pytest.mark.parametrize("d_p", [8, 16, 32, 40, 64, 72])
+@pytest.mark.parametrize("d_p", [8, 16, 24, 32, 40, 64, 72, 128])
 def test_byte_words_equal_pack_bits(d_p):
-    """The word loop's packer (a byte a run of 8 values) gives
-    `pack_bits_ref`'s words, the padding bits clear."""
+    """The one packer of the word format (a byte a run of 8 values) gives
+    `pack_bits_ref`'s words, the padding bits clear; the one unpacker gives
+    the domains back whatever the padding bits hold; a d_p that is not a
+    multiple of 8 is refused by both."""
     dom = torch.rand((3, 24, d_p), generator=torch.Generator().manual_seed(d_p)) < 0.5
-    got = ops._byte_words(dom, -(-d_p // 32))
-    assert got.dtype == torch.int32 and torch.equal(got, ops.ref.pack_bits_ref(dom))
+    got = ops.pack_words(dom)
+    assert got.dtype == torch.int32 and torch.equal(got, ref.pack_bits_ref(dom))
+    assert torch.equal(ops.unpack_words(got, d_p), dom)
+    if d_p % 32:
+        dirty = got | ref.pack_bits_ref(torch.arange(got.shape[-1] * 32) >= d_p)
+        assert torch.equal(ops.unpack_words(dirty, d_p), dom)
+    with pytest.raises(ValueError, match="pack_words"):
+        ops.pack_words(dom[..., :d_p - 3])
+    with pytest.raises(ValueError, match="unpack_words"):
+        ops.unpack_words(got, d_p - 4)
 
 
 # --- the loop at small shapes, with the plain packed revise -----------------------
@@ -190,9 +202,9 @@ SMALL = [("model_rb", dict(n=30, hardness=0.9)),
 def _small(family, knobs):
     csp = generate(family, seed=0, device=CPU, **knobs)
     prepared = get_engine("hopper_packed", fixpoint="stepped", device=CPU).prepare(csp)
-    network, dims, revise_fn = prepared.payload
+    network, dims = prepared.payload
     root = prepared.enforce(csp.dom).dom.numpy()
-    return csp, network, dims, revise_fn, root
+    return csp, network, dims, functools.partial(ops.revise_single, "packed", dims), root
 
 
 @pytest.mark.parametrize("chunk", CHUNKS, indirect=True)
@@ -287,8 +299,7 @@ def large():
 
 
 def _payload(net, d_p):
-    dims = (net.n, d_p, -(-d_p // 32))
-    return (net, None), dims, ops._packed_revise_fn(*dims)
+    return (net, None), (net.n, d_p, -(-d_p // 32))
 
 
 @pytest.mark.parametrize("chunk", CHUNKS, indirect=True)
@@ -354,13 +365,13 @@ def test_route_counters(monkeypatch, large, case):
         monkeypatch.setattr(bs, "packed_revise", _sparse_revise)
         payload = _payload(net, root.shape[1])
         if name == "hopper_dense":
-            (network, (n_p, d_p, w), _) = payload
+            network, (n_p, d_p, w) = payload
 
-            def revise_fn(network, dom, changed):
-                words = ops.ref.pack_bits_ref(dom).reshape(dom.shape[0], -1)
-                return _sparse_revise(net, None, words, changed.to(torch.uint8), d=d_p,
-                                      w=w).view(dom.shape).bool()
-            payload = (network, (n_p, d_p), revise_fn)
+            def dense_revise(net, mask, dom, changed, *, d):
+                words = ops.pack_words(dom.view(dom.shape[0], -1, d).bool())
+                return _sparse_revise(net, mask, words.view(dom.shape[0], -1), changed, d=d, w=w)
+            monkeypatch.setattr(rs, "dense_revise", dense_revise)
+            payload = (network, (n_p, d_p))
         doms, chs = _rows(root, 4, np.random.default_rng(4))
         engine._fixpoint(payload, *_padded(doms, chs, net.n, root.shape[1]))
     moved = _delta(before)
@@ -377,7 +388,8 @@ def test_a_call_of_k_at_most_two_reads_once(large, monkeypatch):
     payload = _payload(net, root.shape[1])
     doms, chs = _rows(root, 16, np.random.default_rng(5))
     dom_p, ch_p = _padded(doms, chs, net.n, root.shape[1])
-    k = rtac.enforce_batch_generic(payload[0], dom_p, ch_p, revise_fn=payload[2]).n_recurrences
+    revise_fn = functools.partial(ops.revise_single, "packed", payload[1])
+    k = rtac.enforce_batch_generic(payload[0], dom_p, ch_p, revise_fn=revise_fn).n_recurrences
     rows = (k <= 2).nonzero().flatten()
     assert int(k[rows].max()) == 2 and len(rows) >= 4
     fused = get_engine("hopper_packed", fixpoint="fused", device=CPU)
@@ -446,9 +458,7 @@ def _card_case(shape, device):
             mask = (upper | upper.T).to(torch.uint8)
             cons = torch.randint(-2**31, 2**31, (n * d, n), generator=g, dtype=torch.int32,
                                  device=device)
-            dims = (n, d, 1)
-            _CARD_CASES[shape] = (((cons, mask), dims, ops._packed_revise_fn(*dims)),
-                                  np.ones((n, d), dtype=bool))
+            _CARD_CASES[shape] = (((cons, mask), (n, d, 1)), np.ones((n, d), dtype=bool))
     return _CARD_CASES[shape]
 
 
