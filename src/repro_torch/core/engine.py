@@ -122,11 +122,60 @@ def as_changed(changed0: Changed, device: Device = "cpu") -> Optional[Tensor]:
     return torch.as_tensor(np.asarray(changed0, dtype=bool), device=device)
 
 
+#: the least bytes of bools a host domain uploads through pinned chunks
+#: (`stages`): below it one pageable copy's fixed costs are the smaller.
+#: Both constants come from a sweep of plain against staged uploads on an
+#: H100's host (PERF.md §6): the staged upload no slower from 2 MiB, and
+#: 8 MiB the fastest chunk at 64 MiB.
+STAGE_MIN_BYTES = 2 << 20
+#: the bytes of one pinned chunk of a staged upload (`_staged_upload`)
+STAGE_CHUNK_BYTES = 8 << 20
+
+
+def stages(nbytes: int, device: Device) -> bool:
+    """Whether a host domain of ``nbytes`` bools goes to ``device`` through
+    pinned chunks (`_staged_upload`) rather than one pageable copy."""
+    return torch.device(device).type == "cuda" and nbytes >= STAGE_MIN_BYTES
+
+
+def chunk_rows(shape: Sequence[int]) -> int:
+    """Leading-axis rows a staged chunk of a bool array of ``shape`` holds:
+    about `STAGE_CHUNK_BYTES`, at least one row."""
+    row = int(np.prod(shape[1:], dtype=np.int64))
+    return max(1, STAGE_CHUNK_BYTES // max(1, row))
+
+
+def _staged_upload(src: Tensor, device: Device) -> Tensor:
+    """``src`` (a host tensor, any dtype) as a bool tensor on ``device``,
+    chunk by chunk: each chunk copied on torch's intra-op threads into a
+    page-locked block of the caching host allocator, then copied to the
+    device without blocking on the current stream, so a chunk's DMA runs
+    while the host fills the next. The allocator reuses a block only once
+    the copy that read it is done; every byte of ``src`` has been read when
+    this returns."""
+    out = torch.empty(src.shape, dtype=torch.bool, device=device)
+    step = chunk_rows(src.shape)
+    for i in range(0, src.shape[0], step):
+        part = src[i:i + step]
+        pinned = torch.empty(part.shape, dtype=torch.bool, pin_memory=True)
+        pinned.copy_(part)
+        out[i:i + step].copy_(pinned, non_blocking=True)
+    obs.counter_add("upload.staged")
+    return out
+
+
 def as_dom(dom, device: Device) -> Tensor:
-    """A caller-supplied domain (numpy or tensor) as a bool tensor on ``device``."""
+    """A caller-supplied domain (numpy or tensor) as a bool tensor on
+    ``device``. A host array of at least `STAGE_MIN_BYTES` bools bound for a
+    card goes through pinned chunks (`stages`, `_staged_upload`)."""
     if isinstance(dom, torch.Tensor):
+        if stages(dom.numel(), device) and dom.device.type == "cpu" and not dom.is_pinned():
+            return _staged_upload(dom, device)
         return dom.to(device=device, dtype=torch.bool)
-    return torch.as_tensor(np.asarray(dom, dtype=bool), device=device)
+    dom = np.asarray(dom, dtype=bool)
+    if stages(dom.size, device):
+        return _staged_upload(torch.from_numpy(dom), device)
+    return torch.as_tensor(dom, device=device)
 
 
 # ---------------------------------------------------------------------------

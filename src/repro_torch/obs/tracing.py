@@ -61,7 +61,9 @@ The spans of the search and fixpoint paths, by what each brackets:
   (`kernels.ops.packed_word_fixpoint`; arg ``recurrences``): their launches
   and the one read of the count of rows left active.
 - ``enforce.upload``: a single-network `enforce`/`enforce_batch` taking its
-  domains onto the device and padding them (a pageable upload blocks).
+  domains onto the device and padding them (a pageable upload blocks; a
+  staged one, counted by ``upload.staged``, returns once the host has
+  copied its last chunk into pinned memory).
 - ``sync.wait``: a blocking device→host read (`sync_wait`): a frontier
   round's metadata (`_PendingFrontierRound.resolve`), a fixpoint's loop
   predicate, a host store's read-back, a closure's extraction.
