@@ -358,9 +358,9 @@ def kernel_inputs(csps, n_rows: int, seed: int, device, kind: str, root_share: f
     from repro_torch.kernels import ops
 
     eng = get_engine(f"hopper_{kind}", device=device)
-    tables, dims = eng.prepare_many(csps).payload
-    n_p, d_p = dims[:2]
+    tables = eng.prepare_many(csps).payload
     n, d = csps[0].dom.shape
+    n_p, d_p = eng._dims(n, d)[:2]
     rng = np.random.default_rng(seed)
     idx = torch.as_tensor(rng.integers(0, len(csps), n_rows), dtype=torch.int32, device=device)
     var = rng.integers(0, n, n_rows)

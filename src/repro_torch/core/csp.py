@@ -9,7 +9,8 @@ with an explicit ``mask ∈ {0,1}^{n×n}`` of constrained pairs and zero blocks
 for unconstrained ones (``has_support = (count > 0) | ~mask``). Generators
 and the structured builders run in numpy exactly as the reference does, so
 the same seed gives byte-identical arrays; the tensors then land on
-``device``. ``to_paper_cons`` recovers the paper's all-ones encoding of
+``device`` (`coloring_csp` and `hashed_random_csp` build their networks
+there). ``to_paper_cons`` recovers the paper's all-ones encoding of
 unconstrained pairs.
 """
 
@@ -160,14 +161,20 @@ def nqueens_csp(n: int, device: Device = "cuda") -> CSP:
     return make_csp(cons, mask, dom, device=device)
 
 
-def coloring_csp(adjacency: np.ndarray, n_colors: int, device: Device = "cuda") -> CSP:
-    """Graph colouring: adjacent vertices take different colours."""
-    n = adjacency.shape[0]
-    neq = ~np.eye(n_colors, dtype=bool)
-    mask = adjacency.astype(bool) & ~np.eye(n, dtype=bool)
-    cons = mask[:, :, None, None] & neq[None, None, :, :]
-    dom = np.ones((n, n_colors), dtype=bool)
-    return make_csp(cons, mask, dom, device=device)
+def coloring_csp(adjacency, n_colors: int, device: Device = "cuda") -> CSP:
+    """Graph colouring: adjacent vertices take different colours.
+    ``adjacency`` is an (n, n) array or tensor (nonzero = an edge; the
+    diagonal is ignored). The (n, n, k, k) network is built on ``device``
+    by broadcast from the mask, so only the (n, n) adjacency crosses from
+    the host."""
+    dev = resolve_device(device)
+    adj = torch.as_tensor(adjacency, device=dev)
+    n = adj.shape[0]
+    mask = (adj != 0) & ~torch.eye(n, dtype=torch.bool, device=dev)
+    neq = ~torch.eye(n_colors, dtype=torch.bool, device=dev)
+    cons = mask[:, :, None, None] & neq
+    dom = torch.ones((n, n_colors), dtype=torch.bool, device=dev)
+    return CSP(cons=cons, mask=mask, dom=dom)
 
 
 def sudoku_csp(givens: np.ndarray, device: Device = "cuda") -> CSP:

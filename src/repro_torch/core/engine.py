@@ -72,22 +72,9 @@ def pad_round_rows(arrays: Sequence[np.ndarray], r_p: int) -> List[np.ndarray]:
 
 
 def padded_shape(n: int, d: int, n_block: int, d_mult: int):
-    """The kernel shape `pad_network` pads (n, d) to."""
+    """The kernel shape a network of (n, d) is padded to (`kernels.ops`
+    pads it a chunk of x-rows at a time)."""
     return round_up(max(n, n_block), n_block), round_up(d, d_mult)
-
-
-def pad_network(csp: CSP, n_block: int, d_mult: int):
-    """Pad the *network* (cons, mask) to kernel tiles.
-
-    Returns (cons, mask, n_p, d_p). Padded pairs are unconstrained (mask
-    False, cons zero blocks) so they never produce a violation."""
-    n, d = csp.dom.shape
-    n_p, d_p = padded_shape(n, d, n_block, d_mult)
-    cons = torch.zeros((n_p, n_p, d_p, d_p), dtype=torch.bool, device=csp.cons.device)
-    cons[:n, :n, :d, :d] = csp.cons
-    mask = torch.zeros((n_p, n_p), dtype=torch.bool, device=csp.mask.device)
-    mask[:n, :n] = csp.mask
-    return cons, mask, n_p, d_p
 
 
 def pad_dom(dom: Tensor, n_p: int, d_p: int) -> Tensor:
@@ -215,31 +202,65 @@ class PreparedNetwork:
 
 class PreparedMany:
     """B constraint networks sharing (n, d), compiled into one backend's
-    *stacked* resident form."""
+    *stacked* resident form. Of each instance it keeps the root domain
+    (``doms[i]``), never the network: a stacked engine's tables hold that."""
 
-    __slots__ = ("engine", "csps", "payload")
+    __slots__ = ("engine", "doms", "payload")
 
-    def __init__(self, engine: "Engine", csps: Sequence[CSP], payload: Any):
+    def __init__(self, engine: "Engine", doms: Sequence[Tensor], payload: Any):
         self.engine = engine
-        self.csps = list(csps)
+        self.doms = list(doms)
         self.payload = payload
 
     @property
     def n_instances(self) -> int:
-        return len(self.csps)
+        return len(self.doms)
 
     @property
     def n_vars(self) -> int:
-        return self.csps[0].dom.shape[0]
+        return self.doms[0].shape[0]
 
     @property
     def dom_size(self) -> int:
-        return self.csps[0].dom.shape[1]
+        return self.doms[0].shape[1]
 
     def enforce_many(self, doms, changed0: Changed = None, instance_idx=None) -> EnforceResult:
         """Enforce AC on R domains (R, n, d), row i against the network of
         instance ``instance_idx[i]`` (default ``arange(B)``)."""
         return self.engine.enforce_many(self, doms, changed0, instance_idx)
+
+
+#: an instance of a stacked workload: a CSP, or a zero-argument callable
+#: that builds one (lazy: built only when its turn to be prepared comes)
+Instance = Union[CSP, Callable[[], CSP]]
+
+
+def instance_csp(instance: Instance) -> CSP:
+    """The CSP of an instance, built now if it is lazy."""
+    return instance() if callable(instance) else instance
+
+
+def prepare_each(instances: Sequence[Instance],
+                 install: Callable[[int, CSP], None]) -> List[Tensor]:
+    """Prepare a workload one instance at a time: build instance i (a lazy
+    one only now), check that it shares the first one's (n, d), hand it to
+    ``install(i, csp)`` inside a ``prepare.slot`` span, keep its root domain,
+    and drop it before the next is built; a lazy instance's network is then
+    freed unless ``install`` kept it. Returns the root domains."""
+    doms: List[Tensor] = []
+    for i, instance in enumerate(instances):
+        with obs.span("prepare.slot", cat="engine", slot=i):
+            csp = instance_csp(instance)
+            if doms and tuple(csp.dom.shape) != tuple(doms[0].shape):
+                raise ValueError(
+                    f"prepare_many: instance {i} has shape {tuple(csp.dom.shape)}, "
+                    f"expected {tuple(doms[0].shape)} — all instances must share "
+                    "(n_vars, dom_size)"
+                )
+            install(i, csp)
+            doms.append(csp.dom)
+            del csp
+    return doms
 
 
 # ---------------------------------------------------------------------------
@@ -355,31 +376,28 @@ class StackedSlotPool(SlotPool):
     (``t[slot].copy_(v)``), and ``enforce_rows`` is one dispatch that reads
     each row's network from the tables through its slot id.
 
-    The backend supplies its representation as three pieces:
+    The backend supplies its representation as the engine's three hooks:
 
-    - ``tables``: the initial (zeroed) slot tables — ``(C, n, n, d, d)`` bool
-      cons for the einsum engines, ``(C, n_p·d_p, n_p·W)`` int32 packed words
-      for `hopper_packed`;
-    - ``encode(csp)``: one network compiled into a matching tuple of slot rows
-      (the only O(n²d²) step, paid once per install);
-    - ``dispatch(tables, doms, changed0, idx)``: the round over the tables.
+    - ``_slot_tables(n, d, capacity)``: the initial (zeroed) slot tables —
+      ``(C, n, n, d, d)`` bool cons for the einsum engines,
+      ``(C, n_p·d_p, n_p·W)`` int32 packed words for `hopper_packed`;
+    - ``_write_slot(tables, slot, csp)``: one network compiled into its slot
+      of the tables, in place (the only O(n²d²) step, paid once per
+      install);
+    - ``_rows_dispatch(tables, doms, changed0, idx)``: the round over the
+      tables.
 
     Installs and growth are ordered on the device's current stream, like the
     rounds that read the tables; an empty slot stays all zeros."""
 
     stacked: ClassVar[bool] = True
 
-    def __init__(self, engine: "Engine", n_vars: int, dom_size: int, capacity: int,
-                 tables: Tuple[Tensor, ...], encode: Callable[[CSP], Tuple[Tensor, ...]],
-                 dispatch):
+    def __init__(self, engine: "Engine", n_vars: int, dom_size: int, capacity: int):
         super().__init__(engine, n_vars, dom_size, capacity)
-        self._tables = tuple(tables)
-        self._encode = encode
-        self._dispatch = dispatch
+        self._tables = tuple(engine._slot_tables(n_vars, dom_size, capacity))
 
     def _prepare_slot(self, slot: int, csp: CSP):
-        for t, v in zip(self._tables, self._encode(csp)):
-            t[slot].copy_(v)
+        self.engine._write_slot(self._tables, slot, csp)
         return True  # occupancy sentinel; the network lives in the tables
 
     def grow(self, capacity: int) -> None:
@@ -405,7 +423,7 @@ class StackedSlotPool(SlotPool):
     def enforce_rows(self, doms, changed0: Changed = None, slot_idx=None):
         idx = resolve_instance_idx(slot_idx, self.capacity, len(doms))
         self.require_installed(idx)
-        return self._dispatch(self._tables, doms, changed0, idx)
+        return self.engine._rows_dispatch(self._tables, doms, changed0, idx)
 
     @property
     def tables(self) -> Tuple[Tensor, ...]:
@@ -758,7 +776,7 @@ class Engine(abc.ABC):
     #: whether ``enforce_many`` is one stacked device dispatch
     stacked_many: ClassVar[bool] = False
     #: whether ``open_slot_pool`` is a device-resident `StackedSlotPool`
-    #: (True requires ``_open_stacked_slot_pool``)
+    #: (True requires ``_slot_tables``, ``_write_slot`` and ``_rows_dispatch``)
     slot_table: ClassVar[bool] = False
     #: whether this engine backs a device-resident `FrontierTable`
     device_frontier: ClassVar[bool] = False
@@ -794,24 +812,38 @@ class Engine(abc.ABC):
 
     # --- multi-instance (one workload, many independent CSPs) ---------------
 
-    def prepare_many(self, csps: Sequence[CSP]) -> PreparedMany:
-        """Compile B constraint networks sharing (n, d) into one stacked form."""
-        csps = list(csps)
-        if not csps:
+    def prepare_many(self, instances: Sequence[Instance]) -> PreparedMany:
+        """Compile B constraint networks sharing (n, d) into one stacked form,
+        one instance at a time (`prepare_each`). An instance is a CSP or a
+        zero-argument callable that builds one (`Instance`): a lazy instance
+        is built when its turn comes and, on a stacked engine, freed once
+        its slot is written, so one instance's dense network at most is
+        alive besides the tables."""
+        instances = list(instances)
+        if not instances:
             raise ValueError("prepare_many needs at least one CSP")
-        n, d = csps[0].dom.shape
-        for i, c in enumerate(csps):
-            if tuple(c.dom.shape) != (n, d):
-                raise ValueError(
-                    f"prepare_many: instance {i} has shape {tuple(c.dom.shape)}, "
-                    f"expected ({n}, {d}) — all instances must share (n_vars, dom_size)"
-                )
-        return PreparedMany(self, csps, self._prepare_many_payload(csps))
+        return PreparedMany(self, *self._prepare_many_payload(instances))
 
-    def _prepare_many_payload(self, csps: List[CSP]) -> Any:
-        """Generic fallback: per-instance `PreparedNetwork`s. Stacked backends
-        override this with stacked network tensors."""
-        return [self.prepare(c) for c in csps]
+    def _prepare_many_payload(self, instances: List[Instance]) -> Tuple[List[Tensor], Any]:
+        """(root domains, payload). ``slot_table`` engines allocate their slot
+        tables once (`_slot_tables`) and write each instance into its slot
+        in place (`_write_slot`; the always-on counter ``prepare.slots``
+        ticks once a slot); the generic fallback keeps a `PreparedNetwork`
+        per instance."""
+        if not self.slot_table:
+            nets: List[PreparedNetwork] = []
+            doms = prepare_each(instances, lambda _i, csp: nets.append(self.prepare(csp)))
+            return doms, nets
+        tables: List[Tensor] = []
+
+        def install(i: int, csp: CSP) -> None:
+            if not tables:  # the first instance gives the shape
+                tables.extend(self._slot_tables(*csp.dom.shape, len(instances)))
+            self._write_slot(tables, i, csp)
+            obs.counter_add("prepare.slots")
+
+        doms = prepare_each(instances, install)
+        return doms, tuple(tables)
 
     def enforce_many(self, prepared: PreparedMany, doms, changed0: Changed = None,
                      instance_idx=None) -> EnforceResult:
@@ -853,16 +885,25 @@ class Engine(abc.ABC):
         (n_vars, dom_size) bucket shape: the device-resident stacked table on
         ``slot_table`` engines, the generic host-routing pool otherwise."""
         if self.slot_table:
-            return self._open_stacked_slot_pool(n_vars, dom_size, capacity)
+            return StackedSlotPool(self, n_vars, dom_size, capacity)
         return SlotPool(self, n_vars, dom_size, capacity)
 
-    def _open_stacked_slot_pool(self, n_vars: int, dom_size: int,
-                                capacity: int) -> StackedSlotPool:
-        """Backend hook for ``slot_table = True`` engines."""
+    def _slot_tables(self, n_vars: int, dom_size: int, capacity: int) -> Tuple[Tensor, ...]:
+        """``slot_table`` hook: ``capacity`` zeroed slots of the tables."""
         raise NotImplementedError(
             f"{type(self).__name__} advertises slot_table=True but does not "
-            "implement _open_stacked_slot_pool"
+            "implement _slot_tables"
         )
+
+    def _write_slot(self, tables: Sequence[Tensor], slot: int, csp: CSP) -> None:
+        """``slot_table`` hook: ``csp``'s network into slot ``slot`` of
+        ``tables``, in place."""
+        raise NotImplementedError
+
+    def _rows_dispatch(self, tables: Sequence[Tensor], doms, changed0: Changed,
+                       idx) -> EnforceResult:
+        """``slot_table`` hook: R rows, row i against slot ``idx[i]``."""
+        raise NotImplementedError
 
     def __repr__(self) -> str:  # pragma: no cover - cosmetic
         return f"<{type(self).__name__} name={self.name!r} device={self.device}>"

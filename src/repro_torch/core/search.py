@@ -84,8 +84,10 @@ from .engine import (
     Engine,
     FrontierRow,
     FrontierTable,
+    Instance,
     RoundMeta,
     frontier_capacity,
+    instance_csp,
     next_pow2 as _next_pow2,
     pad_round_rows,
 )
@@ -306,7 +308,7 @@ def _allow_depth(n_vars: int):
 
 
 def _mac_coroutine(
-    csp: CSP,
+    dom0: np.ndarray,
     free_fn,
     extract_fn,
     supports_batch: bool,
@@ -322,7 +324,8 @@ def _mac_coroutine(
     split_fn=None,
 ) -> _MacGen:
     """Alg. 2 as a coroutine: yields `_Request`s, receives `_Reply`s, returns
-    the solution (or None). The coroutine owns every search decision and the
+    the solution (or None), searching from the root domain ``dom0`` (n, d)
+    bool. The coroutine owns every search decision and the
     assignment/backtrack counters; the driver owns dispatch, padding, timing
     and work-counter recording — so one search behaves identically whether it
     is driven alone (`mac_solve`) or multiplexed with others (`solve_many`),
@@ -355,7 +358,6 @@ def _mac_coroutine(
       >1 values; returns the values THIS coroutine keeps and queues sibling
       spawns for the rest (the driver's group budget decides how many).
     """
-    dom0 = to_numpy(csp.dom)
     n, _ = dom0.shape
     n_real = n if n_active is None else n_active
 
@@ -437,8 +439,8 @@ def _mac_coroutine(
         finally:
             # `dfs` refers to itself through its closure, and the closure
             # holds the store's hooks: without this the cycle would keep the
-            # store, and with it the prepared network and the CSP (3.8 GiB
-            # on the card at n = 1,600), until the cycle collector ran
+            # store, and with it the prepared network (0.76 GiB on the card
+            # at n = 1,600), until the cycle collector ran
             dfs = None  # noqa: F841
 
 
@@ -689,7 +691,7 @@ def mac_solve(
         if speculative:
             driver = LockstepDriver(store, prepared.n_vars, count_unit=eng.count_unit)
             stats = driver.admit_group(
-                0, csp,
+                0, csp.dom,
                 split_budget=split_budget,
                 portfolio=portfolio,
                 portfolio_seed=portfolio_seed,
@@ -700,9 +702,10 @@ def mac_solve(
             )
         else:
             stats = SearchStats()
-            root = store.begin(0, 0, to_numpy(csp.dom))  # host store: mask per request
+            dom0 = to_numpy(csp.dom)
+            root = store.begin(0, 0, dom0)  # host store: mask per request
             gen = _mac_coroutine(
-                csp,
+                dom0,
                 functools.partial(store.free, 0),
                 functools.partial(store.extract, 0),
                 eng.supports_batch,
@@ -779,7 +782,7 @@ class _Group:
       (inconclusive), eagerly."""
 
     key: Any
-    csp: CSP
+    dom0: np.ndarray  # the root domain (n, d)
     idx: int
     stats: SearchStats
     split_budget: int
@@ -885,7 +888,7 @@ class LockstepDriver:
     def admit(
         self,
         key,
-        csp: CSP,
+        dom0,
         idx: int = 0,
         *,
         supports_batch: bool = True,
@@ -894,14 +897,17 @@ class LockstepDriver:
         max_assignments: Optional[int] = None,
         collect_stats: bool = True,
     ) -> SearchStats:
-        """Join a new search; it participates from the next dispatch on.
-        ``idx`` routes the search's rows to its constraint network. Returns
-        the live `SearchStats` (filled in as rounds run)."""
+        """Join a new search from the root domain ``dom0`` (n, d) (a tensor
+        or an array; the search keeps a host copy, never the network); it
+        participates from the next dispatch on. ``idx`` routes the search's
+        rows to its constraint network. Returns the live `SearchStats`
+        (filled in as rounds run)."""
         if key in self._gens or key in self._groups:
             raise ValueError(f"search key {key!r} already admitted")
         stats = SearchStats()
+        dom0 = np.asarray(to_numpy(dom0), dtype=bool)
         gen = _mac_coroutine(
-            csp,
+            dom0,
             functools.partial(self._store.free, key),
             functools.partial(self._store.extract, key),
             supports_batch,
@@ -911,7 +917,7 @@ class LockstepDriver:
             n_active=n_active,
         )
         req0 = gen.send(None)  # root request; always yields ≥ once
-        root = self._store.begin(key, idx, to_numpy(csp.dom), req0.assigned)
+        root = self._store.begin(key, idx, dom0, req0.assigned)
         self._pending[key] = req0
         self._gens[key] = gen
         self._idx[key] = int(idx)
@@ -924,7 +930,7 @@ class LockstepDriver:
     def admit_group(
         self,
         key,
-        csp: CSP,
+        dom0,
         idx: int = 0,
         *,
         split_budget: int = 0,
@@ -946,7 +952,7 @@ class LockstepDriver:
         the request's totals. With both knobs 0 this IS ``admit``."""
         if split_budget <= 0 and portfolio <= 0:
             return self.admit(
-                key, csp, idx,
+                key, dom0, idx,
                 supports_batch=supports_batch,
                 batched_children=batched_children,
                 n_active=n_active,
@@ -956,7 +962,8 @@ class LockstepDriver:
         if key in self._gens or key in self._groups:
             raise ValueError(f"search key {key!r} already admitted")
         g = _Group(
-            key=key, csp=csp, idx=int(idx), stats=SearchStats(),
+            key=key, dom0=np.asarray(to_numpy(dom0), dtype=bool), idx=int(idx),
+            stats=SearchStats(),
             split_budget=int(split_budget), supports_batch=supports_batch,
             batched_children=batched_children, n_active=n_active,
             max_assignments=max_assignments, collect=collect_stats,
@@ -1007,7 +1014,7 @@ class LockstepDriver:
         """Admit one full-restart group member (owner or portfolio racer):
         its own root upload, the group's shared stats and budget."""
         gen = _mac_coroutine(
-            g.csp,
+            g.dom0,
             functools.partial(self._store.free, mkey),
             functools.partial(self._store.extract, mkey),
             g.supports_batch,
@@ -1020,7 +1027,7 @@ class LockstepDriver:
             split_fn=split_fn,
         )
         req0 = gen.send(None)  # root request; always yields ≥ once
-        root = self._store.begin(mkey, g.idx, to_numpy(g.csp.dom), req0.assigned)
+        root = self._store.begin(mkey, g.idx, g.dom0, req0.assigned)
         self._pending[mkey] = req0
         self._gens[mkey] = gen
         self._idx[mkey] = g.idx
@@ -1042,7 +1049,7 @@ class LockstepDriver:
                 if g.done:
                     continue
                 gen = _mac_coroutine(
-                    g.csp,
+                    g.dom0,
                     functools.partial(self._store.free, mkey),
                     functools.partial(self._store.extract, mkey),
                     g.supports_batch,
@@ -1364,7 +1371,7 @@ class LockstepDriver:
 
 
 def solve_many(
-    csps: Sequence[CSP],
+    csps: Sequence[Instance],
     engine: Union[Engine, str] = "einsum",
     support_fn=None,
     max_assignments: Optional[int] = None,
@@ -1377,6 +1384,12 @@ def solve_many(
     device: Device = "cuda",
 ) -> Tuple[List[Optional[List[int]]], List[SearchStats]]:
     """Run B independent MAC searches (instances sharing (n, d)) to completion.
+
+    An instance is a CSP or a zero-argument callable that builds one
+    (`core.engine.Instance`): `Engine.prepare_many` builds a lazy instance
+    when its slot is prepared and, on a stacked engine, drops it once the
+    slot is written, so at most one instance's dense network is alive
+    besides the tables; the searches keep each instance's root domain.
 
     On ``device_frontier`` engines the searches advance in lockstep against a
     device-resident `FrontierTable` over the `Engine.prepare_many` stacked
@@ -1392,7 +1405,9 @@ def solve_many(
     ``mac_solve`` per instance — same results, no amortization.
 
     ``telemetry``, if a dict, is filled with round/transfer counters
-    (``rounds``, ``rows_dispatched``, ``round_seconds_total`` and — on the
+    (``rounds``, ``rows_dispatched``, ``round_seconds_total``,
+    ``prepare_seconds`` — the wall time of the ``search.prepare`` span:
+    networks, frontier, admissions — and, on the
     device frontier — ``host_bytes_per_round`` vs the counterfactual
     ``domain_bytes_per_round``), plus the PER-INSTANCE rounds-to-solution
     distribution (``rounds_per_instance`` summary + log2-binned
@@ -1416,9 +1431,9 @@ def solve_many(
 
     if not eng.supports_batch:
         sols, stats = [], []
-        for csp in csps:
+        for instance in csps:
             s, st = mac_solve(
-                csp,
+                instance_csp(instance),
                 engine=eng,
                 max_assignments=max_assignments,
                 batched_children=batched_children,
@@ -1435,6 +1450,7 @@ def solve_many(
 
     # the call's preparation: networks, the frontier store, every search's
     # admission (its root read and its coroutine's first step)
+    t_prepare = time.perf_counter()
     with obs.span("search.prepare", cat="driver"):
         prepared = eng.prepare_many(csps)  # the ONLY preparation in the whole run
         # speculative members multiply the worst-case live rows per instance
@@ -1459,7 +1475,7 @@ def solve_many(
         all_stats = [
             driver.admit_group(
                 i,
-                csp,
+                dom0,
                 idx=i,
                 split_budget=split_budget,
                 portfolio=portfolio,
@@ -1469,8 +1485,9 @@ def solve_many(
                 max_assignments=max_assignments,
                 collect_stats=collect_stats,
             )
-            for i, csp in enumerate(csps)
+            for i, dom0 in enumerate(prepared.doms)
         ]
+    prepare_seconds = time.perf_counter() - t_prepare
     sols: List[Optional[List[int]]] = [None] * len(csps)
     while driver.has_work:
         for i, (sol, _st) in driver.round().items():
@@ -1492,6 +1509,7 @@ def solve_many(
             launches=driver.launches,
             launches_per_round=driver.launches / max(driver.rounds, 1),
             round_seconds_total=float(sum(driver.round_seconds)),
+            prepare_seconds=prepare_seconds,
         )
         _fill_rounds_histogram(telemetry, all_stats)
         if isinstance(store, FrontierTable):

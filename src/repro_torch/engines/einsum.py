@@ -8,8 +8,6 @@ this contraction to XLA, so the port keeps it as plain ``torch.einsum``.
 from __future__ import annotations
 
 import functools
-from typing import List
-
 import torch
 
 from repro_torch.core import rtac
@@ -18,7 +16,6 @@ from repro_torch.core.engine import (
     Engine,
     PreparedMany,
     PreparedNetwork,
-    StackedSlotPool,
     as_changed,
     as_dom,
     resolve_instance_idx,
@@ -51,8 +48,9 @@ def _full_frontier_fix(support_fn):
 
 class _ContractionEngine(Engine):
     """Shared plumbing: the network is the CSP's own (cons, mask) on the
-    engine's device; the stacked form is (B, n, n, d, d) / (B, n, n), and a
-    slot pool's tables are the same (C, n, n, d, d) / (C, n, n) bool."""
+    engine's device; the stacked form of `prepare_many` and a slot pool's
+    tables are (C, n, n, d, d) / (C, n, n) bool, each instance copied into
+    its slot."""
 
     stacked_many = True
     slot_table = True
@@ -65,12 +63,6 @@ class _ContractionEngine(Engine):
 
     def _prepare_payload(self, csp: CSP):
         return (csp.cons.to(self.device), csp.mask.to(self.device))
-
-    def _prepare_many_payload(self, csps: List[CSP]):
-        return (
-            torch.stack([c.cons.to(self.device) for c in csps]),
-            torch.stack([c.mask.to(self.device) for c in csps]),
-        )
 
     def _rows_dispatch(self, networks, doms, changed0, idx) -> EnforceResult:
         """R rows, row i against ``networks[idx[i]]`` (a stacked workload or a
@@ -87,15 +79,14 @@ class _ContractionEngine(Engine):
     def frontier_networks(self, prepared: PreparedMany):
         return prepared.payload
 
-    def _open_stacked_slot_pool(self, n_vars, dom_size, capacity) -> StackedSlotPool:
+    def _slot_tables(self, n_vars, dom_size, capacity):
         n, d = n_vars, dom_size
-        tables = (
-            torch.zeros((capacity, n, n, d, d), dtype=torch.bool, device=self.device),
-            torch.zeros((capacity, n, n), dtype=torch.bool, device=self.device),
-        )
-        return StackedSlotPool(self, n_vars, dom_size, capacity, tables,
-                               encode=lambda csp: (csp.cons, csp.mask),
-                               dispatch=self._rows_dispatch)
+        return (torch.zeros((capacity, n, n, d, d), dtype=torch.bool, device=self.device),
+                torch.zeros((capacity, n, n), dtype=torch.bool, device=self.device))
+
+    def _write_slot(self, tables, slot, csp: CSP) -> None:
+        tables[0][slot].copy_(csp.cons)
+        tables[1][slot].copy_(csp.mask)
 
 
 @register

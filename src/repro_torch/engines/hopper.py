@@ -12,17 +12,18 @@ is fused; `kernels.ops` decides the rest from those and the padded shape:
   `ops.fixpoint_single`, which picks one of three routes (one fused launch,
   the word loop, or the host loop over the single-network revise) and
   counts it.
-- ``prepare_many`` stacks the per-instance networks into slot tables —
+- ``prepare_many`` allocates slot tables once —
   ``(B, n_p·d_p, n_p·d_p)`` u8 dense, ``(B, n_p·d_p, n_p·W)`` int32 packed —
-  and each frontier round (`ops.frontier_fix`) or ``enforce_many`` call runs
+  and writes each instance's padded network into its slot in place, one
+  instance at a time (`ops.write_slot`); each frontier round (`ops.frontier_fix`) or ``enforce_many`` call runs
   the stacked kernels through `ops.enforce_rows`, which read every row's
   network in place from those tables: ``fixpoint="fused"`` (default) one
   `*_fixpoint_stacked` launch per round runs the whole recurrence;
   ``fixpoint="stepped"`` is a host loop with one `*_revise_stacked` launch
   per recurrence — the fallback rung and the parity oracle.
 - ``open_slot_pool`` preallocates the same tables for the service, with
-  zeros, and installs each admitted network into its slot in place; every
-  service round reads the networks through their slot ids, as above.
+  zeros, and installs each admitted network into its slot the same way;
+  every service round reads the networks through their slot ids, as above.
 
 The env default of ``fixpoint`` reads ``REPRO_TORCH_FIXPOINT``.
 """
@@ -39,7 +40,6 @@ from repro_torch.core.engine import (
     Engine,
     PreparedMany,
     PreparedNetwork,
-    StackedSlotPool,
     as_changed,
     as_dom,
     pad_changed,
@@ -58,9 +58,10 @@ class _HopperEngine(Engine):
     """Shared prepare/enforce plumbing; subclasses pick the kernel family.
 
     Subclass hooks: ``kind`` (``"dense"`` | ``"packed"``, what `kernels.ops`
-    dispatches on), ``_prepare_net(csp, memo)`` (the padded network on the
-    engine's device, memoized per CSP unless ``memo`` is False) and
-    ``_empty_tables(dims, capacity)`` (a slot pool's zeroed tables)."""
+    dispatches on), ``_prepare_net(csp)`` (the padded network on the
+    engine's device, memoized per CSP) and ``_slot_tables(n_vars, dom_size,
+    capacity)`` (zeroed slot tables: a stacked workload's or a slot
+    pool's, which are its whole payload)."""
 
     kind: str
     stacked_many = True
@@ -112,19 +113,18 @@ class _HopperEngine(Engine):
 
     # --- stacked workload path (R rows, each against its OWN network) -------
 
-    def _prepare_many_payload(self, csps):
-        nets = [self._prepare_net(c) for c in csps]
-        tables = (torch.stack([t[0] for t in nets]), torch.stack([t[1] for t in nets]))
-        return tables, self._dims(*csps[0].dom.shape)
+    def _write_slot(self, tables, slot, csp: CSP) -> None:
+        ops.write_slot(self.kind, csp, tables, slot)
 
-    def _rows_dispatch(self, tables, dims, doms, changed0, idx) -> EnforceResult:
+    def _rows_dispatch(self, tables, doms, changed0, idx) -> EnforceResult:
         """R rows in caller coordinates, row i against ``tables[idx[i]]`` (a
         stacked workload or a slot pool's tables): pad into kernel
         coordinates, `ops.enforce_rows` (the kernels read each row's network
         in place through its slot id), un-pad."""
-        n_p, d_p = dims[0], dims[1]
         doms = as_dom(doms, self.device)
         n, d = doms.shape[-2:]
+        dims = self._dims(n, d)
+        n_p, d_p = dims[0], dims[1]
         idx = torch.as_tensor(idx, device=self.device)
         dom_p = pad_dom(doms, n_p, d_p)
         ch_p = pad_changed(as_changed(changed0, self.device), n, n_p,
@@ -134,25 +134,8 @@ class _HopperEngine(Engine):
 
     def enforce_many(self, prepared: PreparedMany, doms, changed0=None,
                      instance_idx=None) -> EnforceResult:
-        tables, dims = prepared.payload
         idx = resolve_instance_idx(instance_idx, prepared.n_instances, len(doms))
-        return self._rows_dispatch(tables, dims, doms, changed0, idx)
-
-    # --- open-world slot pool (the service) ---------------------------------
-
-    def _open_stacked_slot_pool(self, n_vars, dom_size, capacity) -> StackedSlotPool:
-        """The pool's tables are the stacked workload's layout, preallocated
-        with zeros: (C, n_p·d_p, n_p·d_p) u8 dense or (C, n_p·d_p, n_p·W)
-        int32 packed, and (C, n_p, n_p) u8 masks. An install writes one
-        slot's padded network in place; a round reads it through the slot
-        id."""
-        dims = self._dims(n_vars, dom_size)
-        return StackedSlotPool(
-            self, n_vars, dom_size, capacity, self._empty_tables(dims, capacity),
-            encode=lambda csp: self._prepare_net(csp, memo=False),  # the slot is the copy
-            dispatch=lambda tables, doms, ch, idx: self._rows_dispatch(tables, dims, doms,
-                                                                       ch, idx),
-        )
+        return self._rows_dispatch(prepared.payload, doms, changed0, idx)
 
     # --- device-resident frontiers ------------------------------------------
 
@@ -160,7 +143,7 @@ class _HopperEngine(Engine):
         return ops.frontier_fix(self.kind, self.fused_fixpoint)
 
     def frontier_networks(self, prepared: PreparedMany):
-        return prepared.payload[0]
+        return prepared.payload
 
 
 @register
@@ -170,11 +153,11 @@ class HopperDenseEngine(_HopperEngine):
     name = "hopper_dense"
     kind = "dense"
 
-    def _prepare_net(self, csp: CSP, memo: bool = True):
-        return ops.prepare_dense(csp, device=self.device, memo=memo)[0]
+    def _prepare_net(self, csp: CSP):
+        return ops.prepare_dense(csp, device=self.device)[0]
 
-    def _empty_tables(self, dims, capacity: int):
-        n_p, d_p = dims
+    def _slot_tables(self, n_vars, dom_size, capacity):
+        n_p, d_p = self._dims(n_vars, dom_size)
         return (torch.zeros((capacity, n_p * d_p, n_p * d_p), dtype=torch.uint8,
                             device=self.device),
                 torch.zeros((capacity, n_p, n_p), dtype=torch.uint8, device=self.device))
@@ -191,11 +174,11 @@ class HopperPackedEngine(_HopperEngine):
     name = "hopper_packed"
     kind = "packed"
 
-    def _prepare_net(self, csp: CSP, memo: bool = True):
-        return ops.prepare_packed(csp, device=self.device, memo=memo)[0]
+    def _prepare_net(self, csp: CSP):
+        return ops.prepare_packed(csp, device=self.device)[0]
 
-    def _empty_tables(self, dims, capacity: int):
-        n_p, d_p, w = dims
+    def _slot_tables(self, n_vars, dom_size, capacity):
+        n_p, d_p, w = self._dims(n_vars, dom_size)
         return (torch.zeros((capacity, n_p * d_p, n_p * w), dtype=torch.int32,
                             device=self.device),
                 torch.zeros((capacity, n_p, n_p), dtype=torch.uint8, device=self.device))

@@ -19,7 +19,9 @@ their kind and whether they are fused:
   encoder and decoder, for domains and networks alike.
 
 Network preparation (pad + transpose [+ bitpack] of the O(n²d²) constraint
-tensor) is memoized per CSP identity and device. The rows functions take the
+tensor, a chunk of x-rows at a time) is memoized per CSP identity and
+device; `write_slot` does it into a slot of a stacked table in place,
+memoizing nothing. The rows functions take the
 slot tables and the row→slot map, never gathered networks: the kernels read
 ``tables[idx[r]]`` in place.
 """
@@ -28,14 +30,13 @@ from __future__ import annotations
 
 import functools
 import weakref
-from typing import Tuple
 
 import torch
 
 from repro_torch import faults, obs
 from repro_torch.core import rtac
 from repro_torch.core.csp import CSP
-from repro_torch.core.engine import pad_dom, pad_network, padded_shape
+from repro_torch.core.engine import pad_dom, padded_shape
 from . import autotune, bitpack_support, launch, rtac_support
 
 Tensor = torch.Tensor
@@ -110,23 +111,30 @@ def unpack_words(words: Tensor, d_p: int) -> Tensor:
 # ---------------------------------------------------------------------------
 
 
+def _mask_u8(csp: CSP, n_p: int, device) -> Tensor:
+    """The (n, n) mask padded to (n_p, n_p) u8 on ``device``."""
+    n = csp.mask.shape[0]
+    mask = torch.zeros((n_p, n_p), dtype=torch.uint8, device=device)
+    mask[:n, :n] = csp.mask
+    return mask
+
+
 def prepare_dense(csp: CSP, block_rx: int = N_MULT, block_ry: int = N_MULT, device=None,
                   memo: bool = True):
     """-> (network, dom_padded, (n_p, d_p)); network = (cons2 u8, mask u8) on
     ``device`` (default: the CSP's), memoized per CSP unless ``memo`` is
-    False (a slot-pool install, whose slot is the only copy kept). ``cons2[x·d_p + a,
-    y·d_p + b]`` is the padded (n_p, n_p, d_p, d_p) tensor transposed to
-    (x, a, y, b). n pads as in `prepare_packed`."""
+    False. ``cons2[x·d_p + a, y·d_p + b]`` is the padded (n_p, n_p, d_p,
+    d_p) tensor transposed to (x, a, y, b). n pads as in `prepare_packed`."""
     faults.inject("kernel.launch", kernel="dense")
     device = csp.cons.device if device is None else torch.device(device)
     n_mult = max(block_rx, block_ry)
+    n_p, d_p = padded_shape(*csp.dom.shape, n_mult, D_MULT)
 
     def build():
-        cons, mask, n_p, d_p = pad_network(csp, n_mult, D_MULT)
-        return (dense_network(cons.to(device), n_p, d_p),
-                mask.to(device=device, dtype=torch.uint8)), (n_p, d_p)
+        out = torch.empty((n_p * d_p, n_p * d_p), dtype=torch.uint8, device=device)
+        return dense_network(csp.cons, n_p, d_p, out), _mask_u8(csp, n_p, device)
 
-    network, (n_p, d_p) = _cached("dense", csp, n_mult, device, build, memo)
+    network = _cached("dense", csp, n_mult, device, build, memo)
     return network, pad_dom(csp.dom.to(device), n_p, d_p), (n_p, d_p)
 
 
@@ -137,25 +145,39 @@ def prepare_dense(csp: CSP, block_rx: int = N_MULT, block_ry: int = N_MULT, devi
 _PACK_CHUNK = 1 << 25
 
 
-def dense_network(cons: Tensor, n_p: int, d_p: int) -> Tensor:
-    """(n_p,n_p,d_p,d_p) bool -> (n_p*d_p, n_p*d_p) u8, (x, y, a, b) ->
-    (x, a, y, b), in chunks of x-rows."""
-    out = torch.empty((n_p, d_p, n_p, d_p), dtype=torch.uint8, device=cons.device)
+def _network_chunks(cons: Tensor, n_p: int, d_p: int, device):
+    """The (n, n, d, d) bool network padded to (n_p, n_p, d_p, d_p), as
+    (x0, rows) chunks of x-rows on ``device``, each padded alone: padded
+    pairs are unconstrained (zero blocks), so they never produce a
+    violation, and no padded copy of the whole network is made."""
+    n, d = cons.shape[0], cons.shape[-1]
     step = max(1, _PACK_CHUNK // (n_p * d_p * d_p))
     for x0 in range(0, n_p, step):
-        out[x0:x0 + step] = cons[x0:x0 + step].permute(0, 2, 1, 3)
-    return out.view(n_p * d_p, n_p * d_p)
+        part = cons[x0:x0 + step].to(device)
+        if (n, d) != (n_p, d_p):
+            rows = min(step, n_p - x0)
+            padded = torch.zeros((rows, n_p, d_p, d_p), dtype=torch.bool, device=device)
+            padded[:part.shape[0], :n, :d, :d] = part
+            part = padded
+        yield x0, part
 
 
-def pack_network(cons: Tensor, n_p: int, d_p: int) -> Tuple[Tensor, int]:
-    """(n_p,n_p,d_p,d_p) bool -> ((n_p*d_p, n_p*W) int32, W), packed in
-    chunks of x-rows."""
-    w = -(-d_p // 32)
-    out = torch.empty((n_p, d_p, n_p, w), dtype=torch.int32, device=cons.device)
-    step = max(1, _PACK_CHUNK // (n_p * d_p * d_p))
-    for x0 in range(0, n_p, step):  # (x, y, a, W) -> (x, a, y, W)
-        out[x0:x0 + step] = pack_words(cons[x0:x0 + step]).permute(0, 2, 1, 3)
-    return out.view(n_p * d_p, n_p * w), w
+def dense_network(cons: Tensor, n_p: int, d_p: int, out: Tensor) -> Tensor:
+    """(n, n, d, d) bool -> ``out`` (n_p*d_p, n_p*d_p) u8: padded to (n_p,
+    d_p) and transposed (x, y, a, b) -> (x, a, y, b) in chunks of x-rows."""
+    rows = out.view(n_p, d_p, n_p, d_p)
+    for x0, part in _network_chunks(cons, n_p, d_p, out.device):
+        rows[x0:x0 + part.shape[0]] = part.permute(0, 2, 1, 3)
+    return out
+
+
+def pack_network(cons: Tensor, n_p: int, d_p: int, out: Tensor) -> Tensor:
+    """(n, n, d, d) bool -> ``out`` (n_p*d_p, n_p*W) int32: padded to (n_p,
+    d_p) and packed in chunks of x-rows."""
+    rows = out.view(n_p, d_p, n_p, -(-d_p // 32))
+    for x0, part in _network_chunks(cons, n_p, d_p, out.device):  # (x, y, a, W) -> (x, a, y, W)
+        rows[x0:x0 + part.shape[0]] = pack_words(part).permute(0, 2, 1, 3)
+    return out
 
 
 def prepare_packed(csp: CSP, block_rx: int = N_MULT, block_ry: int = N_MULT, device=None,
@@ -168,14 +190,31 @@ def prepare_packed(csp: CSP, block_rx: int = N_MULT, block_ry: int = N_MULT, dev
     faults.inject("kernel.launch", kernel="packed")
     device = csp.cons.device if device is None else torch.device(device)
     n_mult = max(block_rx, block_ry)
+    n_p, d_p = padded_shape(*csp.dom.shape, n_mult, D_MULT)
+    w = -(-d_p // 32)
 
     def build():
-        cons, mask, n_p, d_p = pad_network(csp, n_mult, D_MULT)
-        cons_p2, w = pack_network(cons.to(device), n_p, d_p)
-        return (cons_p2, mask.to(device=device, dtype=torch.uint8)), (n_p, d_p, w)
+        out = torch.empty((n_p * d_p, n_p * w), dtype=torch.int32, device=device)
+        return pack_network(csp.cons, n_p, d_p, out), _mask_u8(csp, n_p, device)
 
-    network, (n_p, d_p, w) = _cached("packed", csp, n_mult, device, build, memo)
+    network = _cached("packed", csp, n_mult, device, build, memo)
     return network, pad_dom(csp.dom.to(device), n_p, d_p), (n_p, d_p, w)
+
+
+def write_slot(kind: str, csp: CSP, tables, slot: int) -> None:
+    """``csp``'s padded network into slot ``slot`` of a Hopper engine's
+    tables (``(C, n_p·d_p, n_p·d_p)`` u8 or ``(C, n_p·d_p, n_p·W)`` int32,
+    and ``(C, n_p, n_p)`` u8 masks), packed or transposed there in place:
+    no other copy of the network is made, or memoized. The slot's network
+    equals `prepare_packed`'s or `prepare_dense`'s."""
+    cons_t, mask_t = tables
+    n_p = mask_t.shape[-1]
+    d_p = cons_t.shape[1] // n_p
+    if kind == "dense":
+        dense_network(csp.cons, n_p, d_p, cons_t[slot])
+    else:
+        pack_network(csp.cons, n_p, d_p, cons_t[slot])
+    mask_t[slot].copy_(_mask_u8(csp, n_p, mask_t.device))
 
 
 # ---------------------------------------------------------------------------

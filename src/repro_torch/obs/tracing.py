@@ -44,6 +44,11 @@ The spans of the search and fixpoint paths, by what each brackets:
 - ``search.prepare``: a `solve_many` or `mac_solve` call's preparation:
   the networks (`prepare`/`prepare_many`), the frontier store, and the
   admission of each search (its root read and the coroutine's first step).
+  `solve_many`'s telemetry carries its wall time as ``prepare_seconds``.
+- ``prepare.slot`` (cat ``engine``, arg ``slot``): one instance of
+  `Engine.prepare_many` built (a lazy instance's network made only now)
+  and prepared; on a stacked engine its network written into its slot in
+  place, each such slot counted by the always-on ``prepare.slots``.
 - ``driver.round``: one round of the search driver (`LockstepDriver.round`,
   `mac_solve`'s loop), holding ``frontier.step`` and ``round.resolve``.
 - ``frontier.step``: the round's rows collected and dispatched.

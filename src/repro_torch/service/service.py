@@ -711,7 +711,7 @@ class SolverService:
         )
         req.stats = rt.driver.admit_group(
             req.id,
-            padded,
+            padded.dom,
             idx=entry.slot,
             split_budget=split_eff,
             portfolio=port_eff,

@@ -51,10 +51,11 @@ def _rows(csps, n_rows, device, kind="packed"):
     """Main-path-shaped rows: one assignment applied (one-hot seed) for 7
     rows in 8, an all-changed root row for the rest, each routed to a random
     slot."""
-    tables, dims = get_engine(f"hopper_{kind}", device=device).prepare_many(csps).payload
-    n_p, d_p = dims[:2]
-    w = -(-d_p // 32)
+    eng = get_engine(f"hopper_{kind}", device=device)
+    tables = eng.prepare_many(csps).payload
     n, d = csps[0].dom.shape
+    n_p, d_p = eng._dims(n, d)[:2]
+    w = -(-d_p // 32)
     rng = np.random.default_rng(0)
     idx = torch.as_tensor(rng.integers(0, len(csps), n_rows), dtype=torch.int32, device=device)
     var = rng.integers(0, n, n_rows)

@@ -42,6 +42,7 @@ from repro_torch.core import (
     to_paper_cons,
 )
 from repro_torch.engines import get_engine
+from repro_torch.kernels import ops
 from repro_torch.problems import available_problems, generate, generate_batch, get_problem
 from repro_torch.problems.coloring import kneser_adjacency
 from repro_torch.problems.structured import sudoku_solution_grid
@@ -115,15 +116,21 @@ SHAPE_SWEEP = [
 
 
 @pytest.mark.parametrize("n,d,n_block", SHAPE_SWEEP)
-def test_padding_helpers_match_reference(n, d, n_block):
+def test_padding_helpers_match_reference(n, d, n_block, monkeypatch):
     ref = ref_generate("random_binary", seed=n + d, n=n, d=d, density=0.6)
     csp = generate("random_binary", seed=n + d, n=n, d=d, density=0.6, device=CPU)
     assert engine.padded_shape(n, d, n_block, 8) == ref_engine.padded_shape(n, d, n_block, 8)
     rc, rm, rn, rd = ref_engine.pad_network(ref, n_block, 8)
-    c, m, n_p, d_p = engine.pad_network(csp, n_block, 8)
+    n_p, d_p = engine.padded_shape(n, d, n_block, 8)
     assert (n_p, d_p) == (rn, rd)
+    # the network is padded a chunk of x-rows at a time: three rows a chunk
+    monkeypatch.setattr(ops, "_PACK_CHUNK", 3 * n_p * d_p * d_p)
+    chunks = list(ops._network_chunks(csp.cons, n_p, d_p, CPU))
+    assert [x0 for x0, _ in chunks] == list(range(0, n_p, 3))
+    c = torch.cat([part for _, part in chunks])
     np.testing.assert_array_equal(c.numpy(), np.asarray(rc))
-    np.testing.assert_array_equal(m.numpy(), np.asarray(rm))
+    np.testing.assert_array_equal(ops._mask_u8(csp, n_p, CPU).numpy(),
+                                  np.asarray(rm).astype(np.uint8))
     rng = np.random.default_rng(n * d)
     doms = rng.random((3, n, d)) < 0.7
     np.testing.assert_array_equal(
