@@ -3,8 +3,11 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --against OTHER_TREE/src/repro_torch/kernels/csrc
+    python3 chip_smoke.py --split
 
-Phases (any failure exits non-zero):
+``--split`` builds kernel 1 alone and times it with each row on 1, 2, 4
+and 8 CTAs of a thread-block cluster (`split_sweep`), every launch bit for
+bit its plain version, then stops. Phases (any failure exits non-zero):
 
 (a) build   — compile every kernel source (`kernels/csrc/*.cu`) for sm_90a,
               all nvcc processes at once; print the seconds, ptxas' register
@@ -2462,11 +2465,119 @@ def compare_against(csrc: str, shapes, device, max_assignments: int = 500):
     use("this")
 
 
+# ---------------------------------------------------------------------------
+# --split: kernel 1 with its rows split over thread-block clusters
+# ---------------------------------------------------------------------------
+
+#: the split sweep's shapes: (label, graph order, colours, rows a launch);
+#: the colouring cell's shape last, two smaller dense colourings between it
+#: and rb100-40 (`MAIN`, n_p = 104, timed at `SPLIT_RB_ROWS`)
+SPLIT_COLOURINGS = (("G(250, 0.5) k=28", 250, 28, (1, 2, 32)),
+                    ("G(500, 0.5) k=48", 500, 48, (1, 2, 32)),
+                    ("dsjc G(1000, 0.5) k=83", 1000, 83, (1, 2, 8, 32)))
+SPLIT_RB_ROWS = (1, 2, 32, 1024)
+#: the CTAs a row the sweep times (1: unsplit)
+SPLIT_CTAS = (1, 2, 4, 8)
+
+
+def colouring_rows(n: int, k: int, rows: int, device):
+    """Kernel 1's operands at a colouring shape: ``rows`` search nodes
+    (`_search_row` of tests/test_torch_coloring_gpu.py) of ``rows`` graphs
+    G(n, 0.5) with ``k`` colours, one slot each, the slots in reverse."""
+    import importlib.util
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core import coloring_csp
+    from repro_torch.core.engine import pad_changed, pad_dom
+    from repro_torch.engines import get_engine
+    from repro_torch.kernels import ops
+
+    sys.path.insert(0, ROOT)
+    spec = importlib.util.spec_from_file_location(
+        "coloring_gpu_rows", os.path.join(ROOT, "tests", "test_torch_coloring_gpu.py"))
+    rows_mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(rows_mod)
+    adjs = [rows_mod._adjacency(100 + s, n, 0.5) for s in range(rows)]
+    eng = get_engine("hopper_packed", device=device)
+    cons, mask = eng.prepare_many([lambda a=a: coloring_csp(a, k, device=device)
+                                   for a in adjs]).payload
+    n_p, d_p, w = eng._dims(n, k)
+    rng = np.random.default_rng(5)
+    doms, seeds = zip(*(rows_mod._search_row(a, rng, k) for a in reversed(adjs)))
+    dom_p = pad_dom(torch.stack(doms).to(device), n_p, d_p)
+    words = ops.pack_words(dom_p).view(rows, -1).contiguous()
+    seed = pad_changed(torch.stack(seeds).to(device), n, n_p).to(torch.uint8).contiguous()
+    idx = torch.arange(rows - 1, -1, -1, dtype=torch.int32, device=device)
+    return (cons, mask, idx, words, seed), dict(d=d_p, w=w)
+
+
+def split_case(label: str, args, kw, device) -> dict:
+    """Kernel 1 on one launch's operands at every count of CTAs a row
+    (`SPLIT_CTAS`) and as `launch.fixpoint_split` picks, each bit for bit
+    its plain version, timed; prints one ``[split]`` line."""
+    from repro_torch.kernels import bitpack_support as bs, launch
+
+    r, n = args[4].shape
+    want = bs.packed_fixpoint_stacked_plain(*args, **kw)
+    pick = launch.fixpoint_split(r, n, launch.sm_count(device))
+    ms = {}
+    for c in SPLIT_CTAS:
+        err = max_err(bs.packed_fixpoint_stacked(*args, **kw, split=c), want)
+        check(err == 0, f"[split] {label} R={r} c={c}: kernel 1 differs from plain ({err})")
+        ms[c] = timed_ms(lambda: bs.packed_fixpoint_stacked(*args, **kw, split=c), 10, device)
+    err = max_err(bs.packed_fixpoint_stacked(*args, **kw), want)
+    check(err == 0, f"[split] {label} R={r}: kernel 1 as the rule picks differs from plain")
+    best = min(ms, key=ms.get)
+    print(f"[split] {label} n_p={n} d_p={kw['d']} W={kw['w']} R={r}: kernel ms "
+          + ", ".join(f"c={c} {m:.4f}" for c, m in ms.items())
+          + f"; fastest c={best} (x{ms[1] / ms[best]:.2f} over c=1); the rule picks c={pick}; "
+          f"k max {int(want[2].max())}, {int(want[1].sum())} of {r} consistent; "
+          "bit-identical to plain", flush=True)
+    return dict(label=label, n=n, d=kw["d"], w=kw["w"], rows=r, ms=ms, rule=pick)
+
+
+def split_sweep(device) -> list:
+    """Kernel 1 alone, a CTA a row and each row over a cluster of 2, 4 and 8
+    CTAs (`split_case`): rb100-40's phase b rows (7 one-hot : 1 root, 32
+    tables) at `SPLIT_RB_ROWS` rows, then `SPLIT_COLOURINGS`' search nodes.
+    The data behind `launch.SPLIT_MIN_N` and the rule's cap."""
+    import torch
+
+    from repro_torch.kernels import build, launch
+    from repro_torch.problems import generate
+
+    build.build(["packed_fixpoint"], force=True)
+    for kernel, report in ptxas_report(build.LOGS["packed_fixpoint"]):
+        print(f"[split] ptxas {kernel}: {report}", flush=True)
+    sms = launch.sm_count(device)
+    print(f"[split] {sms} SMs; SPLIT_MIN_N={launch.SPLIT_MIN_N}", flush=True)
+    out = []
+    csps = [generate("model_rb", seed=i, device=device, **MAIN) for i in range(N_INSTANCES)]
+    for rows in SPLIT_RB_ROWS:
+        tables, idx, words, seed, _, (_, d_p) = kernel_inputs(csps, rows, 7, device, "packed")
+        out.append(split_case("rb100-40", (*tables, idx, words, seed), kernel_kw("packed", d_p),
+                              device))
+    del csps, tables
+    for label, n, k, cuts in SPLIT_COLOURINGS:
+        args, kw = colouring_rows(n, k, max(cuts), device)
+        for rows in cuts:
+            cut = (*args[:2], args[2][-rows:].contiguous(), args[3][-rows:].contiguous(),
+                   args[4][-rows:].contiguous())
+            out.append(split_case(label, cut, kw, device))
+        del args, cut
+        torch.cuda.empty_cache()
+    return out
+
+
 def main(argv) -> int:
-    against = None
-    if argv:
+    against, split = None, False
+    if argv == ["--split"]:
+        split = True
+    elif argv:
         if len(argv) != 2 or argv[0] != "--against":
-            print("usage: chip_smoke.py [--against OTHER_CSRC_DIR]", file=sys.stderr)
+            print("usage: chip_smoke.py [--against OTHER_CSRC_DIR | --split]", file=sys.stderr)
             return 2
         against = argv[1]
     try:
@@ -2491,6 +2602,10 @@ def main(argv) -> int:
         card = gpu_name_and_limit()
         print(f"[a] device {torch.cuda.get_device_name(0)} ({card}); torch "
               f"{torch.__version__} CUDA {torch.version.cuda}", flush=True)
+        if split:
+            print(json.dumps({"split": split_sweep(device), "card": card}), flush=True)
+            print(f"[done] {time.perf_counter() - t_start:.1f} s in all", flush=True)
+            return 0
         t0 = time.perf_counter()
         per_source = build.build(force=True)
         print(f"[a] built {sorted(per_source)} in {time.perf_counter() - t0:.2f} s "

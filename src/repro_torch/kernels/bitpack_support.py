@@ -15,7 +15,9 @@ each row's network in place — no per-round gathered copy of the networks:
   (``csrc/packed_revise.cu`` with ``csrc/revise_common.cuh``; the stepped
   fixpoint's revise);
 - :func:`packed_fixpoint_stacked` — the whole incremental fixpoint of R rows
-  in one launch (``csrc/packed_fixpoint.cu``; the fused default);
+  in one launch (``csrc/packed_fixpoint.cu``; the fused default), a CTA a
+  row, or a thread-block cluster a row where the rows leave most SMs idle
+  (`launch.fixpoint_split`);
 - :func:`packed_revise` — one revise step of B domains against ONE network
   (the single-network path of ``enforce``/``enforce_batch`` and so of
   ``mac_solve``): where a CTA owning a row fits, below n = 2048, a CTA
@@ -49,8 +51,9 @@ import torch
 from repro_torch import obs
 
 from . import autotune
-from .launch import (block_scratch_bytes, check_block, check_operands, check_smem, check_wide,
-                     fixpoint_smem, launch, revise_smem, single_wide)
+from .launch import (SPLIT_MAX, block_scratch_bytes, check_block, check_operands, check_smem,
+                     check_wide, fixpoint_smem, fixpoint_split, launch, revise_smem,
+                     single_wide, sm_count, split_clusters)
 from .ref import pack_bits_ref, unpack_bits_ref
 
 Tensor = torch.Tensor
@@ -172,16 +175,32 @@ def packed_fixpoint_stacked_plain(cons: Tensor, mask: Tensor, idx: Tensor, dom_w
     return dom, consistent.to(torch.uint8), k
 
 
+def _split(device: torch.device, r: int, n: int, d: int, w: int) -> int:
+    """The CTAs a row of a launch of ``r`` rows takes on ``device``:
+    `launch.fixpoint_split` on the card's SMs, or 1 where the card holds
+    no cluster of that many (`launch.split_clusters`)."""
+    c = fixpoint_split(r, n, sm_count(device))
+    return c if c == 1 or split_clusters(device, n, d, w, c) > 0 else 1
+
+
 def packed_fixpoint_stacked(cons: Tensor, mask: Tensor, idx: Tensor, dom_words: Tensor,
                             changed: Tensor, *, d: int, w: int,
-                            sched: Optional[int] = None):
+                            sched: Optional[int] = None, split: Optional[int] = None):
     """R packed fixpoints in ONE launch, row r against ``cons[idx[r]]``.
 
     Operands as `packed_revise_stacked` (``changed`` is the Prop. 2 seed,
     assignment already applied to ``dom_words``). Returns (dom (R, n·d) u8
     unpacked, consistent (R,) u8, k (R,) int32) — per row bit-identical to
-    the stepped fixpoint. ``sched`` as for `packed_revise_stacked`."""
+    the stepped fixpoint. ``sched`` as for `packed_revise_stacked`.
+
+    ``split`` (CUDA only) is the CTAs a row takes, 1 to `launch.SPLIT_MAX`;
+    None takes `launch.fixpoint_split`'s on this card (the engines always
+    do). A row split over c > 1 CTAs runs the instantiation that reads W at
+    run time whatever ``sched`` says, and ticks the always-on counter
+    ``fixpoint.split_launches``."""
     r, n = _check(cons, mask, idx, dom_words, changed, d, w)
+    if split is not None and not 1 <= split <= SPLIT_MAX:
+        raise ValueError(f"packed_fixpoint_stacked: split={split} is not in 1..{SPLIT_MAX}")
     if cons.device.type == "cpu":
         return packed_fixpoint_stacked_plain(cons, mask, idx, dom_words, changed, d=d, w=w)
     check_smem("packed_fixpoint_stacked", fixpoint_smem(n, d, 4 * n * w), f"n={n}, d={d}")
@@ -189,11 +208,18 @@ def packed_fixpoint_stacked(cons: Tensor, mask: Tensor, idx: Tensor, dom_words: 
     consistent = torch.empty((r,), dtype=torch.uint8, device=cons.device)
     k = torch.empty((r,), dtype=torch.int32, device=cons.device)
     if r:
-        if sched is None:
-            sched = autotune.schedule("packed", n, d, w, r)
-        launch("packed_fixpoint", "packed_fixpoint_stacked_launch",
-               [cons, mask, idx, dom_words, changed, dom, consistent, k], r, n, d, w,
-               sched=sched)
+        tensors = [cons, mask, idx, dom_words, changed, dom, consistent, k]
+        c = _split(cons.device, r, n, d, w) if split is None else split
+        if c > 1:
+            check_smem("packed_fixpoint_stacked", fixpoint_smem(n, d, 4 * n * w, split=c),
+                       f"n={n}, d={d}, split={c}")
+            launch("packed_fixpoint", "packed_fixpoint_split_launch", tensors, r, n, d, w, c)
+            obs.counter_add("fixpoint.split_launches")
+        else:
+            if sched is None:
+                sched = autotune.schedule("packed", n, d, w, r)
+            launch("packed_fixpoint", "packed_fixpoint_stacked_launch", tensors, r, n, d, w,
+                   sched=sched)
         packed_fixpoint_stacked.launches += 1
     return dom, consistent, k
 

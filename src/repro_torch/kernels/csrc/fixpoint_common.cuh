@@ -8,8 +8,14 @@
 // changed flag into the NEXT domain buffer; every warp reads only the
 // CURRENT buffer. One barrier ends the sweep, then the buffers swap. So each
 // sweep tests against the domain as it stood when the sweep began.
+//
+// The packed kernel may also split a row over a thread-block cluster of c
+// CTAs (`split_span`, `launch_clusters`): each CTA owns a span of the row's
+// variables and holds only their mask rows, and after each sweep every CTA
+// copies the peers' spans of NEXT from their shared memory.
 #pragma once
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -30,23 +36,38 @@ constexpr unsigned kFull = 0xffffffffu;
 constexpr int kCompiledWidth = 0, kRuntimeWidth = 1;
 inline bool width_sched(int sched) { return sched == kCompiledWidth || sched == kRuntimeWidth; }
 
+// The most CTAs a split row takes (the portable cluster size).
+constexpr int kMaxSplit = 8;
+
+// Variables a CTA of a row split over c CTAs owns, at most: ceil(n/c) rounded
+// up to a multiple of 16, so that each span's domain words and changed flags
+// are whole 16-byte pieces; n when the row is not split.
+__host__ __device__ inline int split_span(int n, int c) {
+  return c == 1 ? n : 16 * (((n + c - 1) / c + 15) / 16);
+}
+
 // Byte offsets into one CTA's dynamic shared memory; `total` is what
 // launch.fixpoint_smem computes. Two domain buffers of `dom_bytes` each (a
 // multiple of 4), then u32: the mask bits (n × ceil(n/32)), per-warp seed bits (ceil(n/32)) and violation words
 // (ceil(d/32)), two wipe-out flags (buffered like the domain); u16: per-warp
 // neighbour list (n) and value list (d); u8: two buffers of changed flags.
+// A CTA of a row split over c > 1 CTAs holds the mask bits of its own span
+// alone, and domain buffers and changed flags for c whole spans (the last
+// may run past n), the flags 16-byte aligned.
 struct Smem {
   int mbits, seed, viol, dead, ys, values, changed, total;
-  __host__ __device__ Smem(int n, int d, int dom_bytes) {
+  __host__ __device__ Smem(int n, int d, int dom_bytes, int c = 1) {
     const int nwn = (n + 31) / 32, w = (d + 31) / 32;
-    mbits = 2 * dom_bytes;
-    seed = mbits + 4 * n * nwn;
+    const int span = split_span(n, c), held = c == 1 ? n : c * span;
+    mbits = 2 * (c == 1 ? dom_bytes : dom_bytes / n * held);
+    seed = mbits + 4 * span * nwn;
     viol = seed + 4 * kWarps * nwn;
     dead = viol + 4 * kWarps * w;
     ys = dead + 8;
     values = ys + 2 * kWarps * n;
     changed = values + 2 * kWarps * d;
-    total = changed + 2 * n;
+    if (c > 1) changed = (changed + 15) & ~15;
+    total = changed + 2 * held;
   }
 };
 
@@ -59,13 +80,15 @@ __device__ __forceinline__ int append_bits(uint16_t* list, int count, uint32_t b
   return count + __popc(bits);
 }
 
-// The (n, n) u8 mask as bits: byte b of row x's 4·ceil(n/32) bytes holds
-// y = 8b .. 8b+7, so a row reads as little-endian 32-bit words. All threads
-// take part; one aligned 8-byte load gives 8 flags when n is a multiple of 8.
-__device__ void load_mask_bits(const uint8_t* __restrict__ m, uint8_t* bits, int n) {
+// `rows` rows of an (n, n) u8 mask as bits: byte b of row x's 4·ceil(n/32)
+// bytes holds y = 8b .. 8b+7, so a row reads as little-endian 32-bit words.
+// All threads take part; one aligned 8-byte load gives 8 flags when n is a
+// multiple of 8.
+__device__ __forceinline__ void load_mask_rows(const uint8_t* __restrict__ m, uint8_t* bits,
+                                               int n, int rows) {
   const int nb = 4 * ((n + 31) / 32);
   const bool wide = (n & 7) == 0 && (reinterpret_cast<uintptr_t>(m) & 7) == 0;
-  for (int i = threadIdx.x; i < n * nb; i += kThreads) {
+  for (int i = threadIdx.x; i < rows * nb; i += kThreads) {
     const int x = i / nb, b = i - x * nb, y0 = 8 * b;
     const uint8_t* src = m + static_cast<size_t>(x) * n + y0;
     uint32_t f = 0;
@@ -81,6 +104,11 @@ __device__ void load_mask_bits(const uint8_t* __restrict__ m, uint8_t* bits, int
     }
     bits[x * nb + b] = static_cast<uint8_t>(f);
   }
+}
+
+// The whole (n, n) mask as bits.
+__device__ void load_mask_bits(const uint8_t* __restrict__ m, uint8_t* bits, int n) {
+  load_mask_rows(m, bits, n, n);
 }
 
 // This sweep's seed (the changed flags) as bits in the warp's `seed`, one
@@ -179,6 +207,53 @@ cudaError_t launch_rows(void (*kernel)(Params...), dim3 grid, size_t smem, cudaS
   }
   kernel<<<grid, kThreads, smem, stream>>>(args...);
   return cudaGetLastError();
+}
+
+// The launch of `kernel` over rows × c CTAs as clusters of c (a row a
+// cluster), opting in to more than 48 KB of shared memory when the layout
+// needs it; `cfg` points to `attr`, the cluster attribute.
+template <typename Kernel>
+cudaError_t cluster_config(Kernel kernel, int rows, int c, size_t smem, cudaStream_t stream,
+                           cudaLaunchConfig_t& cfg, cudaLaunchAttribute& attr) {
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (e != cudaSuccess) return e;
+  }
+  cfg = cudaLaunchConfig_t{};
+  cfg.gridDim = dim3(static_cast<unsigned>(rows) * c);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = c;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  return cudaSuccess;
+}
+
+// Launch `kernel` with a row a cluster of c CTAs (`cluster_config`).
+template <typename... Params, typename... Args>
+cudaError_t launch_clusters(void (*kernel)(Params...), int rows, int c, size_t smem,
+                            cudaStream_t stream, Args... args) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cudaError_t e = cluster_config(kernel, rows, c, smem, stream, cfg, attr);
+  if (e == cudaSuccess) e = cudaLaunchKernelEx(&cfg, kernel, args...);
+  return e != cudaSuccess ? e : cudaGetLastError();
+}
+
+// How many clusters of c CTAs of `kernel` the card holds at once, into
+// *clusters: 0 where not even one fits.
+template <typename Kernel>
+cudaError_t max_clusters(Kernel kernel, int c, size_t smem, cudaStream_t stream, int* clusters) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  const cudaError_t e = cluster_config(kernel, 1, c, smem, stream, cfg, attr);
+  if (e != cudaSuccess) return e;
+  return cudaOccupancyMaxActiveClusters(clusters, (const void*)kernel, &cfg);
 }
 
 }  // namespace fixpoint

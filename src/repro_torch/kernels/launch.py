@@ -10,6 +10,7 @@ passes pointers as 64-bit values and never cuts them to 32 bits.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional, Sequence, Tuple
 
 import torch
@@ -48,6 +49,15 @@ BLOCK = {
     "dense_revise": {"dense_block_revise_launch": (6, 4), "dense_revise_wide_launch": (6, 3)},
 }
 
+#: library -> {C function: (pointer arguments, int arguments)} of kernel 1
+#: with each row split over a thread-block cluster (`fixpoint_split`):
+#: ``packed_fixpoint_split_launch`` takes the tensors of
+#: ``packed_fixpoint_stacked_launch``, then (rows, n, d, w, c);
+#: ``packed_fixpoint_split_clusters`` (`split_clusters`) an int pointer, then
+#: (n, d, w, c), and writes how many such clusters the card holds at once
+SPLIT = {"packed_fixpoint": {"packed_fixpoint_split_launch": (8, 5),
+                             "packed_fixpoint_split_clusters": (1, 4)}}
+
 #: library -> {C launcher: (pointer arguments, int arguments)} of the
 #: launchers that take no schedule: the word loop's epilogue
 #: (csrc/word_epilogue.cu), its tensors (words, violations, seeds,
@@ -60,24 +70,69 @@ SIGNATURES = {
     **{library: {**launchers,
                  **{f"{name}_sched": (ptrs, ints + 1)
                     for name, (ptrs, ints) in launchers.items()},
-                 **BLOCK.get(library, {})}
+                 **BLOCK.get(library, {}), **SPLIT.get(library, {})}
        for library, launchers in SCHEDULED.items()},
     **UNSCHEDULED,
 }
+
+def _align16(nbytes: int) -> int:
+    return -(-nbytes // 16) * 16
+
 
 #: warps of one fused-fixpoint or stacked-revise CTA (``kWarps`` in
 #: csrc/fixpoint_common.cuh)
 CTA_WARPS = 8
 
 
-def fixpoint_smem(n: int, d: int, dom_bytes: int) -> int:
+def split_span(n: int, c: int) -> int:
+    """Variables a CTA of a row split over ``c`` CTAs owns, at most
+    (``split_span`` in csrc/fixpoint_common.cuh): ceil(n/c) rounded up to a
+    multiple of 16, so that a span's domain words and changed flags are whole
+    16-byte pieces; n for an unsplit row."""
+    return n if c == 1 else 16 * -(-(-(-n // c)) // 16)
+
+
+def fixpoint_smem(n: int, d: int, dom_bytes: int, split: int = 1) -> int:
     """Shared memory of one fused-fixpoint CTA (``Smem`` in
     csrc/fixpoint_common.cuh): two domain buffers of ``dom_bytes``, the mask
     bits, per-warp seed bits and violation words, two wipe-out flags,
-    per-warp neighbour and value lists (u16), two changed-flag buffers."""
+    per-warp neighbour and value lists (u16), two changed-flag buffers.
+
+    A CTA of a packed row split over ``split`` > 1 CTAs (`fixpoint_split`)
+    holds the mask bits of its own span (`split_span`) alone, and domain
+    buffers and changed flags for ``split`` whole spans, the flags 16-byte
+    aligned. ``split`` = 1 is the figure every route decides on."""
     nwn, w = -(-n // 32), -(-d // 32)
-    return (2 * dom_bytes + 4 * (n * nwn + CTA_WARPS * (nwn + w) + 2)
-            + 2 * CTA_WARPS * (n + d) + 2 * n)
+    span = split_span(n, split)
+    held = n if split == 1 else split * span
+    head = (2 * (dom_bytes if split == 1 else dom_bytes // n * held)
+            + 4 * (span * nwn + CTA_WARPS * (nwn + w) + 2) + 2 * CTA_WARPS * (n + d))
+    return (head if split == 1 else _align16(head)) + 2 * held
+
+
+#: the least n at which `fixpoint_split` splits kernel 1's rows: on an H100
+#: a split saved 0.009-0.022 ms a launch at n_p = 104 (rb100-40, 1-32 rows;
+#: 0.017-0.045 ms launches) against 0.08-0.28 ms at n_p = 256 (PERF.md)
+SPLIT_MIN_N = 256
+
+#: the most CTAs of a split row (``kMaxSplit``, the portable cluster size)
+SPLIT_MAX = 8
+
+#: split CTAs an SM runs at once: the split kernel's 128 registers a thread
+#: over 256 threads take half an SM's 65,536
+SPLIT_CTAS_PER_SM = 2
+
+
+def fixpoint_split(rows: int, n: int, sms: int) -> int:
+    """CTAs a row of kernel 1 takes for a launch of ``rows`` rows at n on a
+    card of ``sms`` SMs: the largest power of two up to ``min(SPLIT_MAX,
+    SPLIT_CTAS_PER_SM · sms // rows)`` where ``n >= SPLIT_MIN_N``, else 1.
+    So a launch whose rows leave most SMs idle spreads each row over
+    several, and one whose rows fill the card keeps one CTA a row."""
+    room = min(SPLIT_MAX, SPLIT_CTAS_PER_SM * sms // max(rows, 1))
+    if n < SPLIT_MIN_N or room < 2:
+        return 1
+    return 1 << (room.bit_length() - 1)
 
 
 def revise_smem(n: int, d: int, dom_bytes: int, lanes: Optional[int] = None) -> int:
@@ -125,10 +180,6 @@ BLOCK_GROUP, BLOCK_WINDOW, BLOCK_MAX_N = 32, 1024, 65535
 
 #: bytes of a block-revise warp's stage (``kStageBytes``)
 BLOCK_STAGE = 2048
-
-
-def _align16(nbytes: int) -> int:
-    return -(-nbytes // 16) * 16
 
 
 def block_smem(n: int) -> int:
@@ -230,6 +281,26 @@ def _function(library: str, launcher: str):
         fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    """The SMs of a CUDA ``device``."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+@functools.lru_cache(maxsize=None)
+def split_clusters(device: torch.device, n: int, d: int, w: int, c: int) -> int:
+    """How many clusters of kernel 1 split over ``c`` CTAs at (n, d, w) a
+    CUDA ``device`` holds at once (``cudaOccupancyMaxActiveClusters`` at the
+    split CTA's shared memory); 0 where not even one fits."""
+    fn = _function("packed_fixpoint", "packed_fixpoint_split_clusters")
+    out = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        rc = fn(ctypes.addressof(out), n, d, w, c, None)
+    if rc != 0:
+        raise RuntimeError(f"packed_fixpoint_split_clusters failed: cudaError {rc}")
+    return out.value
 
 
 def launch(library: str, launcher: str, tensors: Sequence[Tensor], *sizes: int,

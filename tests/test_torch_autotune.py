@@ -68,19 +68,20 @@ def test_launchers_have_scheduled_variants_and_obs_names_are_the_references():
     from repro_torch.kernels import launch
 
     assert set(launch.SIGNATURES) == set(launch.SCHEDULED) | set(launch.UNSCHEDULED)
-    assert set(launch.SCHEDULED) >= set(launch.BLOCK)
+    assert set(launch.SCHEDULED) >= set(launch.BLOCK) | set(launch.SPLIT)
     assert not set(launch.SCHEDULED) & set(launch.UNSCHEDULED)
     for library, launchers in launch.UNSCHEDULED.items():  # no schedule, no variant
         assert launch.SIGNATURES[library] == launchers
     for library in launch.SCHEDULED:
         launchers = launch.SIGNATURES[library]
         plain = launch.SCHEDULED[library]
-        block = launch.BLOCK.get(library, {})
+        block = {**launch.BLOCK.get(library, {}), **launch.SPLIT.get(library, {})}
         assert plain and len(launchers) == 2 * len(plain) + len(block), library
         for name, (ptrs, ints) in plain.items():
             assert launchers[name] == (ptrs, ints)
             assert launchers[f"{name}_sched"] == (ptrs, ints + 1)
-        for name, sig in block.items():  # the caller always gives a block launch's span
+        # the caller always gives a block launch's span, a split launch's CTAs
+        for name, sig in block.items():
             assert launchers[name] == sig and f"{name}_sched" not in launchers
     ref_source, source = inspect.getsource(ref_autotune), inspect.getsource(autotune)
     for name in ('"autotune.search"', '"autotune.tuned_buckets"', '"autotune.search_seconds"'):

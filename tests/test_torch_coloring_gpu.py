@@ -2,7 +2,11 @@
 colours, n_p = 1000, d_p = 88, W = 3.
 
 - kernel 1 (`packed_fixpoint_stacked`, its run-time-W instantiation) on 32
-  search nodes of 32 distinct slots, bit for bit its plain version;
+  search nodes of 32 distinct slots, bit for bit its plain version, a CTA a
+  row and each row split over a cluster of 2, 4 and 8 CTAs and as
+  `launch.fixpoint_split` picks;
+- ``fixpoint.split_launches`` ticks once a round of a two-graph `solve_many`
+  at the cell's shape, and never at rb100-40's (`solve_many`, `mac_solve`);
 - `solve_many` on four lazy instances against the benchmark's plain
   colouring MAC search (`rtacbench/reference/coloring`), within the memory
   of the tables and two instances' dense networks.
@@ -17,9 +21,11 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import coloring_csp, solve_many
+from repro_torch import obs
+from repro_torch.core import coloring_csp, mac_solve, solve_many
 from repro_torch.engines import get_engine
-from repro_torch.kernels import bitpack_support as bs, ops
+from repro_torch.kernels import bitpack_support as bs, launch, ops
+from repro_torch.problems import generate
 from rtacbench.reference import coloring as ref_coloring
 
 pytestmark = pytest.mark.gpu
@@ -41,27 +47,29 @@ def cuda():
     return torch.device("cuda")
 
 
-def _search_row(adj, rng):
-    """A search node of colouring ``adj``: a greedy partial colouring as
-    large as leaves its closure consistent (the plain reference's
-    fixpoint), then one more variable assigned, the value that most of its
-    neighbours of two or three values hold, seeded alone; every fourth row
-    is a root instead, the partial colouring seeded unpropagated."""
+def _search_row(adj, rng, k=K):
+    """A search node of colouring ``adj`` with ``k`` colours: a greedy
+    partial colouring as large as leaves its closure consistent (the plain
+    reference's fixpoint; at most 4/5 of the vertices), then one more
+    variable assigned, the value that most of its neighbours of two or three
+    values hold, seeded alone; every fourth row is a root instead, the
+    partial colouring seeded unpropagated."""
     mask = torch.as_tensor(adj)
-    m = 800
+    n = adj.shape[0]
+    m = 4 * n // 5
     while True:
-        col = -np.ones(N, dtype=np.int64)
-        for v in rng.permutation(N)[:m]:
-            used = np.zeros(K, dtype=bool)
+        col = -np.ones(n, dtype=np.int64)
+        for v in rng.permutation(n)[:m]:
+            used = np.zeros(k, dtype=bool)
             used[col[adj[v] & (col >= 0)]] = True
             free = np.nonzero(~used)[0]
             if free.size:
                 col[v] = free[int(rng.integers(min(3, free.size)))]
         fixed = np.nonzero(col >= 0)[0]
-        dom = torch.ones((N, K), dtype=torch.bool)
+        dom = torch.ones((n, k), dtype=torch.bool)
         dom[fixed] = False
         dom[fixed, col[fixed]] = True
-        seed = torch.zeros(N, dtype=torch.bool)
+        seed = torch.zeros(n, dtype=torch.bool)
         seed[fixed] = True
         out = ref_coloring.fixpoint(mask, dom[None], seed[None])
         if bool(out.consistent[0]):
@@ -74,22 +82,25 @@ def _search_row(adj, rng):
     small = (closure & ((size >= 2) & (size <= 3))[:, None]).to(torch.int32)
     score = (mask.to(torch.int32) @ small) * closure
     score[size < 2] = -1
-    v, a = divmod(int(score.argmax()), K)
+    v, a = divmod(int(score.argmax()), k)
     if score[v, a] <= 0:  # no such neighbours: the first value of a smallest domain
-        v = int(torch.where(size < 2, K + 1, size).argmin())
+        v = int(torch.where(size < 2, k + 1, size).argmin())
         a = int(closure[v].nonzero()[0])
     closure[v] = False
     closure[v, a] = True
-    seed = torch.zeros(N, dtype=torch.bool)
+    seed = torch.zeros(n, dtype=torch.bool)
     seed[v] = True
     return closure, seed
 
 
-def test_kernel_1_at_the_cell_shape_equals_plain(cuda):
-    """Kernel 1 (`packed_fixpoint_stacked`, run-time W = 3) on 32 search
-    nodes of 32 distinct slots of G(1000, 0.5) at 83 colours (`_search_row`,
-    each routed to its own graph's slot, the slots in reverse), bit for bit
-    its plain version: closures, verdicts and k."""
+@pytest.fixture(scope="module")
+def cell_rows():
+    """Kernel 1's operands at the cell's shape and its plain result: 32
+    search nodes (`_search_row`) of 32 distinct slots of G(1000, 0.5) at 83
+    colours, each routed to its own graph's slot, the slots in reverse."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    cuda = torch.device("cuda")
     adjs = [_adjacency(100 + s, N, P) for s in range(32)]
     eng = get_engine("hopper_packed", device=cuda)
     cons, mask = eng.prepare_many([lambda a=a: coloring_csp(a, K, device=cuda)
@@ -103,11 +114,56 @@ def test_kernel_1_at_the_cell_shape_equals_plain(cuda):
     words = ops.pack_words(dom_p).view(32, -1).contiguous()
     seed = torch.stack(seeds).to(cuda, torch.uint8).contiguous()
     idx = torch.arange(31, -1, -1, dtype=torch.int32, device=cuda)
-    got = bs.packed_fixpoint_stacked(cons, mask, idx, words, seed, d=d_p, w=w)
-    want = bs.packed_fixpoint_stacked_plain(cons, mask, idx, words, seed, d=d_p, w=w)
+    args = (cons, mask, idx, words, seed)
+    want = bs.packed_fixpoint_stacked_plain(*args, d=d_p, w=w)
+    assert int(want[2].max()) >= 2 and bool((want[1] == 0).any()) and bool((want[1] == 1).any())
+    yield args, dict(d=d_p, w=w), want
+    del args, cons, mask
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.parametrize("split", [1, 2, 4, 8, None], ids=["c1", "c2", "c4", "c8", "rule"])
+def test_kernel_1_at_the_cell_shape_equals_plain(cell_rows, split):
+    """Kernel 1 (`packed_fixpoint_stacked`, run-time W = 3) on 32 search
+    nodes of 32 distinct slots of G(1000, 0.5) at 83 colours (`cell_rows`),
+    bit for bit its plain version: closures, verdicts and k; a CTA a row,
+    each row over a cluster of 2, 4 or 8 CTAs, and as the rule picks (c > 1
+    on a card of at least 32 SMs). A split launch ticks
+    ``fixpoint.split_launches`` once."""
+    args, kw, want = cell_rows
+    before = obs.REGISTRY.counter("fixpoint.split_launches")
+    got = bs.packed_fixpoint_stacked(*args, **kw, split=split)
     for g, e in zip(got, want):
         assert torch.equal(g, e)
-    assert int(want[2].max()) >= 2 and bool((want[1] == 0).any()) and bool((want[1] == 1).any())
+    c = split
+    if split is None:
+        c = launch.fixpoint_split(32, N, launch.sm_count(args[0].device))
+        assert c > 1 or launch.sm_count(args[0].device) < 32
+    assert obs.REGISTRY.counter("fixpoint.split_launches") - before == (c > 1)
+
+
+def test_split_launches_tick_every_round_at_the_cell_shape_and_never_at_rb100_40(cuda):
+    """``fixpoint.split_launches`` (registry, always on) ticks once a round
+    of a two-graph `solve_many` at the cell's shape and schedule (2 rows a
+    round of n 1,000: each row over a cluster), and stays at 0 through a
+    `solve_many` and a `mac_solve` on rb100-40 (n_p = 104, below
+    `launch.SPLIT_MIN_N`)."""
+    eng = get_engine("hopper_packed", device=cuda)
+    count = lambda: obs.REGISTRY.counter("fixpoint.split_launches")  # noqa: E731
+    before = count()
+    tel = {}
+    _, stats = solve_many([lambda s=s: coloring_csp(_adjacency(300 + s, N, P), K, device=cuda)
+                           for s in range(2)], engine=eng, max_assignments=40,
+                          batched_children=False, telemetry=tel)
+    assert tel["rounds"] > 0 and count() - before == tel["rounds"] == tel["launches"]
+    torch.cuda.empty_cache()
+    csps = [generate("model_rb", seed=i, device=cuda, n=100, alpha=0.8, r=0.7, hardness=0.9)
+            for i in range(4)]
+    before = count()
+    bs.reset_launches()
+    solve_many(csps, engine=eng, max_assignments=200)
+    mac_solve(csps[0], engine=eng, max_assignments=200)
+    assert bs.packed_fixpoint_stacked.launches > 0 and count() == before
 
 
 @pytest.mark.parametrize("batched,budget", [(False, 1000), (True, 100)])

@@ -448,17 +448,26 @@ def _edge_rows(case, device, kind):
     return (cons, mask, idx, dom.contiguous(), seed.contiguous()), d_p, w
 
 
-@pytest.mark.parametrize("fn", ["fixpoint", "revise"])
-@pytest.mark.parametrize("kind", ["packed", "dense"])
-@pytest.mark.parametrize("case", list(EDGE_CASES))
-def test_fused_kernels_match_plain_on_edge_cases(cuda, case, kind, fn):
+#: `test_fused_kernels_match_plain_on_edge_cases`' cases: every case of
+#: both kinds' fixpoints and revises, then the packed fixpoint with each row
+#: split over a cluster of 4 CTAs (``split4``)
+EDGE_PARAMS = [pytest.param(case, kind, fn, None, id=f"{case}-{kind}-{fn}")
+               for fn in ("fixpoint", "revise") for kind in ("packed", "dense")
+               for case in EDGE_CASES] + [
+    pytest.param(case, "packed", "fixpoint", 4, id=f"{case}-packed-fixpoint-split4")
+    for case in EDGE_CASES]
+
+
+@pytest.mark.parametrize("case,kind,fn,split", EDGE_PARAMS)
+def test_fused_kernels_match_plain_on_edge_cases(cuda, case, kind, fn, split):
     """Both fused fixpoints (domain, consistency, k) and both stacked
-    revises (violations) bit for bit against their plain versions."""
+    revises (violations) bit for bit against their plain versions; the
+    packed fixpoint also with each row split over a cluster of 4 CTAs."""
     args, d_p, w = _edge_rows(case, cuda, kind)
     mod, kw = (bs, dict(d=d_p, w=w)) if kind == "packed" else (rs, dict(d=d_p))
     kernel = getattr(mod, f"{kind}_{fn}_stacked")
     mod.reset_launches()
-    got = kernel(*args, **kw)
+    got = kernel(*args, **kw) if split is None else kernel(*args, **kw, split=split)
     want = getattr(mod, f"{kind}_{fn}_stacked_plain")(*args, **kw)
     if fn == "revise":
         got, want = (got,), (want,)

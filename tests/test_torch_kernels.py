@@ -414,6 +414,68 @@ def test_fixpoint_smem_fits_the_driven_shapes(kind):
     # 2 × 4,160 B dense), then 4,376 B of mask bits, seed and violation
     # words, wipe-out flags, neighbour and value lists and changed flags
     assert smem(104, 40) == (1664 if kind == "packed" else 8320) + 4376
+    if kind == "packed":
+        # a row of the colouring cell's shape (n 1,000, d 88, W 3) split over
+        # c CTAs, counted by hand: two buffers of c spans' words (a span is
+        # ceil(1000/c) rounded up to 16: 512, 256, 128; 1,024 variables, 2 ×
+        # 12,288 B), the span's mask bits (span × 32 words), 1,128 B of seed
+        # and violation words and wipe-out flags, 17,408 B of lists, aligned
+        # to 16, then two buffers of 1,024 changed flags. c = 1 is the
+        # figure every route decides on, the same with or without `split`
+        assert smem(1000, 88) == launch.fixpoint_smem(1000, 88, 12000, split=1) == 172536
+        for c, span in ((2, 512), (4, 256), (8, 128)):
+            assert launch.split_span(1000, c) == span
+            head = 2 * 12288 + 4 * 32 * span + 1128 + 17408
+            want = -(-head // 16) * 16 + 2 * 1024
+            assert launch.fixpoint_smem(1000, 88, 12000, split=c) == want
+        assert [launch.fixpoint_smem(1000, 88, 12000, split=c) for c in (2, 4, 8)] == [
+            110704, 77936, 61552]
+        assert launch.split_span(104, 1) == 104 and launch.split_span(16, 4) == 16
+
+
+#: `launch.fixpoint_split` cases: (rows, n, SMs) -> CTAs a row. The
+#: colouring cell (32 rows of n 1,000 on an H100's 132 SMs) spreads its rows
+#: over clusters of 8, two split CTAs an SM; rb100-40 (n 104) keeps one CTA
+#: a row at any round width; 200 rows of n 1,000 and a 2-SM card leave no
+#: SMs to spread over; 64 rows and 1 row of n 1,000 take 4 and 8
+SPLIT_RULE = {
+    (32, 1000, 132): 8,
+    (1, 104, 132): 1, (2, 104, 132): 1, (32, 104, 132): 1, (1024, 104, 132): 1,
+    (200, 1000, 132): 1,
+    (32, 1000, 2): 1,
+    (64, 1000, 132): 4, (1, 1000, 132): 8,
+}
+
+
+@pytest.mark.parametrize("rows,n,sms", list(SPLIT_RULE), ids=[
+    "dsjc", "rb100-40_r1", "rb100-40_r2", "rb100-40_r32", "rb100-40_r1024", "r200_n1000",
+    "two_sms", "r64_n1000", "r1_n1000"])
+def test_fixpoint_split_rule(rows, n, sms):
+    """`launch.fixpoint_split`: the largest power of two up to
+    min(8, 2 · SMs // rows) from n = `SPLIT_MIN_N`, else 1."""
+    c = launch.fixpoint_split(rows, n, sms)
+    assert c == SPLIT_RULE[rows, n, sms]
+    room = min(launch.SPLIT_MAX, launch.SPLIT_CTAS_PER_SM * sms // rows)
+    assert c == 1 or (c & (c - 1) == 0 and c <= room < 2 * c)
+    if rows == 32 and n == 1000 and sms == 132:
+        assert c > 1
+    assert 104 < launch.SPLIT_MIN_N <= 1000
+
+
+def test_split_argument_is_checked_and_plain_on_the_cpu():
+    """`packed_fixpoint_stacked`'s ``split`` is 1 to `launch.SPLIT_MAX`;
+    on the CPU the wrapper computes its plain version whatever it is."""
+    _, tables, idx, _, (dom, ch), (n_p, d_p, w) = _stacked_fixture(8, 5, 8, 8, "packed")
+    r = len(idx)
+    args = (tables[0], tables[1], torch.as_tensor(idx),
+            ref.pack_bits_ref(dom).reshape(r, n_p * w), ch.to(torch.uint8))
+    want = bs.packed_fixpoint_stacked_plain(*args, d=d_p, w=w)
+    for c in (1, 4, launch.SPLIT_MAX):
+        got = bs.packed_fixpoint_stacked(*args, d=d_p, w=w, split=c)
+        assert all(torch.equal(g, e) for g, e in zip(got, want))
+    for c in (0, launch.SPLIT_MAX + 1):
+        with pytest.raises(ValueError, match="split"):
+            bs.packed_fixpoint_stacked(*args, d=d_p, w=w, split=c)
 
 
 #: `launch.revise_smem` at the driven shapes: (kind, n_p, d_p) -> bytes
